@@ -1,0 +1,411 @@
+"""Chip smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit) on any error:
+
+1. device: the card's name, count, and nvidia-smi's name and power limit;
+2. build: every CUDA kernel of the chip-creation path, one nvcc per
+   source started together, with ptxas' registers, shared memory and
+   spills;
+3. kernel vs plain: each kernel's wrapper on the card at the path's
+   shapes, bitwise equal (torch.equal) to its plain PyTorch version on
+   the same inputs; CUDA-event times of both, and the least time the
+   card could take (bytes over 3.35 TB/s or fp32 operations over
+   67 TFLOP/s, whichever is larger);
+4. end to end: DLSampleCreationConfig -> create_tile_job_configs ->
+   run_export over a seeded 32-tile AOI with ~1,024 label polygons, per
+   tile and batched (16 tiles per launch), each on the card and on the
+   CPU with the plain versions; the card's GeoTIFF bytes must equal the
+   CPU's on each path, and the image chips must be equal across all
+   four runs. Once for the Sentinel-2 cloud-masked median (260 px, 13
+   bands) and once for the nearest-date mosaic (RGB at 1.0 m). The
+   launch counters are set to 0 just before the card's runs and read
+   just after: every kernel must have been launched there.
+
+The second-to-last line is one JSON object {"kernels": [...]}; the last
+line is {"ok": true, "device": {...}}. Without a CUDA card the script
+exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import datetime as dt
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+# H100 SXM data sheet (700 W): device-memory rate and fp32 rate outside
+# the tensor cores
+MEM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# fp32 operations of one burn predicate evaluation (pixel x edge) with
+# ALL_TOUCHED: parity 9 (2 compares, 3 subtractions, select, division,
+# fused multiply-add counted as 2, compare) + touch 18 (4 min/max, 4
+# offsets, 4 compares, 2 subtractions, multiply, fused multiply-add as
+# 2, 3 absolute values, add, multiply, compare) -- rounded down to 27
+BURN_OPS_PER_EDGE = 27
+S2_BANDS = ["coastal-aerosol", "blue", "green", "red", "red-edge",
+            "red-edge-2", "red-edge-3", "nir", "red-edge-4", "water-vapor",
+            "cirrus", "swir1", "swir2"]
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds of ``fn`` over ``reps`` runs, by CUDA events,
+    after one warm-up run."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, nops):
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = nops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(name, kernel, plain, nbytes, nops, reps, plain_reps):
+    """Run ``kernel`` and ``plain`` (each returning a tuple of tensors)
+    on the same inputs; fail unless they are bitwise equal."""
+    import torch
+    got = kernel()
+    ref = plain()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+    err = max(float((a.float() - b.float()).abs().max()) for a, b
+              in zip(got, ref))
+    if not equal:
+        raise AssertionError(f"{name}: kernel differs from its plain "
+                             f"version (max abs err {err})")
+    ms = cuda_ms(kernel, reps)
+    plain_ms = cuda_ms(plain, plain_reps)
+    bound_ms, bound_by = bound(nbytes, nops)
+    row = {"case": name, "equal": True, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    log(f"  {name}: equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{bound_ms / ms:.1%} of bound")
+    return row
+
+
+def median_case(S, H, W, B, seed):
+    """Catalog-like scene stack: uint16 (S, H, W, B), blotchy (S, H, W)
+    validity with some pixels invalid in every scene."""
+    import torch
+    rng = np.random.RandomState(seed)
+    stack = rng.randint(0, 4096, size=(S, H, W, B)).astype(np.uint16)
+    base = rng.rand(S, H // 16 + 1, W // 16 + 1)
+    valid = np.kron(base, np.ones((1, 16, 16)))[:, :H, :W] > 0.3
+    valid[:, :3, :3] = False
+    return (torch.from_numpy(stack).cuda(), torch.from_numpy(valid).cuda())
+
+
+def star_features(rng, F, E, xlo, xhi, ylo, yhi, rmin, rmax):
+    """F star polygons of E vertices (pixel coordinates)."""
+    theta = np.linspace(0, 2 * np.pi, E, endpoint=False)
+    cx = rng.uniform(xlo, xhi, F)
+    cy = rng.uniform(ylo, yhi, F)
+    rad = rng.uniform(rmin, rmax, (F, 1)) * (1 + 0.3 * rng.rand(F, E))
+    px = cx[:, None] + rad * np.cos(theta)[None]
+    py = cy[:, None] + rad * np.sin(theta)[None]
+    values = rng.randint(1, 255, F)
+    return [([np.stack([px[f], py[f]], 1)], float(values[f]))
+            for f in range(F)]
+
+
+def burn_work(edges, windows, height, width):
+    """(bytes, operations) of one burn: inputs read once and the float32
+    canvas written once; operations = pixels of each feature's 0.5 px
+    dilated bbox inside its row window and the canvas, times its real
+    edges, times BURN_OPS_PER_EDGE."""
+    real = edges[:, :, 0] != -1.0e9
+    ne = real.sum(1)
+    xs = np.where(real[..., None], edges[:, :, 0::2], np.nan)
+    ys = np.where(real[..., None], edges[:, :, 1::2], np.nan)
+    ops = 0
+    for f in np.nonzero(ne)[0]:
+        x0 = max(0, math.ceil(np.nanmin(xs[f]) - 1.0))
+        x1 = min(width, math.floor(np.nanmax(xs[f])) + 1)
+        y0 = max(0, math.ceil(max(np.nanmin(ys[f]) - 1.0,
+                                  windows[f, 0] - 0.5)))
+        y1 = min(height, math.floor(min(np.nanmax(ys[f]),
+                                        windows[f, 1] - 0.5)) + 1)
+        ops += max(0, x1 - x0) * max(0, y1 - y0) * int(ne[f])
+    nbytes = edges.nbytes + 3 * 4 * len(edges) + height * width * 4
+    return nbytes, ops * BURN_OPS_PER_EDGE
+
+
+def kernel_phase():
+    import torch
+    from dl_image_segmentation_tpu_torch.ops import compositing as oc
+    import importlib
+    rz = importlib.import_module("dl_image_segmentation_tpu_torch.ops."
+                                 "rasterize")
+    rows = {"masked_median": [], "burn_dense": [], "burn_binned": []}
+
+    log("phase 3: kernel vs plain on the card")
+    for S, H, W, B, reps in [(10, 260, 260, 13, 20), (10, 4160, 260, 13, 5),
+                             (73, 260, 260, 13, 5)]:
+        stack, valid = median_case(S, H, W, B, seed=S + H)
+        n = H * W * B
+        nbytes = stack.numel() * 2 + valid.numel() + n * 4 + n
+        nops = n * S * math.ceil(math.log2(max(S, 2)))  # comparison sort
+        rows["masked_median"].append(compare(
+            f"masked_median S={S} {H}x{W}x{B} uint16",
+            lambda: oc.masked_median_kernel(stack, valid),
+            lambda: oc.masked_median(stack, valid), nbytes, nops, reps, 2))
+
+    def burn_cases():
+        rng = np.random.RandomState(3)
+        # one 260 px tile: ~48 features of up to 256 edges (dense)
+        feats = star_features(rng, 48, 256, 10, 250, 10, 250, 4, 26)
+        for f, (rings, v) in enumerate(feats):
+            k = rng.randint(3, 257)
+            feats[f] = ([rings[0][:: max(1, 256 // k)]], v)
+        yield "burn_dense", "tile 260x260, 48 features", feats, (260, 260)
+        # the batched canvas: 16 tiles stacked by rows, row windows
+        feats = []
+        for k in range(16):
+            for rings, v in star_features(rng, 40, 256, 10, 250, -20, 280,
+                                          4, 26):
+                shifted = [np.stack([r[:, 0], r[:, 1] + k * 260], 1)
+                           for r in rings]
+                feats.append((shifted, v, (k * 260.0, (k + 1) * 260.0)))
+        yield ("burn_binned", "batched 4160x260, 640 features, row windows",
+               feats, (4160, 260))
+        # production scale: 1,024 features x 256 edges on 1,024^2
+        yield ("burn_binned", "1024x1024, 1024 features x 256 edges",
+               star_features(rng, 1024, 256, 40, 984, 40, 984, 8, 25.6),
+               (1024, 1024))
+
+    for kind, label, feats, (H, W) in burn_cases():
+        e, v, w = rz.pack_features(feats)
+        if (kind == "burn_binned") != (len(e) > rz._BIN_THRESHOLD):
+            raise AssertionError(f"{label}: dispatch would not take {kind}")
+        ec, vc, wc = (torch.from_numpy(x).cuda() for x in (e, v, w))
+        nbytes, nops = burn_work(e, w, H, W)
+        plain = lambda: (rz._rasterize_torch(ec, vc, 255.0, H, W, True,  # noqa: E731
+                                             wc),)
+        if kind == "burn_dense":
+            kern = lambda: (rz.burn_dense(ec, vc, wc, 255.0, H, W, True),)  # noqa: E731
+        else:
+            cnt, tab = rz._bin_features(e, w, H, W, *rz.BURN_BLOCK)
+            cc, tc = torch.from_numpy(cnt).cuda(), torch.from_numpy(tab).cuda()
+            nbytes += cnt.nbytes + tab.nbytes
+            kern = lambda: (rz.burn_binned(ec, vc, wc, cc, tc, 255.0, H, W,  # noqa: E731
+                                           True),)
+        rows[kind].append(compare(f"{kind} {label}", kern, plain, nbytes,
+                                  nops, 10, 1))
+    return rows
+
+
+def write_labels(path, zone, res, nx, ny, n, seed):
+    """Seeded GeoJSON: ``n`` star polygons of 3..256 vertices, integer
+    attribute ``cls``, inside an nx x ny block of 256-px tiles at
+    ``res`` metres (away from its outer edge, so that planning yields
+    exactly those tiles)."""
+    from dl_image_segmentation_tpu_torch.geo import Tile, crs
+    rng = np.random.RandomState(seed)
+    x0, y0, _, _ = Tile(256, 2, res, zone, -10, 1400).bounds_unpadded
+    span = 256 * res
+    margin = 0.12 * span
+    feats = []
+    for _ in range(n):
+        k = rng.randint(3, 257)
+        c = (rng.uniform(x0 + margin, x0 + nx * span - margin),
+             rng.uniform(y0 + margin, y0 + ny * span - margin))
+        ang = np.sort(rng.rand(k) * 2 * np.pi)
+        rad = rng.uniform(0.02, 0.1) * span * (0.6 + 0.4 * rng.rand(k))
+        ex = c[0] + rad * np.cos(ang)
+        ey = c[1] + rad * np.sin(ang)
+        lon, lat = crs.utm_to_lonlat(np.r_[ex, ex[:1]], np.r_[ey, ey[:1]],
+                                     zone)
+        feats.append({"type": "Feature",
+                      "geometry": {"type": "Polygon", "coordinates": [
+                          np.stack([lon, lat], 1).tolist()]},
+                      "properties": {"cls": int(rng.randint(1, 10))}})
+    with open(path, "w") as f:
+        json.dump({"type": "FeatureCollection", "features": feats}, f)
+    return path
+
+
+def read_tree(folder):
+    out = {}
+    for sub in ("images", "labels"):
+        d = os.path.join(folder, sub)
+        for name in sorted(os.listdir(d)):
+            with open(os.path.join(d, name), "rb") as f:
+                out[f"{sub}/{name}"] = f.read()
+    return out
+
+
+def export_phase(tmp, card):
+    import torch
+    from dl_image_segmentation_tpu_torch import kernels
+    from dl_image_segmentation_tpu_torch.catalog import SyntheticCatalog
+    from dl_image_segmentation_tpu_torch.pipeline.chips import (
+        DLSampleCreationConfig, OGRLabelDataDesc)
+    from dl_image_segmentation_tpu_torch.pipeline.export import run_export
+
+    log("phase 4: end to end")
+    launches = {c.name: 0 for c in kernels.COUNTERS}
+    runs = []
+    modes = [("median", "sentinel-2:L1C", S2_BANDS, 10.0, 0),
+             ("nearest", "airbus:oneatlas:phr:v2", "red green blue", 1.0,
+              None)]
+    for mode, product, bands, res, mcf in modes:
+        labels = write_labels(os.path.join(tmp, f"{mode}.geojson"), 43, res,
+                              8, 4, 1024, seed=11)
+        trees = {}
+        for device, batch in (("cuda", 0), ("cuda", 16), ("cpu", 0),
+                              ("cpu", 16)):
+            root = os.path.join(tmp, f"{mode}-{device}-{batch}")
+            cfg = DLSampleCreationConfig(
+                260, 2, res, product, bands, root, "smoke",
+                OGRLabelDataDesc(labels, 0, "cls"), max_cloud_fraction=mcf,
+                catalog=SyntheticCatalog())
+            jobs = cfg.create_tile_job_configs("aoi", 2020,
+                                               dt.date(2020, 11, 1))
+            if len(jobs) != 32:
+                raise AssertionError(f"{mode}: {len(jobs)} tiles, not 32")
+            if device == "cuda":
+                torch.cuda.synchronize()
+                for c in kernels.COUNTERS:
+                    c.reset()
+            t0 = time.perf_counter()
+            report = run_export(jobs, n_workers=8, progress=None,
+                                batch_tiles=batch, device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = {c.name: c.count for c in kernels.COUNTERS}
+            if device == "cuda":
+                for k, v in counts.items():
+                    launches[k] += v
+            if not report.ok or report.attempts != 1:
+                raise AssertionError(f"{mode} {device} batch={batch}: "
+                                     f"failed {report.failed}, attempts "
+                                     f"{report.attempts}")
+            trees[(device, batch)] = read_tree(jobs[0].OUTFOLDER)
+            run = {"mode": mode, "device": device, "batch_tiles": batch,
+                   "tiles": len(jobs), "seconds": secs,
+                   "tiles_per_s": len(jobs) / secs,
+                   "launches": counts if device == "cuda" else None,
+                   "key": jobs[0].DLTILE.key}
+            runs.append(run)
+            log(f"  {mode} {device} batch_tiles={batch}: {len(jobs)} tiles "
+                f"in {secs:.3f} s = {run['tiles_per_s']:.3f} tiles/s on "
+                f"{card if device == 'cuda' else 'the host CPU'}; launches "
+                f"{counts if device == 'cuda' else '-'}")
+        for batch in (0, 16):
+            ref, got = trees[("cpu", batch)], trees[("cuda", batch)]
+            if len(ref) != 64:
+                raise AssertionError(f"{mode}: {len(ref)} files, not 64")
+            if got != ref:
+                bad = [k for k in ref if got.get(k) != ref[k]][:3]
+                raise AssertionError(f"{mode} batch_tiles={batch}: card's "
+                                     f"bytes differ from the CPU's, e.g. "
+                                     f"{bad}")
+        images = {k: v for k, v in ref.items() if k.startswith("images/")}
+        for key, tree in trees.items():
+            if any(tree[k] != v for k, v in images.items()):
+                raise AssertionError(f"{mode} {key}: image chips differ "
+                                     f"from the CPU's batched run")
+        # The batched burn shifts tile k's geometry by k * 260 rows in
+        # float32 and so rounds the predicate differently from the
+        # per-tile burn (as the JAX package's batched burn does): a few
+        # boundary pixels may differ between the two, never between the
+        # card and the CPU on the same path.
+        moved = sorted(k for k in ref if k.startswith("labels/")
+                       and trees[("cpu", 0)][k] != ref[k])
+        log(f"  {mode}: card == CPU bytes per tile and batched (64 "
+            f"GeoTIFFs each); images equal across all four runs; "
+            f"{len(moved)} of 32 label chips differ between per-tile and "
+            f"batched burns {moved[:4]}")
+        # the chips are valid rasters of the expected shape
+        img = next(v for k, v in ref.items() if k.startswith("images/"))
+        if img[:4] != b"II*\x00":
+            raise AssertionError(f"{mode}: image chip is not a TIFF")
+    for name in ("masked_median", "burn_dense", "burn_binned"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name}: not launched on the main path")
+    return launches, runs
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    from dl_image_segmentation_tpu_torch import kernels
+
+    t_start = time.perf_counter()
+    card = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"phase 1: device {card}, count {count}, nvidia-smi: {smi}")
+    log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+
+    log("phase 2: build")
+    for name, (secs, text) in kernels.build_all().items():
+        log(f"  {name}: built in {secs:.1f} s (wall clock, parallel builds)")
+        for line in text.splitlines():
+            if "Used" in line or "spill" in line or "Compiling" in line:
+                log("   ", line.strip())
+
+    rows = kernel_phase()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        launches, runs = export_phase(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    out = []
+    for c in kernels.COUNTERS:
+        cases = rows[c.name]
+        main_case = cases[1] if c.name == "masked_median" else cases[0]
+        out.append({
+            "name": c.name, "route": "cuda", "source": c.source,
+            "replaces": c.replaces, "launches": launches[c.name],
+            "equal": all(r["equal"] for r in cases),
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"], "library_ms": None,
+            "case": main_case["case"], "cases": cases})
+    log(f"seconds {time.perf_counter() - t_start:.1f}; runs "
+        f"{json.dumps(runs)}")
+    log(f"{smi}")
+    log(json.dumps({"kernels": out}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                           "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
