@@ -12,7 +12,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    shapes, bitwise equal (torch.equal) to its plain PyTorch version on
    the same inputs; CUDA-event times of both, and the least time the
    card could take (bytes over 3.35 TB/s or fp32 operations over
-   67 TFLOP/s, whichever is larger);
+   67 TFLOP/s, whichever is larger). Each burn is also launched bare,
+   every input prepared once, bitwise equal to the plain version: its
+   time (``ms``) is that of a CUDA graph of bare launches, and
+   ``wrapper_ms`` that of the wrapper as the main path calls it;
 4. end to end: DLSampleCreationConfig -> create_tile_job_configs ->
    run_export over a seeded 32-tile AOI with ~1,024 label polygons, per
    tile and batched (16 tiles per launch), each on the card and on the
@@ -46,11 +49,27 @@ import numpy as np
 # the tensor cores
 MEM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# fp32 operations of one burn predicate evaluation (pixel x edge) with
-# ALL_TOUCHED: parity 9 (2 compares, 3 subtractions, select, division,
-# fused multiply-add counted as 2, compare) + touch 18 (4 min/max, 4
-# offsets, 4 compares, 2 subtractions, multiply, fused multiply-add as
-# 2, 3 absolute values, add, multiply, compare) -- rounded down to 27
+# fp32 operations a burn needs with ALL_TOUCHED, counted on what the
+# inputs need rather than on what a kernel evaluates:
+# * per (row, edge) pair whose y-span dilated 0.5 px meets the row
+#   (inside the canvas and the feature's window): the y half of the box
+#   test (2 compares), straddle (2 compares, 1 xor), cy - y0, the
+#   division, the fused multiply-add (2), ny * (cy - y0), and the two
+#   compares that place the crossing and the box in x -- 12;
+# * per (pixel, edge) pair whose centre lies in the edge's bbox dilated
+#   0.5 px: the x half of the box test (2 offsets, 2 compares), cx - x0,
+#   the fused multiply-add (2), absolute value, compare with reach, and,
+#   or into touch, and the parity compare, and, xor -- 14;
+# * one per pixel: crossings of a row left of the box need no per-pixel
+#   work beyond a running xor along the row.
+BURN_ROW_EDGE_OPS = 12
+BURN_PIXEL_EDGE_OPS = 14
+# the full predicate on every (pixel, edge) pair of each feature's dilated
+# bbox: parity 9 (2 compares, 3 subtractions, select, division, fused
+# multiply-add as 2, compare) + touch 18 (4 min/max, 4 offsets, 4
+# compares, 2 subtractions, multiply, fused multiply-add as 2, 3 absolute
+# values, add, multiply, compare) -- rounded down to 27; kept as a second
+# figure, comparable with earlier rows of PERF.md
 BURN_OPS_PER_EDGE = 27
 S2_BANDS = ["coastal-aerosol", "blue", "green", "red", "red-edge",
             "red-edge-2", "red-edge-3", "nir", "red-edge-4", "water-vapor",
@@ -75,6 +94,29 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(launch, n=20, reps=10):
+    """Mean milliseconds of one ``launch`` on the card alone: CUDA events
+    around ``reps`` replays of a CUDA graph of ``n`` launches, so that no
+    host work sits between them."""
+    import torch
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * n)
 
 
 def bound(nbytes, nops):
@@ -133,16 +175,41 @@ def star_features(rng, F, E, xlo, xhi, ylo, yhi, rmin, rmax):
             for f in range(F)]
 
 
-def burn_work(edges, windows, height, width):
-    """(bytes, operations) of one burn: inputs read once and the float32
-    canvas written once; operations = pixels of each feature's 0.5 px
-    dilated bbox inside its row window and the canvas, times its real
-    edges, times BURN_OPS_PER_EDGE."""
+def burn_work(edges, windows, height, width, bins=None):
+    """(bytes, operations, operations over all pairs) of one burn with
+    ALL_TOUCHED. Bytes: what these inputs need read once -- the real
+    edges (16 bytes each), 32 bytes (bbox, window, edge count, value)
+    for each feature the kernel culls (all F of the dense kernel, the
+    binned ones of the binned kernel), and with ``bins`` = (count,
+    table) the count array and the count[b] table entries of each
+    block -- and the float32 canvas written once. Padding edges,
+    padded features and unused table slots are not read and not
+    counted. Operations: BURN_ROW_EDGE_OPS per (row, edge) pair and
+    BURN_PIXEL_EDGE_OPS per (pixel, edge) pair that these inputs need,
+    plus one per pixel. Operations over all pairs: pixels of each
+    feature's 0.5 px dilated bbox inside its row window and the canvas,
+    times its real edges, times BURN_OPS_PER_EDGE."""
     real = edges[:, :, 0] != -1.0e9
+    x0, y0, x1, y1 = (edges[:, :, i].astype(np.float64) for i in range(4))
+    w0, w1 = (windows[:, i:i + 1].astype(np.float64) for i in range(2))
+    # rows r (centre r + 0.5) with r + 1 >= min y, r <= max y, inside
+    # the window and the canvas; columns likewise against the x span
+    r0 = np.maximum(np.maximum(np.ceil(np.minimum(y0, y1) - 1.0),
+                               np.ceil(w0 - 0.5)), 0)
+    r1 = np.minimum(np.minimum(np.floor(np.maximum(y0, y1)),
+                               np.ceil(w1 - 0.5) - 1), height - 1)
+    c0 = np.maximum(np.ceil(np.minimum(x0, x1) - 1.0), 0)
+    c1 = np.minimum(np.floor(np.maximum(x0, x1)), width - 1)
+    rows = np.where(real, np.clip(r1 - r0 + 1, 0, None), 0)
+    cols = np.clip(c1 - c0 + 1, 0, None)
+    ops = (BURN_ROW_EDGE_OPS * int(rows.sum())
+           + BURN_PIXEL_EDGE_OPS * int((rows * cols).sum())
+           + height * width)
+
     ne = real.sum(1)
     xs = np.where(real[..., None], edges[:, :, 0::2], np.nan)
     ys = np.where(real[..., None], edges[:, :, 1::2], np.nan)
-    ops = 0
+    all_pairs = 0
     for f in np.nonzero(ne)[0]:
         x0 = max(0, math.ceil(np.nanmin(xs[f]) - 1.0))
         x1 = min(width, math.floor(np.nanmax(xs[f])) + 1)
@@ -150,13 +217,73 @@ def burn_work(edges, windows, height, width):
                                   windows[f, 0] - 0.5)))
         y1 = min(height, math.floor(min(np.nanmax(ys[f]),
                                         windows[f, 1] - 0.5)) + 1)
-        ops += max(0, x1 - x0) * max(0, y1 - y0) * int(ne[f])
-    nbytes = edges.nbytes + 3 * 4 * len(edges) + height * width * 4
-    return nbytes, ops * BURN_OPS_PER_EDGE
+        all_pairs += max(0, x1 - x0) * max(0, y1 - y0) * int(ne[f])
+    if bins is None:
+        n_read, table_bytes = len(edges), 0
+    else:
+        count, table = bins
+        used = np.arange(table.shape[2]) < count[..., None]
+        n_read = len(np.unique(table[used]))
+        table_bytes = 4 * (int(count.sum()) + count.size)
+    nbytes = (16 * int(real.sum()) + 32 * n_read + table_bytes
+              + height * width * 4)
+    return nbytes, ops, all_pairs * BURN_OPS_PER_EDGE
+
+
+def burn_compare(rz, kind, label, feats, H, W):
+    """One burn case: the plain version, the bare kernel and the wrapper,
+    all bitwise equal; times of each, and bounds."""
+    import torch
+    name = f"{kind} {label}"
+    e, v, w = rz.pack_features(feats)
+    if (kind == "burn_binned") != (len(e) > rz._BIN_THRESHOLD):
+        raise AssertionError(f"{label}: dispatch would not take {kind}")
+    ins = [torch.from_numpy(x).cuda()
+           for x in (e, v, w, *rz.feature_bounds(e))]
+    bins = (rz._bin_features(e, w, H, W, *rz.BURN_BLOCK)
+            if kind == "burn_binned" else None)
+    nbytes, nops, nops_all = burn_work(e, w, H, W, bins)
+    tables = [torch.from_numpy(x).cuda() for x in bins or ()]
+    burn, launch = ((rz.burn_dense, rz._launch_burn_dense)
+                    if kind == "burn_dense"
+                    else (rz.burn_binned, rz._launch_burn_binned))
+    plain = lambda: rz._rasterize_torch(ins[0], ins[1], 255.0, H, W, True,  # noqa: E731
+                                        ins[2])
+    wrapper = lambda: burn(*ins, *tables, 255.0, H, W, True)  # noqa: E731
+    ref = plain()
+    out = torch.empty((H, W), dtype=torch.float32, device="cuda")
+    # the kernel alone, every input prepared once
+    bare = lambda: launch(*ins, *tables, 255.0, True, out)  # noqa: E731
+    out.fill_(float("nan"))
+    bare()
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError(f"{name}: bare kernel differs from the plain "
+                             f"version")
+    ms = graph_ms(bare)
+    got = wrapper()
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{name}: wrapper differs from the plain "
+                             f"version (max abs err {err})")
+    wrapper_ms = cuda_ms(wrapper, 10)
+    plain_ms = cuda_ms(plain, 1)
+    bound_ms, bound_by = bound(nbytes, nops)
+    bound_all_ms, _ = bound(nbytes, nops_all)
+    row = {"case": name, "equal": True, "max_abs_err": err, "ms": ms,
+           "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms_all_pairs": bound_all_ms, "bytes": nbytes,
+           "operations": nops, "operations_all_pairs": nops_all}
+    log(f"  {name}: equal; kernel alone {ms:.4f} ms, "
+        f"wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {bound_all_ms:.4f} counting all "
+        f"pairs), {bound_ms / ms:.1%} of bound")
+    return row
 
 
 def kernel_phase():
-    import torch
     from dl_image_segmentation_tpu_torch.ops import compositing as oc
     import importlib
     rz = importlib.import_module("dl_image_segmentation_tpu_torch.ops."
@@ -199,23 +326,7 @@ def kernel_phase():
                (1024, 1024))
 
     for kind, label, feats, (H, W) in burn_cases():
-        e, v, w = rz.pack_features(feats)
-        if (kind == "burn_binned") != (len(e) > rz._BIN_THRESHOLD):
-            raise AssertionError(f"{label}: dispatch would not take {kind}")
-        ec, vc, wc = (torch.from_numpy(x).cuda() for x in (e, v, w))
-        nbytes, nops = burn_work(e, w, H, W)
-        plain = lambda: (rz._rasterize_torch(ec, vc, 255.0, H, W, True,  # noqa: E731
-                                             wc),)
-        if kind == "burn_dense":
-            kern = lambda: (rz.burn_dense(ec, vc, wc, 255.0, H, W, True),)  # noqa: E731
-        else:
-            cnt, tab = rz._bin_features(e, w, H, W, *rz.BURN_BLOCK)
-            cc, tc = torch.from_numpy(cnt).cuda(), torch.from_numpy(tab).cuda()
-            nbytes += cnt.nbytes + tab.nbytes
-            kern = lambda: (rz.burn_binned(ec, vc, wc, cc, tc, 255.0, H, W,  # noqa: E731
-                                           True),)
-        rows[kind].append(compare(f"{kind} {label}", kern, plain, nbytes,
-                                  nops, 10, 1))
+        rows[kind].append(burn_compare(rz, kind, label, feats, H, W))
     return rows
 
 
@@ -395,6 +506,8 @@ def main() -> int:
             "equal": all(r["equal"] for r in cases),
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            **({"wrapper_ms": main_case["wrapper_ms"]}
+               if "wrapper_ms" in main_case else {}),
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": None,
             "case": main_case["case"], "cases": cases})

@@ -21,8 +21,10 @@ Three implementations with identical output: the plain PyTorch version
 ``_rasterize_jnp``), and two hand-written CUDA kernels (csrc/burn.cu):
 a dense feature scan (:func:`burn_dense`, F <= 64) and a spatially
 binned scan (:func:`burn_binned`) whose per-block feature lists are
-built on the host (:func:`_bin_features`). A wrapper given CPU tensors
-runs the plain version.
+built on the host (:func:`_bin_features`), as are each feature's bbox
+and real-edge count (:func:`feature_bounds`), so that a wrapper launches
+nothing on the card but its kernel. A wrapper given CPU tensors runs the
+plain version.
 
 Rounding: XLA:CPU contracts two expressions of the JAX predicate into
 fused multiply-adds, ``xint = fma(q, x1 - x0, x0)`` and
@@ -149,6 +151,15 @@ def _feature_bboxes(edges: np.ndarray):
             np.min(np.where(m, ys, big), axis=(1, 2)),
             np.max(np.where(m, xs, -big), axis=(1, 2)),
             np.max(np.where(m, ys, -big), axis=(1, 2)))
+
+
+def feature_bounds(edges: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(bbox (F, 4) float32 [minx, miny, maxx, maxy] over real edges,
+    real edge count (F,) int32) of packed ``edges``, on the host: the
+    per-feature inputs of the burn kernels besides edges, values and
+    windows. Same values as :func:`_bboxes_nedges`."""
+    bbox = np.stack(_feature_bboxes(edges), axis=-1).astype(np.float32)
+    return bbox, (edges[:, :, 0] != _FAR).sum(axis=1).astype(np.int32)
 
 
 def _bin_features(edges_np: np.ndarray, windows_np: np.ndarray,
@@ -317,69 +328,108 @@ def _rasterize_torch(edges: torch.Tensor, values: torch.Tensor,
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_burn_inputs(name: str, edges, values, windows, *ints) -> None:
+def _check_burn_inputs(name: str, edges, values, windows, bbox, nedges,
+                       *tables) -> None:
     dev = edges.device
-    if dev.type != "cuda" or any(t.device != dev
-                                 for t in (values, windows, *ints)):
+    if dev.type != "cuda" or any(t.device != dev for t in
+                                 (values, windows, bbox, nedges, *tables)):
         raise ValueError(f"{name}: all inputs must be on one CUDA device")
     F = edges.shape[0]
     if (edges.dim() != 3 or edges.shape[2] != 4
             or tuple(values.shape) != (F,)
-            or tuple(windows.shape) != (F, 2)):
+            or tuple(windows.shape) != (F, 2)
+            or tuple(bbox.shape) != (F, 4)
+            or tuple(nedges.shape) != (F,)):
         raise ValueError(f"{name}: edges (F, E, 4), values (F,), windows "
-                         f"(F, 2); got {tuple(edges.shape)}, "
-                         f"{tuple(values.shape)}, {tuple(windows.shape)}")
-    if any(t.dtype != torch.float32 for t in (edges, values, windows)):
-        raise TypeError(f"{name}: edges, values and windows must be "
+                         f"(F, 2), bbox (F, 4), nedges (F,); got "
+                         f"{tuple(edges.shape)}, {tuple(values.shape)}, "
+                         f"{tuple(windows.shape)}, {tuple(bbox.shape)}, "
+                         f"{tuple(nedges.shape)}")
+    if any(t.dtype != torch.float32 for t in (edges, values, windows, bbox)):
+        raise TypeError(f"{name}: edges, values, windows and bbox must be "
                         "float32")
-    if any(t.dtype != torch.int32 for t in ints):
-        raise TypeError(f"{name}: count and table must be int32")
-    if not all(t.is_contiguous() for t in (edges, values, windows, *ints)):
+    if any(t.dtype != torch.int32 for t in (nedges, *tables)):
+        raise TypeError(f"{name}: nedges, count and table must be int32")
+    if not all(t.is_contiguous()
+               for t in (edges, values, windows, bbox, nedges, *tables)):
         raise ValueError(f"{name}: inputs must be contiguous")
-    if edges.data_ptr() % 16:
-        raise ValueError(f"{name}: edges must be 16-byte aligned (read as "
-                         "float4)")
+    if edges.data_ptr() % 16 or bbox.data_ptr() % 16 \
+            or windows.data_ptr() % 8:
+        raise ValueError(f"{name}: edges and bbox must be 16-byte aligned "
+                         "and windows 8-byte aligned (read as float4 and "
+                         "float2)")
 
 
-def burn_dense(edges: torch.Tensor, values: torch.Tensor,
-               windows: torch.Tensor, background: float, height: int,
-               width: int, all_touched: bool = True) -> torch.Tensor:
-    """Dense burn through the CUDA kernel for CUDA inputs (every block
-    scans all F features); the plain version for CPU inputs. Returns the
-    float32 (height, width) canvas."""
-    if edges.device.type == "cpu":
-        return _rasterize_torch(edges, values, background, height, width,
-                                all_touched, windows)
-    _check_burn_inputs("burn_dense", edges, values, windows)
-    bbox, nedges = _bboxes_nedges(edges)
-    out = torch.empty((height, width), dtype=torch.float32,
-                      device=edges.device)
+def _launch_burn_dense(edges, values, windows, bbox, nedges, background,
+                       all_touched, out) -> None:
+    """Launch the dense kernel onto ``out`` (height, width) on the
+    current stream; inputs as checked by :func:`_check_burn_inputs`.
+    Counts nothing."""
     F, E, _ = edges.shape
     bh, bw = BURN_BLOCK
     rc = kernels.library("burn").burn_dense_launch(
         edges.data_ptr(), nedges.data_ptr(), values.data_ptr(),
-        windows.data_ptr(), bbox.data_ptr(), F, E, height, width,
+        windows.data_ptr(), bbox.data_ptr(), F, E, out.shape[0],
+        out.shape[1], float(background), int(bool(all_touched)), bh, bw,
+        out.data_ptr(), kernels.stream_ptr(edges.device))
+    kernels.check(rc, "burn_dense")
+
+
+def _launch_burn_binned(edges, values, windows, bbox, nedges, count, table,
+                        background, all_touched, out) -> None:
+    """Launch the binned kernel onto ``out``, as
+    :func:`_launch_burn_dense`."""
+    F, E, _ = edges.shape
+    bh, bw = BURN_BLOCK
+    rc = kernels.library("burn").burn_binned_launch(
+        edges.data_ptr(), nedges.data_ptr(), values.data_ptr(),
+        windows.data_ptr(), bbox.data_ptr(), F, E, count.data_ptr(),
+        table.data_ptr(), table.shape[2], out.shape[0], out.shape[1],
         float(background), int(bool(all_touched)), bh, bw, out.data_ptr(),
         kernels.stream_ptr(edges.device))
-    kernels.check(rc, "burn_dense")
+    kernels.check(rc, "burn_binned")
+
+
+def burn_dense(edges: torch.Tensor, values: torch.Tensor,
+               windows: torch.Tensor, bbox: torch.Tensor,
+               nedges: torch.Tensor, background: float, height: int,
+               width: int, all_touched: bool = True) -> torch.Tensor:
+    """Dense burn through the CUDA kernel for CUDA inputs (every block
+    scans all F features); the plain version for CPU inputs. ``bbox``
+    and ``nedges`` must be :func:`feature_bounds` of ``edges``, made on
+    the host, so that the kernel is the only work launched on the card:
+    the kernel trusts them to cull (it reads at most E edges a feature,
+    whatever ``nedges`` says). Returns the float32 (height, width)
+    canvas."""
+    if edges.device.type == "cpu":
+        return _rasterize_torch(edges, values, background, height, width,
+                                all_touched, windows)
+    _check_burn_inputs("burn_dense", edges, values, windows, bbox, nedges)
+    out = torch.empty((height, width), dtype=torch.float32,
+                      device=edges.device)
+    _launch_burn_dense(edges, values, windows, bbox, nedges, background,
+                       all_touched, out)
     kernels.BURN_DENSE.add()
     return out
 
 
 def burn_binned(edges: torch.Tensor, values: torch.Tensor,
-                windows: torch.Tensor, count: torch.Tensor,
+                windows: torch.Tensor, bbox: torch.Tensor,
+                nedges: torch.Tensor, count: torch.Tensor,
                 table: torch.Tensor, background: float, height: int,
                 width: int, all_touched: bool = True) -> torch.Tensor:
     """Binned burn through the CUDA kernel for CUDA inputs: block (i, j)
     of BURN_BLOCK scans only ``table[i, j, :count[i, j]]``, the
-    ascending feature list from :func:`_bin_features`. The plain version
-    for CPU inputs (binning is conservative and the predicate exact, so
-    the lists change no pixel). Returns the float32 (height, width)
+    ascending feature list from :func:`_bin_features`; ``bbox`` and
+    ``nedges`` as for :func:`burn_dense`. The plain version for CPU
+    inputs (binning is conservative and the predicate exact, so the
+    lists change no pixel). Returns the float32 (height, width)
     canvas."""
     if edges.device.type == "cpu":
         return _rasterize_torch(edges, values, background, height, width,
                                 all_touched, windows)
-    _check_burn_inputs("burn_binned", edges, values, windows, count, table)
+    _check_burn_inputs("burn_binned", edges, values, windows, bbox, nedges,
+                       count, table)
     bh, bw = BURN_BLOCK
     grid = (-(-height // bh), -(-width // bw))
     if tuple(count.shape) != grid or tuple(table.shape[:2]) != grid \
@@ -387,17 +437,10 @@ def burn_binned(edges: torch.Tensor, values: torch.Tensor,
         raise ValueError(f"burn_binned: count {tuple(count.shape)} and "
                          f"table {tuple(table.shape)} must cover the "
                          f"{grid} blocks of {BURN_BLOCK}")
-    bbox, nedges = _bboxes_nedges(edges)
     out = torch.empty((height, width), dtype=torch.float32,
                       device=edges.device)
-    F, E, _ = edges.shape
-    rc = kernels.library("burn").burn_binned_launch(
-        edges.data_ptr(), nedges.data_ptr(), values.data_ptr(),
-        windows.data_ptr(), bbox.data_ptr(), F, E, count.data_ptr(),
-        table.data_ptr(), table.shape[2], height, width, float(background),
-        int(bool(all_touched)), bh, bw, out.data_ptr(),
-        kernels.stream_ptr(edges.device))
-    kernels.check(rc, "burn_binned")
+    _launch_burn_binned(edges, values, windows, bbox, nedges, count, table,
+                        background, all_touched, out)
     kernels.BURN_BINNED.add()
     return out
 
@@ -427,17 +470,13 @@ def rasterize(
     dev = resolve_device(device)
     height, width = shape
     edges_np, values_np, windows_np = pack_features(features_px)
-    edges = torch.from_numpy(edges_np).to(dev)
-    values = torch.from_numpy(values_np).to(dev)
-    windows = torch.from_numpy(windows_np).to(dev)
+    inputs = [edges_np, values_np, windows_np, *feature_bounds(edges_np)]
     if len(edges_np) > _BIN_THRESHOLD:
-        count, table = _bin_features(edges_np, windows_np, int(height),
-                                     int(width), *BURN_BLOCK)
-        out = burn_binned(edges, values, windows,
-                          torch.from_numpy(count).to(dev),
-                          torch.from_numpy(table).to(dev), background,
-                          height, width, all_touched)
+        inputs += _bin_features(edges_np, windows_np, int(height),
+                                int(width), *BURN_BLOCK)
+        burn = burn_binned
     else:
-        out = burn_dense(edges, values, windows, background, height, width,
-                         all_touched)
+        burn = burn_dense
+    out = burn(*(torch.from_numpy(x).to(dev) for x in inputs), background,
+               height, width, all_touched)
     return out.cpu().numpy().astype(dtype)

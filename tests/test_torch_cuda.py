@@ -59,10 +59,92 @@ def test_burn_kernels_equal_plain(n, all_touched):
     e, v, w = rz.pack_features(feats)
     ref = rz._rasterize_torch(*(torch.from_numpy(x) for x in (e, v)), 255.0,
                               80, 90, all_touched, torch.from_numpy(w))
-    ec, vc, wc = (torch.from_numpy(x).cuda() for x in (e, v, w))
-    dense = rz.burn_dense(ec, vc, wc, 255.0, 80, 90, all_touched)
-    cnt, tab = rz._bin_features(e, w, 80, 90, *rz.BURN_BLOCK)
-    binned = rz.burn_binned(ec, vc, wc, torch.from_numpy(cnt).cuda(),
-                            torch.from_numpy(tab).cuda(), 255.0, 80, 90,
-                            all_touched)
+    dense, binned = _both_kernels(e, v, w, 80, 90, all_touched)
     assert torch.equal(dense.cpu(), ref) and torch.equal(binned.cpu(), ref)
+
+
+def _both_kernels(e, v, w, H, W, all_touched, extra_edges=0):
+    """Both burn kernels through their wrappers on the packed features,
+    with ``extra_edges`` added to every real-edge count; each launch
+    counter must move by one."""
+    bbox, nedges = rz.feature_bounds(e)
+    ins = [torch.from_numpy(x).cuda()
+           for x in (e, v, w, bbox, nedges + np.int32(extra_edges))]
+    tables = [torch.from_numpy(x).cuda()
+              for x in rz._bin_features(e, w, H, W, *rz.BURN_BLOCK)]
+    before = kernels.BURN_DENSE.count, kernels.BURN_BINNED.count
+    dense = rz.burn_dense(*ins, 255.0, H, W, all_touched)
+    binned = rz.burn_binned(*ins, *tables, 255.0, H, W, all_touched)
+    torch.cuda.synchronize()
+    assert (kernels.BURN_DENSE.count, kernels.BURN_BINNED.count) == (
+        before[0] + 1, before[1] + 1)
+    return dense, binned
+
+
+def _stars(rng, F, E, xlo, xhi, ylo, yhi, rmin, rmax):
+    """F star polygons of E vertices (pixel coordinates)."""
+    theta = np.linspace(0, 2 * np.pi, E, endpoint=False)
+    cx, cy = rng.uniform(xlo, xhi, F), rng.uniform(ylo, yhi, F)
+    rad = rng.uniform(rmin, rmax, (F, 1)) * (1 + 0.3 * rng.rand(F, E))
+    px = cx[:, None] + rad * np.cos(theta)[None]
+    py = cy[:, None] + rad * np.sin(theta)[None]
+    return [([np.stack([px[f], py[f]], 1)], float(rng.randint(1, 255)))
+            for f in range(F)]
+
+
+def _path_case(name):
+    """(features, (H, W)) at the main path's shapes: one 260 px tile
+    (48 features, dense), the 16-tile batched canvas (640 features, row
+    windows, binned), and the tile with adversarial geometry added."""
+    rng = np.random.RandomState(5)
+    if name == "batched 4160x260":
+        feats = []
+        for k in range(16):
+            for rings, v in _stars(rng, 40, 256, 10, 250, -20, 280, 4, 26):
+                feats.append(([r + [0.0, k * 260.0] for r in rings], v,
+                              (k * 260.0, (k + 1) * 260.0)))
+        return feats, (4160, 260)
+    feats = _stars(rng, 48, 256, 10, 250, 10, 250, 4, 26)
+    for f, (rings, v) in enumerate(feats):
+        feats[f] = ([rings[0][::max(1, 256 // rng.randint(3, 257))]], v)
+    if name == "adversarial":
+        # 300 edges: the staging loop runs twice; a feature over every
+        # block; a 1-row window; vertices on pixel centres and corners
+        feats[3] = _stars(rng, 1, 300, 120, 140, 120, 140, 20, 40)[0]
+        feats[7] = _stars(rng, 1, 200, 128, 132, 128, 132, 150, 170)[0]
+        sq = np.array([[20.5, 30.5], [90.0, 30.5], [90.0, 75.0],
+                       [20.5, 75.0]])
+        feats[11] = ([sq], 9.0, (40.0, 41.0))
+        feats[12] = ([sq + [100.0, 60.0]], 10.0)
+    return feats, (260, 260)
+
+
+@pytest.mark.parametrize("all_touched", [True, False])
+@pytest.mark.parametrize("name", ["tile 260x260", "batched 4160x260",
+                                  "adversarial"])
+def test_burn_kernels_equal_plain_at_path_shapes(name, all_touched):
+    _need_card()
+    feats, (H, W) = _path_case(name)
+    e, v, w = rz.pack_features(feats)
+    assert (len(e) > rz._BIN_THRESHOLD) == (name == "batched 4160x260")
+    assert name != "adversarial" or e.shape[1] == 512
+    ref = rz._rasterize_torch(*(torch.from_numpy(x).cuda() for x in (e, v)),
+                              255.0, H, W, all_touched,
+                              torch.from_numpy(w).cuda())
+    dense, binned = _both_kernels(e, v, w, H, W, all_touched)
+    assert torch.equal(dense, ref) and torch.equal(binned, ref)
+    assert len(torch.unique(ref)) > 10
+
+
+def test_burn_kernels_read_at_most_E_edges():
+    """Edge counts above E are read as E: the kernels then walk only the
+    feature's own padding (no crossings, no touches), never the next
+    feature's edges or past the last one."""
+    _need_card()
+    feats, (H, W) = _path_case("tile 260x260")
+    e, v, w = rz.pack_features(feats)
+    ref = rz._rasterize_torch(*(torch.from_numpy(x).cuda() for x in (e, v)),
+                              255.0, H, W, True, torch.from_numpy(w).cuda())
+    dense, binned = _both_kernels(e, v, w, H, W, True,
+                                  extra_edges=3 * e.shape[1])
+    assert torch.equal(dense, ref) and torch.equal(binned, ref)

@@ -15,7 +15,8 @@ import torch
 
 from dl_image_segmentation_tpu.ops import compositing as jc
 from dl_image_segmentation_tpu.ops.rasterize import (
-    _bin_features as j_bin_features, _rasterize_jnp,
+    _bin_features as j_bin_features, _feature_bboxes as j_feature_bboxes,
+    _rasterize_jnp,
     pack_features as j_pack_features, rasterize as j_rasterize)
 from dl_image_segmentation_tpu_torch import kernels
 from dl_image_segmentation_tpu_torch.ops import compositing as tc
@@ -220,12 +221,23 @@ class TestRasterize:
             np.testing.assert_array_equal(tg, tj)
 
     def test_bboxes_equal_host_bboxes(self):
+        """The plain burn's bbox and edge counts equal the host's, which
+        the kernel wrappers take (feature_bounds), and the JAX package's;
+        the 12 fully padded features get inverted bboxes and no edges."""
         edges, _, _ = tr.pack_features(_random_features(10, 20))
         bbox, nedges = tr._bboxes_nedges(torch.from_numpy(edges))
         np.testing.assert_array_equal(
             bbox.numpy(), np.stack(tr._feature_bboxes(edges), axis=-1))
         np.testing.assert_array_equal(
             nedges.numpy(), (edges[:, :, 0] != tr._FAR).sum(1))
+        hbox, hn = tr.feature_bounds(edges)
+        assert hbox.dtype == np.float32 and hn.dtype == np.int32
+        np.testing.assert_array_equal(hbox, bbox.numpy())
+        np.testing.assert_array_equal(hn, nedges.numpy())
+        np.testing.assert_array_equal(
+            hbox, np.stack(j_feature_bboxes(edges, np), axis=-1))
+        assert len(edges) == 32 and (hn[20:] == 0).all()
+        assert (hbox[20:, 0] > hbox[20:, 2]).all()
 
     def test_plain_burn_edge_chunks_and_wrappers(self, monkeypatch):
         """Chunking the edge axis changes nothing, and both wrappers run
@@ -237,10 +249,11 @@ class TestRasterize:
         chunked = tr._rasterize_torch(e, v, 255.0, N, N, True, w)
         assert torch.equal(whole, chunked)
         before = [c.count for c in kernels.COUNTERS]
-        dense = tr.burn_dense(e, v, w, 255.0, N, N, True)
+        b, ne = (torch.from_numpy(x) for x in tr.feature_bounds(e.numpy()))
+        dense = tr.burn_dense(e, v, w, b, ne, 255.0, N, N, True)
         cnt, tab = tr._bin_features(e.numpy(), w.numpy(), N, N,
                                     *tr.BURN_BLOCK)
-        binned = tr.burn_binned(e, v, w, torch.from_numpy(cnt),
+        binned = tr.burn_binned(e, v, w, b, ne, torch.from_numpy(cnt),
                                 torch.from_numpy(tab), 255.0, N, N, True)
         assert torch.equal(dense, whole) and torch.equal(binned, whole)
         assert [c.count for c in kernels.COUNTERS] == before
@@ -348,3 +361,157 @@ class TestFusedRounding:
             assert got[i] == best or abs(
                 Fraction(float(got[i])) - exact) == abs(
                 Fraction(float(best)) - exact)
+
+
+def _cull_features(case):
+    """[(rings, value, window)] in pixel coordinates for one row-cull
+    case on a canvas of 20 rows x 72 columns."""
+    big = (-1.0e9, 1.0e9)
+    if case == "stars":
+        rng = np.random.RandomState(12)
+        feats = []
+        for v in range(1, 13):
+            c = rng.rand(2) * [60, 12] + [6, 4]
+            k = rng.randint(3, 40)
+            ang = np.sort(rng.rand(k) * 2 * np.pi)
+            rad = (rng.rand(k) * 0.5 + 0.5) * (rng.rand() * 9 + 1)
+            feats.append(([np.stack([c[0] + rad * np.cos(ang),
+                                     c[1] + rad * np.sin(ang)], 1)], v, big))
+        return feats
+    if case == "axis":  # horizontal and vertical edges, corners on the grid
+        return [([np.array([[3, 2], [40, 2], [40, 9], [3, 9]], float)], 1,
+                 big),
+                ([np.array([[33, 7.5], [66.5, 7.5], [66.5, 17.5],
+                            [33, 17.5]])], 2, big),
+                ([np.array([[10, 12], [10, 19], [30, 19]], float)], 3, big)]
+    if case == "centres":  # vertices on pixel centres and on corners
+        return [([np.array([[4.5, 1.5], [31.5, 8.5], [12.5, 15.5]])], 1,
+                 big),
+                ([np.array([[32.0, 8.0], [63.0, 1.0], [70.0, 19.0],
+                            [40.5, 12.0]])], 2, big),
+                ([np.array([[5.0, 16.5], [25.5, 16.0], [15.0, 4.5]])], 3,
+                 big)]
+    if case == "closing":  # zero-length edges: repeated and closing vertices
+        return [([np.array([[5.5, 2.5], [5.5, 2.5], [30.0, 6.0],
+                            [12.0, 14.5], [5.5, 2.5]])], 1, big),
+                ([np.array([[40.0, 9.5], [40.0, 9.5]])], 2, big),
+                ([np.array([[50.0, 3.0], [69.0, 3.0], [60.0, 18.0],
+                            [50.0, 3.0]])], 3, big)]
+    if case == "windows":  # 1-row windows over features spanning blocks
+        sq = np.array([[2.0, 0.5], [70.0, 1.5], [68.0, 19.0], [1.0, 18.5]])
+        return [([sq], v, (float(r), float(r + 1)))
+                for v, r in enumerate((0, 7, 8, 15, 19), start=1)]
+    raise ValueError(case)
+
+
+def _plain_pairs(e, cx, cy):
+    """Per (edge, row, column): the plain burn's crossing and touch, with
+    the expressions of _feature_mask, not reduced over edges."""
+    x0, y0, x1, y1 = (e[:, i][:, None, None] for i in range(4))
+    straddle = (y0 > cy) != (y1 > cy)
+    dy = y1 - y0
+    q = (cy - y0) / torch.where(dy == 0, 1.0, dy)
+    crossing = straddle & (cx < tr._fma32(q, x1 - x0, x0))
+    box = ((cx + 0.5 >= torch.minimum(x0, x1))
+           & (cx - 0.5 <= torch.maximum(x0, x1))
+           & (cy + 0.5 >= torch.minimum(y0, y1))
+           & (cy - 0.5 <= torch.maximum(y0, y1)))
+    ny = x0 - x1
+    dist = tr._fma32(dy, cx - x0, ny * (cy - y0)).abs()
+    touch = box & (dist <= (dy.abs() + ny.abs()) * 0.5)
+    return crossing, touch
+
+
+def _block_spans(cx, cy, bh):
+    """Pixel-centre spans (bx0, bx1) and (by0, by1) of each pixel's
+    block of bh rows x 32 columns, as burn.cu computes them."""
+    f32 = torch.float32
+    by0 = (torch.arange(cy.shape[1])[:, None] // bh * bh).to(f32) + 0.5
+    bx0 = (torch.arange(cx.shape[2])[None] // 32 * 32).to(f32) + 0.5
+    return bx0, bx0 + 31, by0, by0 + (bh - 1)
+
+
+def _feature_cull(bbox, window, cx, cy, bh):
+    """Per (row, column): burn.cu's block-level feature cull (bbox
+    dilated 0.5 px, row window). It is exact at the mask level, not per
+    pair: left of the bbox a closed ring's crossings come in pairs."""
+    bx0, bx1, by0, by1 = _block_spans(cx, cy, bh)
+    minx, miny, maxx, maxy = (float(v) for v in bbox)
+    w0, w1 = window
+    return ((minx - 0.5 <= bx1) & (maxx + 0.5 >= bx0) & (miny - 0.5 <= by1)
+            & (maxy + 0.5 >= by0) & (w0 <= by1) & (w1 > by0))
+
+
+def _kernel_pairs(e, window, cx, cy, bh, all_touched):
+    """Per (edge, row, column), for a feature that passed the block's
+    cull, with burn.cu's float32 expressions: (the crossings it records,
+    the pairs on which it evaluates the per-pixel touch test). An edge
+    is walked for a row past the warp's live test (row in the window),
+    the block's staging test (y-span +- 0.5 meets the block's rows) and
+    the row test (straddle, or the y half of box). A walked straddling
+    edge is crossed by the first ceil(xint - bx0) pixels of the warp
+    (none left of bx0, all right of bx1); touch is tested on the pixels
+    from ceil(min x - col0) - 1 to floor(max x - col0), clamped to the
+    warp, where the warp's columns can meet its x half of box."""
+    bx0, bx1, by0, by1 = _block_spans(cx, cy, bh)
+    j = torch.arange(cx.shape[2])[None] % 32
+    col0 = bx0 - 0.5
+    w0, w1 = window
+    live = (cy >= w0) & (cy < w1)
+    x0, y0, x1, y1 = (e[:, i][:, None, None] for i in range(4))
+    xlo, xhi = torch.minimum(x0, x1), torch.maximum(x0, x1)
+    ylo, yhi = torch.minimum(y0, y1), torch.maximum(y0, y1)
+    staged = (by1 + 0.5 >= ylo) & (by0 - 0.5 <= yhi)
+    strad = (y0 > cy) != (y1 > cy)
+    ybox = (all_touched & (cy + 0.5 >= ylo) & (cy - 0.5 <= yhi))
+    walked = live & staged & (strad | ybox)
+    dy = y1 - y0
+    xint = tr._fma32((cy - y0) / torch.where(dy == 0, 1.0, dy), x1 - x0, x0)
+    n = torch.where(xint > bx1, 32.0,
+                    torch.where(xint > bx0, torch.ceil(xint - bx0), 0.0))
+    crossed = walked & strad & (j < n)
+    near = ybox & (bx1 + 0.5 >= xlo) & (bx0 - 0.5 <= xhi)
+    j0 = torch.ceil((xlo - col0).clamp(0.0, 32.0)) - 1
+    j1 = torch.floor((xhi - col0).clamp(-1.0, 31.0))
+    return crossed, walked & near & (j >= j0) & (j <= j1)
+
+
+class TestRowCull:
+    """burn.cu skips an edge for a row (and a warp of 32 columns) where
+    its tests show the edge gives no crossing and no touch there, records
+    a walked edge's crossings as a prefix of the warp's pixels, and tests
+    touch only on a range of them. On rows inside the feature's window of
+    blocks that keep the feature, the recorded crossings must be the
+    plain predicate's exactly, and every touch must be tested, for two
+    block heights the launcher takes."""
+
+    @pytest.mark.parametrize("case", ["stars", "axis", "centres", "closing",
+                                      "windows"])
+    @pytest.mark.parametrize("bh", [8, 4])
+    def test_kernel_records_every_crossing_and_touch(self, case, bh):
+        H, W = 20, 72
+        edges, _, windows = tr.pack_features(_cull_features(case))
+        bbox, nedges = tr.feature_bounds(edges)
+        cy = torch.arange(H, dtype=torch.float32)[None, :, None] + 0.5
+        cx = torch.arange(W, dtype=torch.float32)[None, None, :] + 0.5
+        crossings = touches = tested = 0
+        for f in range(len(edges)):
+            e = torch.from_numpy(edges[f, :nedges[f]])
+            w0, w1 = (float(v) for v in windows[f])
+            crossing, touch = _plain_pairs(e, cx, cy)
+            kept = (cy >= w0) & (cy < w1) & _feature_cull(
+                bbox[f], (w0, w1), cx, cy, bh)
+            for at in (True, False):
+                crossed, tests = _kernel_pairs(e, (w0, w1), cx, cy, bh, at)
+                assert torch.equal(crossed & kept, crossing & kept), (
+                    case, f, at)
+                if at:
+                    assert not (touch & kept & ~tests).any(), (case, f)
+                    touches += int((touch & kept).sum())
+                else:
+                    assert not tests.any()
+                crossings += int((crossing & kept).sum())
+                tested += int(tests.sum())
+        assert crossings > 0 and touches > 0
+        # the culls do skip work: far fewer tests than pixels x edges
+        assert 4 * tested < int(nedges.sum()) * H * W
