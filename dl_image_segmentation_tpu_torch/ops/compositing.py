@@ -29,7 +29,7 @@ from .. import kernels
 from ..device import resolve_device
 
 # invalid samples take this value so they sort last (the JAX package's
-# _INF; the kernel uses the same constant)
+# _INF; the kernel's float32 path ranks them by the same value)
 _INF = 3.0e38
 
 # element budget of one chunk of the plain median's sort, which would
@@ -93,21 +93,32 @@ def masked_median_kernel(stack: torch.Tensor, valid: torch.Tensor
                         f"valid {valid.dtype}")
     if not (stack.is_contiguous() and valid.is_contiguous()):
         raise ValueError("masked_median_kernel: inputs must be contiguous")
-    lib = kernels.library("masked_median")
+    max_scenes = kernels.library("masked_median").masked_median_max_scenes()
     S, H, W, B = stack.shape
-    if not 1 <= S <= lib.masked_median_max_scenes():
+    if not 1 <= S <= max_scenes:
         raise ValueError(
             f"masked_median_kernel: {S} scenes; the kernel takes 1.."
-            f"{lib.masked_median_max_scenes()} and never drops scenes")
+            f"{max_scenes} and never drops scenes")
+    if stack.numel() >= 1 << 31:
+        raise ValueError(f"masked_median_kernel: {stack.numel()} samples; "
+                         "the kernel's offsets are 32-bit (below 2^31)")
     med = torch.empty((H, W, B), dtype=torch.float32, device=stack.device)
     any_valid = torch.empty((H, W, B), dtype=torch.bool, device=stack.device)
-    rc = lib.masked_median_launch(
+    _launch_masked_median(stack, valid, med, any_valid)
+    return med, any_valid
+
+
+def _launch_masked_median(stack, valid, med, any_valid) -> None:
+    """Launch the kernel onto ``med`` and ``any_valid`` (H, W, B) on the
+    current stream and count the launch; inputs as checked by
+    :func:`masked_median_kernel`."""
+    S, H, W, B = stack.shape
+    rc = kernels.library("masked_median").masked_median_launch(
         stack.data_ptr(), _KERNEL_DTYPES[stack.dtype], valid.data_ptr(),
         med.data_ptr(), any_valid.data_ptr(), S, H * W * B, B,
         kernels.stream_ptr(stack.device))
     kernels.check(rc, "masked_median")
     kernels.MASKED_MEDIAN.add()
-    return med, any_valid
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:

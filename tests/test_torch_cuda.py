@@ -23,23 +23,104 @@ def _need_card():
         pytest.skip("needs a CUDA device")
 
 
-@pytest.mark.parametrize("S,dtype", [(1, np.uint16), (10, np.uint16),
-                                     (73, np.uint16), (128, np.uint16),
-                                     (5, np.float32)])
-def test_masked_median_kernel_equals_plain(S, dtype):
-    _need_card()
-    rng = np.random.RandomState(S)
-    stack = torch.from_numpy((rng.rand(S, 17, 19, 3) * 4000).astype(dtype))
-    valid = torch.from_numpy(rng.rand(S, 17, 19) > 0.4)
+# scene counts on both sides of every network width the kernel compiles
+# (exact 1..16 for uint16, then 20, 24, 32, 40, 48, 64, 80, 96, 128;
+# 4, 8, 16, 32, 64, 128 for float32)
+_U16_SCENES = list(range(1, 18)) + [19, 20, 21, 23, 24, 25, 31, 32, 33, 39,
+                                    40, 41, 47, 48, 49, 63, 64, 65, 79, 80,
+                                    81, 95, 96, 97, 100, 127, 128]
+_F32_SCENES = [1, 3, 4, 5, 8, 9, 16, 17, 32, 33, 64, 65, 100, 128]
+
+
+# (H, W): 17 x 19 pixels (323, not a multiple of 16: the direct kernel,
+# and an odd element count, so no thread's vector is whole at the end)
+# and 16 x 20 (320: the staged kernel, with a partial last tile at B = 13)
+_SHAPES = [(17, 19), (16, 20)]
+
+
+def _median_inputs(S, B, dtype, hw=(17, 19)):
+    """(S, H, W, B) stack and (S, H, W) validity; pixel (0, 0) has no valid
+    scene and pixels (0, 1) and (1, 1) every scene. uint16 samples run to
+    65535 (a fifth of them, and all of pixel (0, 1)); float32 samples are
+    signed, with infinities and NaN in valid samples (all of pixel
+    (1, 1))."""
+    rng = np.random.RandomState(S * 100 + B)
+    shape = (S, *hw, B)
+    if dtype == np.uint16:
+        stack = rng.randint(0, 65536, size=shape).astype(np.uint16)
+        stack[rng.rand(*shape) < 0.2] = 65535
+        stack[:, 0, 1] = 65535
+    else:
+        stack = (rng.randn(*shape) * 1000).astype(np.float32)
+        u = rng.rand(*shape)
+        stack[u < 0.05] = np.nan
+        stack[(u > 0.05) & (u < 0.07)] = np.inf
+        stack[(u > 0.07) & (u < 0.09)] = -np.inf
+        stack[:, 1, 1] = np.nan
+    valid = rng.rand(S, *hw) > 0.4
     valid[:, 0, 0] = False
+    valid[:, 0, 1] = True
+    valid[:, 1, 1] = True
+    return torch.from_numpy(stack), torch.from_numpy(valid)
+
+
+def _assert_median_equal(got, ref):
+    """Bitwise, but NaN equal to NaN whatever its payload."""
+    torch.testing.assert_close(got[0].cpu(), ref[0], rtol=0, atol=0,
+                               equal_nan=True)
+    assert torch.equal(got[1].cpu(), ref[1])
+
+
+@pytest.mark.parametrize("hw", _SHAPES)
+@pytest.mark.parametrize("B", [1, 13])
+@pytest.mark.parametrize("S", _U16_SCENES)
+def test_masked_median_kernel_equals_plain(S, B, hw):
+    _need_card()
+    stack, valid = _median_inputs(S, B, np.uint16, hw)
     before = kernels.MASKED_MEDIAN.count
     got = oc.masked_median_kernel(stack.cuda(), valid.cuda())
     ref = oc.masked_median(stack, valid)
     assert kernels.MASKED_MEDIAN.count == before + 1
     assert torch.equal(got[0].cpu(), ref[0])
     assert torch.equal(got[1].cpu(), ref[1])
+    assert (ref[0][0, 1] == 65535).all()
     with pytest.raises(ValueError):
         oc.masked_median_kernel(stack.cuda()[:, :, :, 0], valid.cuda())
+
+
+@pytest.mark.parametrize("hw", _SHAPES)
+@pytest.mark.parametrize("S", _F32_SCENES)
+def test_masked_median_kernel_float32_nan_equals_plain(S, hw):
+    _need_card()
+    stack, valid = _median_inputs(S, 13, np.float32, hw)
+    got = oc.masked_median_kernel(stack.cuda(), valid.cuda())
+    ref = oc.masked_median(stack, valid)
+    _assert_median_equal(got, ref)
+    assert ref[0][1, 1].isnan().all()
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32])
+def test_masked_median_bare_launch_and_unaligned_stack(dtype):
+    """The launch helper alone writes the wrapper's outputs and counts
+    one launch (the staged kernel); a stack that starts off its vector
+    alignment takes the direct kernel's element loads and gives the same
+    result."""
+    _need_card()
+    stack, valid = _median_inputs(10, 13, dtype, (16, 20))
+    ref = oc.masked_median(stack, valid)
+    x, v = stack.cuda(), valid.cuda()
+    med = torch.full(ref[0].shape, 7.0, device="cuda")
+    any_valid = torch.ones(ref[1].shape, dtype=torch.bool, device="cuda")
+    before = kernels.MASKED_MEDIAN.count
+    oc._launch_masked_median(x, v, med, any_valid)
+    torch.cuda.synchronize()
+    assert kernels.MASKED_MEDIAN.count == before + 1
+    _assert_median_equal((med, any_valid), ref)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    _assert_median_equal(oc.masked_median_kernel(shifted, v), ref)
 
 
 @pytest.mark.parametrize("n,all_touched", [(30, True), (30, False),

@@ -7,6 +7,8 @@ median and the mosaic are exact selections, and the burn predicate
 rounds exactly as XLA:CPU does (two fused multiply-adds)."""
 
 import importlib
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -92,6 +94,134 @@ class TestMaskedMedian:
         assert s2.shape[0] == 8 and not v2[3:].any()
         with pytest.raises(ValueError):
             tc.pad_stack(stack, valid, 2)
+
+
+def _kernel_widths(launcher):
+    """Network widths that csrc/masked_median.cu compiles for one dtype,
+    read from its launcher (``launch_u16`` or ``launch_f32``)."""
+    with open(os.path.join(os.path.dirname(tc.__file__), os.pardir, "csrc",
+                           "masked_median.cu")) as f:
+        src = f.read()
+    body = src[src.index(f"cudaError_t {launcher}("):]
+    body = body[:body.index("#undef MM_WIDTH")]
+    return [int(n) for n in re.findall(r"MM_WIDTH\((\d+)\);", body)]
+
+
+def _kernel_pairs_of_width(n):
+    """The kernel's comparators for width n, in order: a copy of
+    csrc/masked_median.cu:batcher_pairs."""
+    pairs = []
+    p = 1
+    while p < n:
+        k = p
+        while k >= 1:
+            for j in range(k % p, n - k, 2 * k):
+                for i in range(min(k, n - j - k)):
+                    if (i + j) // (2 * p) == (i + j + k) // (2 * p):
+                        pairs.append((i + j, i + j + k))
+            k //= 2
+        p *= 2
+    return pairs
+
+
+def _kernel_median_u16(stack, valid):
+    """masked_median.cu on a uint16 stack, in torch: the width the
+    launcher picks for S, padded scenes and invalid samples at 0xFFFF,
+    each element's validity read at its pixel e // B, the network as
+    integer min/max, ranks selected among the first width / 2 + 1
+    positions."""
+    S, H, W, B = stack.shape
+    N = next(w for w in _kernel_widths("launch_u16") if w >= S)
+    n_elem = H * W * B
+    pix = torch.arange(n_elem) // B
+    flat_valid = torch.from_numpy(valid.reshape(S, H * W))
+    x = torch.from_numpy(stack.reshape(S, n_elem).astype(np.int32))
+    v, cnt = [], torch.zeros(n_elem, dtype=torch.int32)
+    for s in range(N):
+        if s < S:
+            ok = flat_valid[s][pix]
+            cnt += ok.int()
+            v.append(torch.where(ok, x[s], 0xFFFF))
+        else:
+            v.append(torch.full((n_elem,), 0xFFFF, dtype=torch.int32))
+    for a, b in _kernel_pairs_of_width(N):
+        v[a], v[b] = torch.minimum(v[a], v[b]), torch.maximum(v[a], v[b])
+    nz = cnt.clamp(min=1)
+    lo = torch.zeros(n_elem, dtype=torch.int32)
+    hi = torch.zeros(n_elem, dtype=torch.int32)
+    for s in range(min(N // 2 + 1, N)):
+        lo = torch.where((nz - 1) // 2 == s, v[s], lo)
+        hi = torch.where(nz // 2 == s, v[s], hi)
+    med = (lo.float() + hi.float()) * 0.5
+    med = torch.where(cnt > 0, med, torch.zeros_like(med))
+    return med.reshape(H, W, B), (cnt > 0).reshape(H, W, B)
+
+
+def _f32_keys(x):
+    """masked_median.cu's float32 keys (F32::key) as int32, in numpy."""
+    u = x.view(np.uint32)
+    nan = (u & 0x7FFFFFFF) > 0x7F800000
+    flipped = u ^ ((u.view(np.int32) >> 31).view(np.uint32) >> 1)
+    return np.where(nan, np.uint32(0x7FFFFFFF), flipped).view(np.int32)
+
+
+class TestMedianNetwork:
+    """csrc/masked_median.cu sorts with integer min/max over a Batcher
+    network sized to S, with 0xFFFF for invalid uint16 samples. Its
+    logic, written in torch, must equal the JAX package's median and the
+    plain version bitwise: valid samples of 65535, pixels with every or
+    no scene valid, one band and 13, element counts that are not a
+    multiple of the vector width."""
+
+    @pytest.mark.parametrize("S", [1, 2, 3, 9, 10, 16, 17, 33, 73, 128])
+    def test_network_equals_jax_and_plain(self, S):
+        N = next(w for w in _kernel_widths("launch_u16") if w >= S)
+        pairs = _kernel_pairs_of_width(N)
+        assert pairs == jc._batcher_pairs(N)
+        # the network of the next power of two, pruned to the width
+        p2 = 1 << max(0, N - 1).bit_length()
+        assert pairs == [(a, b) for a, b in _kernel_pairs_of_width(p2)
+                         if b < N]
+        if S == 10:
+            assert (N, len(pairs)) == (10, 32)
+        if S == 73:
+            assert (N, len(pairs)) == (80, 849)
+        rng = np.random.RandomState(S)
+        for B in (1, 13):
+            H, W = 3, 5  # 15 and 195 elements: not multiples of 8
+            stack = rng.randint(0, 65536, size=(S, H, W, B)).astype(np.uint16)
+            stack[rng.rand(S, H, W, B) < 0.3] = 65535
+            stack[:, 0, 1] = 65535
+            valid = rng.rand(S, H, W) > 0.4
+            valid[:, 0, 0] = False
+            valid[:, 0, 1] = True
+            med, av = _kernel_median_u16(stack, valid)
+            assert (med[0, 1] == 65535).all() and not av[0, 0].any()
+            ref_med, ref_av = _jax_median(stack, valid)
+            np.testing.assert_array_equal(med.numpy(), ref_med)
+            np.testing.assert_array_equal(av.numpy(), ref_av)
+            plain = tc.masked_median(torch.from_numpy(stack),
+                                     torch.from_numpy(valid))
+            assert torch.equal(med, plain[0]) and torch.equal(av, plain[1])
+
+    def test_float_keys_order_as_the_plain_sort(self):
+        """float32 keys sort as torch.sort sorts (NaN of either sign
+        last), and the invalid key is the key of 3.0e38."""
+        rng = np.random.RandomState(0)
+        x = np.concatenate([
+            (rng.randn(300) * 10.0 ** rng.randint(-30, 30, 300)),
+            [np.inf, -np.inf, 3.0e38, -3.0e38, 1e-45, -1e-45, 0.0]]
+        ).astype(np.float32)
+        x = np.concatenate([x, -np.abs(np.float32(np.nan)) * np.ones(3,
+                            np.float32), np.full(3, np.nan, np.float32)])
+        order = np.argsort(_f32_keys(x), kind="stable")
+        ref = torch.sort(torch.from_numpy(x)).values.numpy()
+        np.testing.assert_array_equal(x[order], ref)
+        assert _f32_keys(np.array([3.0e38], np.float32))[0] == 0x7F61B1E6
+        # the key is an involution outside NaN: keys map back to the floats
+        k = _f32_keys(x[:-6]).view(np.uint32)
+        back = k ^ ((k.view(np.int32) >> 31).view(np.uint32) >> 1)
+        np.testing.assert_array_equal(back.view(np.float32), x[:-6])
 
 
 class TestNearestMosaic:

@@ -285,7 +285,8 @@ def _blocked(name):
 class TestImportHygiene:
     def test_no_module_names_jax_or_the_jax_package(self):
         files = glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)
-        files.append(os.path.join(ROOT, "chip_smoke.py"))
+        files += [os.path.join(ROOT, f) for f in ("chip_smoke.py",
+                                                  "median_ab.py")]
         for path in files:
             bad = [n for n in _imported_names(path) if _blocked(n)]
             assert not bad, (path, bad)
@@ -307,7 +308,7 @@ class Blocker(importlib.abc.MetaPathFinder):
             raise ImportError("blocked: " + name)
         return None
 sys.meta_path.insert(0, Blocker())
-for m in {sorted(mods)!r} + ["chip_smoke"]:
+for m in {sorted(mods)!r} + ["chip_smoke", "median_ab"]:
     importlib.import_module(m)
 print("ok", len(sys.modules))
 """
