@@ -28,7 +28,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    four runs. Once for the Sentinel-2 cloud-masked median (260 px, 13
    bands) and once for the nearest-date mosaic (RGB at 1.0 m). The
    launch counters are set to 0 just before the card's runs and read
-   just after: every kernel must have been launched there.
+   just after: every kernel must have been launched there;
+5. serving: the U-Net at full width (TrainConfig defaults with batch 8:
+   256 px RGB, 2 classes, base_features 32, 4 levels, s2d AUTO, which
+   is s2d 2 at width 64; and the classic s2d 1 tree), seeded init, at
+   bf16 and at fp32 (TF32 off). Each: predict_probs on 8 images on the
+   card against a CPU copy of the same state dict on the first 2
+   (fp32 logits within 1e-4 + 1e-4 relative; bf16 probabilities within
+   5e-2; class maps equal where the top two are apart), the warm
+   forward's CUDA-event time per batch of 8, images/s, the convs'
+   FLOPs and their share of the card's peak (989 TFLOP/s bf16, 67
+   TFLOP/s fp32), max memory allocated, and torch.profiler's top 5
+   device ops and device-busy share over 5 forwards, and the forward's
+   time with cuDNN's benchmark mode on and how far apart its logits are
+   in two threads (the Trainer runs with it off: PyTorch keeps its
+   algorithm choice per thread). Then a
+   PredictServer on the card answers 24 concurrent chips (class maps
+   == Trainer.predict), one 1000 x 1150 raster through
+   predict_windowed_batched at stride 128 (== the offline
+   predict_windowed), and one HTTP round trip each of /healthz,
+   /predict (.npy and GeoTIFF) and /metrics; any errored request fails
+   the run. The U-Net path has no hand-written kernel: its convs,
+   GroupNorm and transposed convs are cuDNN/cuBLAS calls.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script
@@ -54,6 +75,7 @@ import numpy as np
 # the tensor cores
 MEM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense, tensor cores
 L2_BYTES = 50 * 2**20
 # (S, H, W, B, wrapper reps) of the median cases: one 260 px tile of 13
 # bands, the batched stack of 16 tiles, and a year of Sentinel-2 scenes
@@ -529,6 +551,314 @@ def export_phase(tmp, card):
     return launches, runs
 
 
+def forward_ms(trainer, x, reps=20):
+    """Warm CUDA-event milliseconds of one ``trainer.logits`` forward on
+    the device batch ``x``."""
+    return cuda_ms(lambda: trainer.logits(x), reps)
+
+
+def benchmark_mode(trainer, x, reps=20):
+    """The forward with cuDNN's benchmark mode on, which
+    ``Trainer.logits`` turns off: (warm milliseconds, largest difference
+    between the logits of two threads). PyTorch keeps the algorithms that
+    benchmark mode picks per thread, so each forward runs in a new thread
+    (which also keeps this thread's choices out of it), and a server's
+    worker thread may not compute the bits that ``predict`` does. ``x``
+    holds floats, so the model sees what ``logits`` would give it."""
+    import threading
+    import torch
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark, cudnn.allow_tf32
+    cudnn.benchmark = True
+    cudnn.allow_tf32 = trainer.compute_dtype != torch.float32
+    xm = x.permute(0, 3, 1, 2)
+    runs = []
+
+    def forward():
+        with torch.inference_mode():
+            return trainer.model(xm)
+
+    def run(timed):
+        ms = cuda_ms(forward, reps) if timed else None
+        runs.append((ms, forward()))
+    try:
+        for timed in (True, False):
+            th = threading.Thread(target=run, args=(timed,))
+            th.start()
+            th.join(timeout=300)
+    finally:
+        cudnn.benchmark, cudnn.allow_tf32 = saved
+    if len(runs) != 2:
+        raise AssertionError("a benchmark-mode forward did not finish")
+    return runs[0][0], float((runs[0][1] - runs[1][1]).abs().max())
+
+
+def profile_forwards(trainer, x, n=5):
+    """torch.profiler over ``n`` steady forwards: (top 5 (kernel, device
+    ms per forward) by device time, device-busy share: the kernels' time
+    over the window's wall time); busy share None when the profiler
+    reports no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    trainer.logits(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            trainer.logits(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) or 0
+    # the kernels themselves (device events), not the aten ops that
+    # launched them, so that no time is counted twice
+    rows = sorted((e for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA),
+                  key=dev_us, reverse=True)
+    total_us = sum(dev_us(e) for e in rows)
+    top = [(e.key, dev_us(e) / 1e3 / n) for e in rows[:5] if dev_us(e)]
+    return top, (total_us / 1e6 / wall if total_us else None)
+
+
+def top2_gap(x):
+    s = np.sort(x, axis=-1)
+    return s[..., -1] - s[..., -2]
+
+
+def card_vs_cpu(card_t, cpu_t, images):
+    """Card against CPU on the first 2 images: fp32 logits within 1e-4 +
+    1e-4 relative and class maps equal where the CPU's top two logits
+    differ by more than 1e-3; bf16 probabilities within 5e-2 and class
+    maps equal where the CPU's top two probabilities differ by more than
+    0.1. Returns the largest difference."""
+    import torch
+    x = images[:2]
+    card = card_t.predict_probs(images)[:2]
+    ref = cpu_t.predict_probs(x)
+    cls = card_t.predict(images)[:2]
+    if card_t.config.precision == "fp32":
+        got = card_t.logits(torch.from_numpy(images).cuda())[:2].cpu().numpy()
+        want = cpu_t.logits(torch.from_numpy(x)).numpy()
+        err = float(np.abs(got - want).max())
+        if not np.all(np.abs(got - want) <= 1e-4 + 1e-4 * np.abs(want)):
+            raise AssertionError(f"fp32 logits: card differs from the CPU "
+                                 f"by {err}")
+        sure = top2_gap(want) > 1e-3
+        want_cls = want.argmax(-1)
+    else:
+        err = float(np.abs(card - ref).max())
+        if err > 5e-2:
+            raise AssertionError(f"bf16 probabilities: card differs from "
+                                 f"the CPU by {err}")
+        sure = top2_gap(ref) > 0.1
+        want_cls = ref.argmax(-1)
+    if not np.array_equal(cls[sure], want_cls[sure]):
+        raise AssertionError("class maps: card differs from the CPU where "
+                             "the top two are apart")
+    if not np.all(np.isfinite(card)) or card.shape != ref.shape:
+        raise AssertionError("probabilities not finite or misshapen")
+    return err, float(sure.mean())
+
+
+def serve_requests(ps, images):
+    """Submit every image at once from its own thread; returns (pendings,
+    seconds from the first submit to the last result, latencies)."""
+    import threading
+    pend = [None] * len(images)
+    done = [0.0] * len(images)
+
+    def call(i):
+        pend[i] = ps.submit(images[i], probs=False, timeout=120)
+        done[i] = time.perf_counter()
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(images))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=180)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a served request hung")
+    return pend, max(done) - t0, [d - p.t0 for d, p in zip(done, pend)]
+
+
+def http_round_trip(ps, trainer, rng):
+    """/healthz, /predict (.npy), /predict (GeoTIFF) and /metrics over
+    127.0.0.1; the served class maps must equal ``predict``'s."""
+    import io
+    import threading
+    import urllib.request
+    from dl_image_segmentation_tpu_torch.raster import encode_geotiff
+    from dl_image_segmentation_tpu_torch.serve import (make_http_server,
+                                                       scale_image)
+    httpd = make_http_server("127.0.0.1", 0, ps)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    size = trainer.config.image_size
+    bs = trainer.config.batch_size
+
+    def post(body):
+        req = urllib.request.Request(base + "/predict", data=body,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return np.load(io.BytesIO(r.read()))
+
+    def alone(img):
+        batch = np.zeros((bs,) + img.shape, np.float32)
+        batch[0] = img
+        return trainer.predict(batch)[0]
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if not health["ok"] or health["batch_size"] != bs:
+            raise AssertionError(f"/healthz: {health}")
+        img = rng.rand(size, size, 3).astype(np.float32)
+        buf = io.BytesIO()
+        np.save(buf, img)
+        if not np.array_equal(post(buf.getvalue()), alone(img)):
+            raise AssertionError("/predict (.npy) differs from predict")
+        img8 = rng.randint(0, 256, (size, size, 3)).astype(np.uint8)
+        got = post(encode_geotiff(img8, epsg=32643))
+        if not np.array_equal(got, alone(scale_image(img8, "auto"))):
+            raise AssertionError("/predict (GeoTIFF) differs from predict")
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        served = [ln for ln in metrics.splitlines()
+                  if ln.startswith("dlseg_requests_served_total ")]
+        if not served:
+            raise AssertionError("/metrics lacks dlseg_requests_served_total")
+        return health, served[0]
+    finally:
+        httpd.shutdown()
+        thread.join(timeout=30)
+
+
+def serving_phase(smi):
+    """U-Net serving at full width on the card: card against CPU, forward
+    times, the micro-batching server, a windowed raster and HTTP."""
+    import torch
+    from dl_image_segmentation_tpu_torch.pipeline.window import (
+        predict_windowed, window_origins)
+    from dl_image_segmentation_tpu_torch.serve import (
+        PredictServer, predict_windowed_batched)
+    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+
+    log("phase 5: serving")
+    rng = np.random.RandomState(5)
+    out = {"forward": [], "serve": None}
+    configs = [("TrainConfig defaults, batch 8, s2d AUTO", {}),
+               ("classic tree (s2d 1)", {"s2d": 1})]
+    serve_trainer = None
+    for label, kw in configs:
+        for precision in ("bf16", "fp32"):
+            cfg = TrainConfig(batch_size=8, precision=precision, **kw)
+            card_t = Trainer(cfg)
+            cpu_t = Trainer(cfg, device="cpu")
+            cpu_t.model.load_state_dict(card_t.model.state_dict())
+            images = rng.rand(8, 256, 256, 3).astype(np.float32)
+            err, sure = card_vs_cpu(card_t, cpu_t, images)
+            del cpu_t
+            x = torch.from_numpy(images).cuda()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = forward_ms(card_t, x)
+            peak_mem = torch.cuda.max_memory_allocated()
+            flops = card_t.model.conv_flops(256, 256)
+            peak = BF16_OPS_PER_S if precision == "bf16" else FP32_OPS_PER_S
+            share = flops * 8 / (ms / 1e3) / peak
+            top, busy = profile_forwards(card_t, x)
+            bench_ms, bench_diff = benchmark_mode(card_t, x)
+            row = {"config": label, "precision": precision,
+                   "s2d": card_t.s2d, "width": card_t.model_features,
+                   "forward_ms": ms, "images_per_s": 8 / (ms / 1e3),
+                   "cudnn_benchmark_mode_ms": bench_ms,
+                   "cudnn_benchmark_mode_thread_diff": bench_diff,
+                   "gflop_per_image": flops / 1e9, "peak_share": share,
+                   "max_memory_allocated": peak_mem,
+                   "card_vs_cpu_max_err": err, "decided_share": sure,
+                   "device_busy_share": busy,
+                   "top_device_ops": [[k, v] for k, v in top]}
+            out["forward"].append(row)
+            log(f"  {label}, {precision} (s2d {card_t.s2d}, width "
+                f"{card_t.model_features}): card vs CPU max "
+                f"{'logit' if precision == 'fp32' else 'probability'} "
+                f"difference {err:.3g} ({sure:.1%} of pixels decided); "
+                f"forward {ms:.4f} ms per batch of 8 = "
+                f"{row['images_per_s']:.1f} images/s; "
+                f"{flops / 1e9:.3f} GFLOP per image = {share:.2%} of "
+                f"{peak / 1e12:.0f} TFLOP/s ({smi}); max memory allocated "
+                f"{peak_mem / 2**20:.1f} MiB; with cuDNN benchmark mode "
+                f"(not used) {bench_ms:.4f} ms, logits of two threads "
+                f"apart by {bench_diff:.3g}")
+            log("    device-busy share over 5 forwards: "
+                + (f"{busy:.1%}" if busy is not None else "not measured")
+                + "; top device ops (ms per forward): "
+                + "; ".join(f"{k[:70]} {v:.4f}" for k, v in top))
+            if label == configs[0][0] and precision == "bf16":
+                serve_trainer = card_t
+            else:
+                del card_t
+            del x
+            torch.cuda.empty_cache()
+
+    trainer = serve_trainer
+    ps = PredictServer(trainer, max_wait_ms=5.0)
+    try:
+        chips = rng.rand(24, 256, 256, 3).astype(np.float32)
+        serve_requests(ps, chips[:8])  # warm-up
+        batches0 = ps.batches
+        pend, secs, lat = serve_requests(ps, chips)
+        errors = [p.error for p in pend if p.error is not None]
+        if errors:
+            raise AssertionError(f"served requests errored: {errors[:3]}")
+        dispatches = ps.batches - batches0
+        want = np.concatenate([trainer.predict(chips[i:i + 8])
+                               for i in range(0, 24, 8)])
+        if not all(np.array_equal(p.result, w) for p, w in zip(pend, want)):
+            raise AssertionError("served class maps differ from predict's")
+        raster = rng.rand(1000, 1150, 3).astype(np.float32)
+        n_win = (len(window_origins(1000, 256, 128))
+                 * len(window_origins(1150, 256, 128)))
+        t0 = time.perf_counter()
+        served_probs = predict_windowed_batched(ps, raster, stride=128,
+                                                probs=True)
+        win_secs = time.perf_counter() - t0
+        served_cls = predict_windowed_batched(ps, raster, stride=128)
+        offline = predict_windowed(trainer, raster, stride=128,
+                                   scale="none", probs=True)
+        if not np.array_equal(served_probs, offline):
+            raise AssertionError("windowed probabilities differ from the "
+                                 "offline predict_windowed's")
+        if not np.array_equal(served_cls, offline.argmax(-1)):
+            raise AssertionError("windowed class map differs from the "
+                                 "offline predict_windowed's")
+        health, served_line = http_round_trip(ps, trainer, rng)
+        if ps.errors:
+            raise AssertionError(f"{ps.errors} server batches failed")
+    finally:
+        ps.close()
+    lat = sorted(lat)
+    out["serve"] = {
+        "requests": 24, "seconds": secs, "requests_per_s": 24 / secs,
+        "p50_latency_s": lat[len(lat) // 2], "max_latency_s": lat[-1],
+        "dispatches": dispatches, "windowed_windows": n_win,
+        "windowed_seconds": win_secs, "served_total": served_line}
+    log(f"  PredictServer on the card (bf16, s2d {trainer.s2d}): 24 "
+        f"concurrent chips in {secs:.4f} s = {24 / secs:.1f} requests/s, "
+        f"p50 latency {lat[len(lat) // 2] * 1e3:.2f} ms, {dispatches} "
+        f"dispatches; served == predict")
+    log(f"  windowed 1000 x 1150 at stride 128: {n_win} windows in "
+        f"{win_secs:.3f} s, probabilities and class map == offline "
+        f"predict_windowed; HTTP /healthz, /predict (.npy, GeoTIFF) == "
+        f"predict, /metrics '{served_line}'")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -563,6 +893,7 @@ def main() -> int:
         launches, runs = export_phase(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    serving = serving_phase(smi)
 
     out = []
     for c in kernels.COUNTERS:
@@ -579,6 +910,7 @@ def main() -> int:
             "bound_by": main_case["bound_by"],
             "library_ms": main_case.get("library_ms"),
             "case": main_case["case"], "cases": cases})
+    log(json.dumps({"serving": serving}))
     log(f"seconds {time.perf_counter() - t_start:.1f}; runs "
         f"{json.dumps(runs)}")
     log(f"{smi}")

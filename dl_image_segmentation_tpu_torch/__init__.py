@@ -1,15 +1,19 @@
 """dl_image_segmentation_tpu_torch -- the PyTorch + CUDA port of
 dl_image_segmentation_tpu, for one NVIDIA H100.
 
-This slice ports chip creation: tile planning, scene compositing
-(cloud-masked temporal median, nearest-to-date mosaic), vector label
-burning and GeoTIFF chip pairs. The three Pallas kernels of that path
-are hand-written CUDA kernels for Hopper (csrc/), built with nvcc into
-the checkout's ``build/`` at first use. Entry points run on the CUDA
-card unless called with ``device="cpu"``.
+Ported so far: chip creation (tile planning, scene compositing --
+cloud-masked temporal median, nearest-to-date mosaic --, vector label
+burning and GeoTIFF chip pairs) and U-Net serving (the model with its
+flax weight converter, predict, sliding-window inference, the
+micro-batching HTTP server and stitch). The three Pallas kernels of
+chip creation are hand-written CUDA kernels for Hopper (csrc/), built
+with nvcc into the checkout's ``build/`` at first use; the U-Net's
+convs, GroupNorm and transposed convs are cuDNN/cuBLAS calls through
+torch. Entry points run on the CUDA card unless called with
+``device="cpu"``.
 
-The chip-creation names of the reference's facade are exported here,
-lazily, so ``import dl_image_segmentation_tpu_torch`` stays light.
+The names of the reference's facade that the port has are exported
+here, lazily, so ``import dl_image_segmentation_tpu_torch`` stays light.
 """
 
 __version__ = "0.1.0"
@@ -24,6 +28,10 @@ _LAZY = {
 _LAZY["create_chips_for_tiles_batched"] = \
     "dl_image_segmentation_tpu_torch.pipeline.batch"
 _LAZY["run_export"] = "dl_image_segmentation_tpu_torch.pipeline.export"
+_LAZY["Trainer"] = _LAZY["TrainConfig"] = \
+    "dl_image_segmentation_tpu_torch.train.trainer"
+_LAZY["UNet"] = "dl_image_segmentation_tpu_torch.models.unet"
+_LAZY["PredictServer"] = "dl_image_segmentation_tpu_torch.serve"
 
 __all__ = sorted(_LAZY)
 

@@ -1,9 +1,10 @@
-// TIFF-variant LZW encoder for GeoTIFF chips, built with g++ at first use
-// and called through ctypes (raster/lzw.py). A copy of the encoder in the
-// JAX package's native codec (_native/fastcodec.cc, fc_lzw_encode): the
+// TIFF-variant LZW codec for GeoTIFF chips, built with g++ at first use
+// and called through ctypes (raster/lzw.py). The encoder is a copy of the
+// JAX package's native one (_native/fastcodec.cc, fc_lzw_encode): the
 // port keeps its own copy so that it imports nothing of that package.
-// Pure Python LZW cannot carry full-width chips (a 260 px x 13-band
-// float32 median chip is ~3.5 MB).
+// The decoder is a plain version of the same stream rules, for the
+// GeoTIFF reader. Pure Python LZW cannot carry full-width chips (a
+// 260 px x 13-band float32 median chip is ~3.5 MB).
 //
 // MSB-first bit packing, 9->12 bit codes, ClearCode=256, EOI=257, code
 // width bumps one code early ("early change"), table reset at 4094.
@@ -126,6 +127,74 @@ uint64_t fc_lzw_encode(const uint8_t* src, uint64_t n,
         bw.out[bw.pos++] = (uint8_t)(bw.bitbuf << (8 - bw.bitcnt));
     }
     return bw.pos;
+}
+
+// Decode: each code's string is a run of bytes already written to dst,
+// kept as (start, length); a new entry is the previous string plus the
+// first byte of the current one, which dst holds right after it.
+// Same rules as raster/lzw.py:lzw_decode: running out of input ends the
+// stream like EOI; stop_at > 0 stops once that many bytes are out.
+// Returns the bytes written, (uint64_t)-1 for a corrupt stream, or
+// (uint64_t)-2 when dst is too small (the caller grows it).
+uint64_t fc_lzw_decode(const uint8_t* src, uint64_t n,
+                       uint8_t* dst, uint64_t cap, uint64_t stop_at) {
+    static thread_local uint64_t start[4096];
+    static thread_local uint32_t len[4096];
+    uint64_t pos = 0, bitbuf = 0, out = 0;
+    int bitcnt = 0, bits = 9, next_code = LZW_FIRST;
+    bool have_old = false;
+    uint64_t old_start = 0;
+    uint32_t old_len = 0;
+    for (;;) {
+        while (bitcnt < bits && pos < n) {
+            bitbuf = (bitbuf << 8) | src[pos++];
+            bitcnt += 8;
+        }
+        if (bitcnt < bits) break;  // input ran out: as EOI
+        bitcnt -= bits;
+        uint32_t code = (uint32_t)(bitbuf >> bitcnt) & ((1u << bits) - 1);
+        if (code == LZW_EOI) break;
+        if (code == LZW_CLEAR) {
+            bits = 9;
+            next_code = LZW_FIRST;
+            have_old = false;
+            continue;
+        }
+        uint64_t s;
+        uint32_t l;
+        if (code < 256) {
+            if (out + 1 > cap) return (uint64_t)-2;
+            dst[out] = (uint8_t)code;
+            s = out;
+            l = 1;
+        } else if ((int)code < next_code && code >= LZW_FIRST) {
+            l = len[code];
+            if (out + l > cap) return (uint64_t)-2;
+            memmove(dst + out, dst + start[code], l);
+            s = out;
+        } else if ((int)code == next_code && have_old) {
+            // KwKwK: the previous string and its own first byte
+            l = old_len + 1;
+            if (out + l > cap) return (uint64_t)-2;
+            memmove(dst + out, dst + old_start, old_len);
+            dst[out + old_len] = dst[old_start];
+            s = out;
+        } else {
+            return (uint64_t)-1;
+        }
+        out += l;
+        if (have_old && next_code < 4096) {
+            start[next_code] = old_start;
+            len[next_code] = old_len + 1;
+            next_code++;
+            if (next_code == (1 << bits) - 1 && bits < 12) bits++;
+        }
+        have_old = true;
+        old_start = s;
+        old_len = l;
+        if (stop_at && out >= stop_at) break;
+    }
+    return stop_at && out > stop_at ? stop_at : out;
 }
 
 }  // extern "C"

@@ -1,0 +1,81 @@
+"""Decode-from-bytes dispatch for the server's request bodies.
+
+The JAX package's ``raster/image.py`` sniffs a container from its magic
+bytes and decodes any supported raster. The port decodes TIFF/GeoTIFF
+(classic and BigTIFF) with its own reader (``raster/geotiff.py``).
+Other containers raise :class:`UnsupportedFormatError` naming the
+detected format: PNG, JPEG, BMP and GIF are decoded with PIL in the JAX
+package, and the port does not depend on PIL; the scientific formats
+come with later slices.
+"""
+
+from __future__ import annotations
+
+from .geotiff import GeoTIFF, decode_geotiff
+
+__all__ = ["CorruptRasterError", "UnsupportedFormatError",
+           "decode_image_bytes"]
+
+
+class UnsupportedFormatError(ValueError):
+    """Raised when bytes are a container this port does not decode; the
+    message names the detected format."""
+
+
+class CorruptRasterError(ValueError):
+    """A recognised container failed to parse or decode; the message
+    names the format."""
+
+
+def _named(fmt: str, fn, *args, **kwargs):
+    """Run a container decoder, wrapping its failures with the format
+    name; the original message is preserved for substring matching."""
+    try:
+        return fn(*args, **kwargs)
+    except (CorruptRasterError, UnsupportedFormatError):
+        raise
+    except Exception as e:
+        raise CorruptRasterError(
+            f"corrupt or unreadable {fmt} container; "
+            f"{type(e).__name__}: {e}") from e
+
+
+_KNOWN_MAGICS = (
+    (b"\x89PNG\r\n\x1a\n", "PNG"),
+    (b"\xff\xd8\xff", "JPEG"),
+    (b"GIF8", "GIF"),
+    (b"BM", "BMP"),
+    (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000 (JP2)"),
+    (b"\xffO\xffQ", "JPEG 2000 codestream (J2K)"),
+    (b"CDF\x01", "NetCDF classic"),
+    (b"CDF\x02", "NetCDF classic"),
+    (b"CDF\x05", "NetCDF classic"),
+    (b"\x89HDF\r\n\x1a\n", "HDF5 / NetCDF-4"),
+    (b"\x0e\x03\x13\x01", "HDF4"),
+    (b"GRIB", "GRIB"),
+    (b"NITF", "NITF"),
+    (b"SQLite format 3\x00", "GeoPackage (SQLite)"),
+)
+
+
+def _is_tiff(data: bytes) -> bool:
+    # classic TIFF (version 42) or BigTIFF (version 43)
+    return data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
+
+
+def _unsupported(data: bytes) -> UnsupportedFormatError:
+    name = next((n for magic, n in _KNOWN_MAGICS
+                 if data[:len(magic)] == magic),
+                f"unknown container (magic bytes {data[:4]!r})")
+    return UnsupportedFormatError(
+        f"unsupported raster format: {name}. The port decodes GeoTIFF "
+        "(classic and BigTIFF) and .npy bodies; convert other "
+        "containers (e.g. with gdal_translate) first.")
+
+
+def decode_image_bytes(data: bytes) -> GeoTIFF:
+    """Decode a TIFF/GeoTIFF from bytes, with its georeferencing;
+    bands-last. Other containers raise UnsupportedFormatError."""
+    if _is_tiff(data):
+        return _named("GeoTIFF", decode_geotiff, data)
+    raise _unsupported(data)
