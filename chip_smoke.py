@@ -49,7 +49,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    predict_windowed), and one HTTP round trip each of /healthz,
    /predict (.npy and GeoTIFF) and /metrics; any errored request fails
    the run. The U-Net path has no hand-written kernel: its convs,
-   GroupNorm and transposed convs are cuDNN/cuBLAS calls.
+   GroupNorm and transposed convs are cuDNN/cuBLAS calls;
+6. training, cmd_train's sequence at full width (TrainConfig defaults
+   with num_classes=10: 256 px RGB, base_features 32, 4 levels, s2d
+   AUTO = s2d 2 at width 64, batch 32, lr 1e-3, wd 1e-4, bf16): a
+   32-tile RGB nearest-date export of 256 px chips on the card ->
+   process_dataset_mp into 4 tifarr shards (every record read back with
+   its CRCs checked) -> TFRecordFeed(scale="raw") -> DevicePrefetcher ->
+   20 train_steps at the defaults and 20 with a cosine schedule, 5
+   warmup steps and clipping at 1.0 (the mean loss of the last 5 steps
+   must be below the first step's) -> DeviceDataPool.from_feed ->
+   train_scanned (20 steps, 10 a dispatch, augmented, the pool
+   refreshed from a live feed of 16-example batches while each dispatch
+   runs; finite losses, and the pool must then hold the two refresh
+   batches) ->
+   evaluate on one pass over the shards -> save_checkpoint ->
+   restore_checkpoint into a fresh Trainer, whose predict on 8 chips
+   must equal the trained trainer's bitwise and whose PredictServer
+   must answer the same class maps. Then 3 fp32 steps on 2 images from
+   one state dict, twice on the card and once on the CPU (losses
+   within 1e-4 relative; the largest parameter difference and whether
+   the two card runs agree bitwise are printed), and at batch 32, bf16
+   and fp32: the train step's CUDA-event time, images/s, share of the
+   card's peak (3 x the forward's conv FLOPs), max memory allocated,
+   and torch.profiler's top 5 device ops and device-busy share over 5
+   steps; train_scanned's examples/s and duty cycles; the feed's
+   records/s.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script
@@ -593,21 +618,21 @@ def benchmark_mode(trainer, x, reps=20):
     return runs[0][0], float((runs[0][1] - runs[1][1]).abs().max())
 
 
-def profile_forwards(trainer, x, n=5):
-    """torch.profiler over ``n`` steady forwards: (top 5 (kernel, device
-    ms per forward) by device time, device-busy share: the kernels' time
-    over the window's wall time); busy share None when the profiler
-    reports no device time."""
+def profile_steps(fn, n=5):
+    """torch.profiler over ``n`` steady calls of ``fn`` (a forward or a
+    train step): (top 5 (kernel, device ms per call) by device time,
+    device-busy share: the kernels' time over the window's wall time);
+    busy share None when the profiler reports no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    trainer.logits(x)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            trainer.logits(x)
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -771,7 +796,7 @@ def serving_phase(smi):
             flops = card_t.model.conv_flops(256, 256)
             peak = BF16_OPS_PER_S if precision == "bf16" else FP32_OPS_PER_S
             share = flops * 8 / (ms / 1e3) / peak
-            top, busy = profile_forwards(card_t, x)
+            top, busy = profile_steps(lambda: card_t.logits(x))
             bench_ms, bench_diff = benchmark_mode(card_t, x)
             row = {"config": label, "precision": precision,
                    "s2d": card_t.s2d, "width": card_t.model_features,
@@ -859,6 +884,272 @@ def serving_phase(smi):
     return out
 
 
+def train_steps(trainer, feed, steps):
+    """``steps`` train_steps fed by TFRecordFeed -> DevicePrefetcher
+    (pinned batches copied on a side stream); the per-step losses."""
+    from dl_image_segmentation_tpu_torch.pipeline.input import (
+        DevicePrefetcher)
+    losses = []
+    with DevicePrefetcher(iter(feed), trainer.place_batch) as pf:
+        for _ in range(steps):
+            losses.append(trainer.train_step(*next(pf))["loss"])
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    return losses
+
+
+def step_numbers(trainer, x, y, smi, reps=10):
+    """Warm CUDA-event ms of one train step on the device batch (x, y),
+    images/s, the convs' share of the card's peak (3 x forward FLOPs),
+    max memory allocated, and the profiler's top device ops and
+    device-busy share over 5 steps."""
+    import torch
+    n = x.shape[0]
+    step = lambda: trainer.train_step_async(x, y)  # noqa: E731
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(step, reps)
+    peak_mem = torch.cuda.max_memory_allocated()
+    size = trainer.config.image_size
+    flops = 3 * trainer.model.conv_flops(size, size) * n
+    fp32 = trainer.compute_dtype == torch.float32
+    peak = FP32_OPS_PER_S if fp32 else BF16_OPS_PER_S
+    top, busy = profile_steps(step)
+    row = {"precision": trainer.config.precision, "batch": n,
+           "train_step_ms": ms, "images_per_s": n / (ms / 1e3),
+           "gflop_per_step": flops / 1e9,
+           "peak_share": flops / (ms / 1e3) / peak,
+           "max_memory_allocated": peak_mem, "device_busy_share": busy,
+           "top_device_ops": [[k, v] for k, v in top]}
+    log(f"  train step at {row['precision']}, batch {n}: {ms:.4f} ms = "
+        f"{row['images_per_s']:.1f} images/s; {flops / 1e9:.1f} GFLOP a "
+        f"step = {row['peak_share']:.2%} of {peak / 1e12:.0f} TFLOP/s "
+        f"({smi}); max memory allocated {peak_mem / 2**20:.1f} MiB; "
+        "device-busy share over 5 steps "
+        + (f"{busy:.1%}" if busy is not None else "not measured"))
+    log("    top device ops (ms a step): "
+        + "; ".join(f"{k[:70]} {v:.4f}" for k, v in top))
+    return row
+
+
+def card_vs_cpu_steps(cfg, x, y, steps=3):
+    """``steps`` fp32 train steps on (x, y) from one state dict, twice on
+    the card and once on the CPU: per-step loss differences (card against
+    CPU, within 1e-4 relative), the largest parameter difference, and
+    whether the two card runs agree bitwise (cuDNN's backward may use
+    atomics: reported, not required)."""
+    import torch
+    from dl_image_segmentation_tpu_torch.train import Trainer
+    first = Trainer(cfg)
+    state = {k: v.detach().cpu().clone()
+             for k, v in first.model.state_dict().items()}
+    runs = []
+    for device in ("cuda", "cuda", "cpu"):
+        t = first if not runs else Trainer(cfg, device=device)
+        t.model.load_state_dict(state)
+        losses = [t.train_step(x, y)["loss"] for _ in range(steps)]
+        runs.append((losses, {n: p.detach().cpu()
+                              for n, p in t.state.params.items()}))
+        del t
+    (card, p_card), (card2, p_card2), (cpu, p_cpu) = runs
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    if max(rel) > 1e-4:
+        raise AssertionError(f"fp32 steps: card losses {card} differ from "
+                             f"the CPU's {cpu}")
+    param_diff = max(float((p_card[n] - p_cpu[n]).abs().max())
+                     for n in p_cpu)
+    bitwise = card == card2 and all(torch.equal(p_card[n], p_card2[n])
+                                    for n in p_card)
+    return {"card_losses": card, "cpu_losses": cpu,
+            "loss_rel_diff": rel, "max_param_diff": param_diff,
+            "card_runs_bitwise_equal": bitwise}
+
+
+def training_phase(smi):
+    """U-Net training at full width on the card from exported chips to a
+    served checkpoint (TrainConfig defaults with num_classes=10)."""
+    import torch
+    from dl_image_segmentation_tpu_torch.catalog import SyntheticCatalog
+    from dl_image_segmentation_tpu_torch.pipeline.chips import (
+        DLSampleCreationConfig, OGRLabelDataDesc)
+    from dl_image_segmentation_tpu_torch.pipeline.export import run_export
+    from dl_image_segmentation_tpu_torch.pipeline.input import TFRecordFeed
+    from dl_image_segmentation_tpu_torch.records import (
+        list_shards, process_dataset_mp, read_records)
+    from dl_image_segmentation_tpu_torch.serve import PredictServer
+    from dl_image_segmentation_tpu_torch.train import (
+        DeviceDataPool, TrainConfig, Trainer)
+
+    log(f"phase 6: training ({smi})")
+    kw = {"num_classes": 10}
+    cfg = TrainConfig(**kw)
+    bs = cfg.batch_size
+    out = {"config": {k: getattr(cfg, k) for k in (
+        "num_classes", "base_features", "levels", "image_size",
+        "batch_size", "learning_rate", "weight_decay", "precision")}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # 1. export: 32 RGB nearest-date tiles of 256 px chips
+        labels = write_labels(os.path.join(tmp, "labels.geojson"), 43, 1.0,
+                              8, 4, 1024, seed=11)
+        dlcfg = DLSampleCreationConfig(
+            256, 0, 1.0, "airbus:oneatlas:phr:v2", "red green blue",
+            os.path.join(tmp, "chips"), "smoke",
+            OGRLabelDataDesc(labels, 0, "cls"), catalog=SyntheticCatalog())
+        jobs = dlcfg.create_tile_job_configs("aoi", 2020,
+                                             dt.date(2020, 11, 1))
+        if len(jobs) != 32:
+            raise AssertionError(f"export: {len(jobs)} tiles, not 32")
+        t0 = time.perf_counter()
+        report = run_export(jobs, n_workers=8, progress=None)
+        if not report.ok:
+            raise AssertionError(f"export failed: {report.failed}")
+        out["export_seconds"] = time.perf_counter() - t0
+        # 2. shards: 4 tifarr shards, every record's CRCs checked
+        shards = os.path.join(tmp, "shards")
+        t0 = time.perf_counter()
+        written = process_dataset_mp("smoke", jobs[0].OUTFOLDER, shards, 4,
+                                     store_as_array=True)
+        out["shard_seconds"] = time.perf_counter() - t0
+        files = list_shards(shards, "smoke")
+        n_rec = sum(1 for f in files for _ in read_records(f,
+                                                           verify_crc=True))
+        if written != 32 or len(files) != 4 or n_rec != 32:
+            raise AssertionError(f"shards: {written} written, {len(files)} "
+                                 f"files, {n_rec} records")
+        log(f"  export: 32 tiles of 256 px in {out['export_seconds']:.3f}"
+            f" s; 4 tifarr shards ({written} records, CRCs checked) in "
+            f"{out['shard_seconds']:.3f} s")
+        pattern = os.path.join(shards, "smoke-*")
+
+        def feed(**over):
+            return TFRecordFeed(pattern, "tifarr", **{
+                "batch_size": bs, "image_size": cfg.image_size,
+                "scale": "raw", **over})
+        # feed alone: records/s through parse and batching (host only)
+        f = iter(feed(seed=3))
+        next(f)
+        t0 = time.perf_counter()
+        for _ in range(4):
+            next(f)
+        out["feed_records_per_s"] = 4 * bs / (time.perf_counter() - t0)
+        del f
+        # 3. steps: TFRecordFeed -> DevicePrefetcher -> train_step
+        runs = {}
+        for name, extra in (("defaults", {}),
+                            ("cosine, warmup 5, clip 1.0",
+                             {"schedule": "cosine", "warmup_steps": 5,
+                              "grad_clip_norm": 1.0})):
+            t = Trainer(TrainConfig(**kw, **extra))
+            runs[name] = train_steps(t, feed(seed=1), 20)
+            log(f"  20 steps ({name}): losses {runs[name][0]:.4f} -> "
+                f"{np.mean(runs[name][-5:]):.4f} (mean of the last 5)")
+            if name == "defaults":
+                trainer = t
+        out["losses"] = runs
+        # 4. scanned: a pool of 32 on the device, 10 steps a dispatch; a
+        # live feed of 16-example batches refreshes the pool after each
+        # dispatch (offsets 0, then 16) while the dispatch runs
+        pool = DeviceDataPool.from_feed(iter(feed(seed=2)), 32)
+        given = []
+
+        def refresh_batches():
+            for b in feed(seed=6, batch_size=16):
+                given.append(b)
+                yield b
+        step0 = trainer.state.step
+        trainer.wall_start = None
+        trainer.device_seconds = trainer.feed_seconds = 0.0
+        trainer.examples_seen = 0
+        refresh = refresh_batches()
+        scan = trainer.train_scanned(pool, total_steps=20,
+                                     steps_per_dispatch=10, augment=True,
+                                     refresh_feed=refresh)
+        refresh.close()  # stops the feed's parse threads
+        if (trainer.state.step != step0 + 20
+                or not np.all(np.isfinite(trainer.scan_losses[-20:]))):
+            raise AssertionError(f"train_scanned: step {trainer.state.step}"
+                                 f", losses {trainer.scan_losses[-20:]}")
+        if len(given) != 2 or not (
+                np.array_equal(pool.images.cpu().numpy(),
+                               np.concatenate([b[0] for b in given]))
+                and np.array_equal(pool.labels.cpu().numpy(),
+                                   np.concatenate([b[1] for b in given]))):
+            raise AssertionError(f"train_scanned: the pool does not hold the "
+                                 f"{len(given)} refresh batches")
+        out["scanned"] = scan
+        log(f"  train_scanned 20 steps (10 a dispatch, augmented, pool "
+            f"refreshed from the feed after each dispatch; pool == the 2 "
+            f"refresh batches): {scan['examples_per_sec']:.1f} examples/s, "
+            f"duty_cycle {scan['duty_cycle']:.3f}, duty_cycle_lower "
+            f"{scan['duty_cycle_lower']:.3f}, refresh feed "
+            f"{trainer.feed_seconds:.3f} s, last loss {scan['loss']:.4f}")
+        # 5. evaluate on one pass over the shards
+        ev = trainer.evaluate(iter(feed(repeat=False, drop_remainder=False)))
+        if ev["batches"] < 1 or not np.isfinite(ev["loss"]):
+            raise AssertionError(f"evaluate: {ev}")
+        out["evaluate"] = ev
+        log(f"  evaluate: loss {ev['loss']:.4f}, accuracy "
+            f"{ev['accuracy']:.4f}, mIoU {ev['miou']:.4f}, per-class IoU "
+            + ", ".join("-" if v is None else f"{v:.3f}"
+                        for v in ev["per_class_iou"]))
+        # 6. checkpoint -> fresh trainer -> predict and serve
+        ckpt = os.path.join(tmp, "ckpt", "model.pt")
+        trainer.save_checkpoint(ckpt)
+        restored = Trainer(cfg)
+        restored.restore_checkpoint(ckpt)
+        chips = next(iter(feed(seed=4)))[0][:8]
+        want = trainer.predict(chips)
+        if not np.array_equal(restored.predict(chips), want):
+            raise AssertionError("restored predict differs from the "
+                                 "trained trainer's")
+        padded = np.zeros((bs,) + chips.shape[1:], chips.dtype)
+        padded[:len(chips)] = chips
+        batch_maps = restored.predict(padded)[:len(chips)]
+        ps = PredictServer(restored, max_wait_ms=50.0)
+        try:
+            pend, _, _ = serve_requests(ps, chips)
+        finally:
+            ps.close()
+        if any(p.error for p in pend) or not all(
+                np.array_equal(p.result, w) for p, w in zip(pend,
+                                                            batch_maps)):
+            raise AssertionError("served class maps differ from the "
+                                 "restored trainer's predict")
+        log(f"  checkpoint (step {restored.state.step}) restored: predict on "
+            f"8 chips == the trained trainer's bitwise; PredictServer "
+            f"answers == restored predict")
+        del restored, ps, trainer, pool
+        torch.cuda.empty_cache()
+        # 7. card against CPU, 3 fp32 steps on 2 images
+        x, y = next(iter(feed(seed=5)))
+        cmp = card_vs_cpu_steps(TrainConfig(**{**kw, "batch_size": 2,
+                                               "precision": "fp32"}),
+                                x[:2], y[:2])
+        out["card_vs_cpu"] = cmp
+        log(f"  card vs CPU, 3 fp32 steps on 2 images: loss relative "
+            f"differences {', '.join(f'{v:.3g}' for v in cmp['loss_rel_diff'])}"
+            f"; largest parameter difference {cmp['max_param_diff']:.3g}; "
+            f"two card runs bitwise equal: {cmp['card_runs_bitwise_equal']}")
+        # 8. step numbers at batch 32, bf16 and fp32
+        out["steps"] = []
+        for precision in ("bf16", "fp32"):
+            t = Trainer(TrainConfig(**{**kw, "precision": precision}))
+            xd, yd = t.place_batch(x, y)
+            out["steps"].append(step_numbers(t, xd, yd, smi))
+            del t, xd, yd
+            torch.cuda.empty_cache()
+        log(f"  feed: {out['feed_records_per_s']:.1f} records/s "
+            f"(tifarr, {cfg.image_size} px, parse and batch; {smi})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -894,6 +1185,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     serving = serving_phase(smi)
+    training = training_phase(smi)
 
     out = []
     for c in kernels.COUNTERS:
@@ -911,6 +1203,7 @@ def main() -> int:
             "library_ms": main_case.get("library_ms"),
             "case": main_case["case"], "cases": cases})
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"training": training}))
     log(f"seconds {time.perf_counter() - t_start:.1f}; runs "
         f"{json.dumps(runs)}")
     log(f"{smi}")

@@ -3,9 +3,11 @@ dl_image_segmentation_tpu, for one NVIDIA H100.
 
 Ported so far: chip creation (tile planning, scene compositing --
 cloud-masked temporal median, nearest-to-date mosaic --, vector label
-burning and GeoTIFF chip pairs) and U-Net serving (the model with its
-flax weight converter, predict, sliding-window inference, the
-micro-batching HTTP server and stitch). The three Pallas kernels of
+burning and GeoTIFF chip pairs), U-Net training (chips to TFRecord
+shards, the training feed, optax-equal AdamW steps, scanned training
+from a device pool, evaluation and checkpoints) and U-Net serving (the
+model with its flax weight converter, predict, sliding-window
+inference, the micro-batching HTTP server and stitch). The three Pallas kernels of
 chip creation are hand-written CUDA kernels for Hopper (csrc/), built
 with nvcc into the checkout's ``build/`` at first use; the U-Net's
 convs, GroupNorm and transposed convs are cuDNN/cuBLAS calls through
@@ -32,6 +34,10 @@ _LAZY["Trainer"] = _LAZY["TrainConfig"] = \
     "dl_image_segmentation_tpu_torch.train.trainer"
 _LAZY["UNet"] = "dl_image_segmentation_tpu_torch.models.unet"
 _LAZY["PredictServer"] = "dl_image_segmentation_tpu_torch.serve"
+_LAZY["DeviceDataPool"] = "dl_image_segmentation_tpu_torch.train.pool"
+_LAZY["TFRecordFeed"] = _LAZY["DevicePrefetcher"] = \
+    "dl_image_segmentation_tpu_torch.pipeline.input"
+_LAZY["process_dataset_mp"] = "dl_image_segmentation_tpu_torch.records.writers"
 
 __all__ = sorted(_LAZY)
 

@@ -22,6 +22,11 @@ both spatial axes and laid out (in, out, kh, kw).
 
 Raises ``ValueError`` naming the leaves if any flax leaf is left unused,
 any torch param is left unfilled, or a shape disagrees.
+
+The same mapping carries other trees of the param tree's shape:
+gradients (``tensors_from_flax``) and the moments of the JAX package's
+optax AdamW state (``adamw_state_from_optax``), so that a run trained in
+the JAX package continues in the port.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ import torch
 
 from .unet import ConvBlock, UNet
 
-__all__ = ["unet_params_from_flax", "flatten_tree"]
+__all__ = ["adamw_state_from_optax", "flatten_tree", "tensors_from_flax",
+           "unet_params_from_flax"]
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -83,31 +89,91 @@ def _plan(model: UNet):
     return plan
 
 
-def unet_params_from_flax(params: Mapping, model: UNet) -> UNet:
-    """Copy the flax param tree ``params`` into ``model`` (in place);
-    returns ``model``."""
-    leaves = flatten_tree(params)
+def _mapped(tree: Mapping, model: UNet, what: str = "flax params"):
+    """[(torch param name, torch param, array in torch layout)] for a
+    tree shaped like the flax params, in ``model.named_parameters()``
+    order; raises on a missing or unused leaf,
+    an unfilled param or a shape that does not fit."""
+    leaves = flatten_tree(tree)
     plan = _plan(model)
     missing = [name for name, _, _ in plan if name not in leaves]
     if missing:
-        raise ValueError(f"flax params lack {len(missing)} leaves the "
+        raise ValueError(f"{what} lack {len(missing)} leaves the "
                          f"port's UNet needs: {missing[:8]}")
     used = {name for name, _, _ in plan}
     extra = sorted(set(leaves) - used)
     if extra:
-        raise ValueError(f"flax params hold {len(extra)} leaves the "
+        raise ValueError(f"{what} hold {len(extra)} leaves the "
                          f"port's UNet has no place for: {extra[:8]}")
+    names = {id(p): n for n, p in model.named_parameters()}
     filled = {id(p) for _, p, _ in plan}
-    unfilled = [n for n, p in model.named_parameters() if id(p) not in filled]
+    unfilled = [n for i, n in names.items() if i not in filled]
     if unfilled:
         raise ValueError(f"torch params left unfilled: {unfilled[:8]}")
+    out = []
+    for name, param, layout in plan:
+        value = leaves[name].astype(np.float32)
+        if layout is not None:
+            value = layout(value)
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: flax shape {leaves[name].shape} "
+                             f"does not fit torch {tuple(param.shape)}")
+        out.append((names[id(param)], param, np.ascontiguousarray(value)))
+    order = {n: i for i, n in enumerate(names.values())}
+    return sorted(out, key=lambda item: order[item[0]])
+
+
+def tensors_from_flax(tree: Mapping, model: UNet) -> Dict[str, torch.Tensor]:
+    """A tree shaped like the flax params (the params themselves, their
+    gradients, Adam's moments) as float32 CPU tensors in torch layout,
+    by ``model``'s parameter names, in its order."""
+    return {n: torch.from_numpy(v) for n, _, v in _mapped(tree, model)}
+
+
+def unet_params_from_flax(params: Mapping, model: UNet) -> UNet:
+    """Copy the flax param tree ``params`` into ``model`` (in place);
+    returns ``model``."""
     with torch.no_grad():
-        for name, param, layout in plan:
-            value = leaves[name].astype(np.float32)
-            if layout is not None:
-                value = layout(value)
-            if tuple(value.shape) != tuple(param.shape):
-                raise ValueError(f"{name}: flax shape {leaves[name].shape} "
-                                 f"does not fit torch {tuple(param.shape)}")
-            param.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+        for _, param, value in _mapped(params, model):
+            param.copy_(torch.from_numpy(value))
     return model
+
+
+def _states(tree):
+    """Every node of a nested tuple/list optax state."""
+    yield tree
+    if isinstance(tree, (tuple, list)):
+        for child in tree:
+            yield from _states(child)
+
+
+def _field(state, name: str):
+    """A field of an optax NamedTuple state (a plain tuple's ``count``
+    method is not one), or None."""
+    return getattr(state, name) if name in getattr(state, "_fields", ()) \
+        else None
+
+
+def adamw_state_from_optax(opt_state, model: UNet, device=None):
+    """The port's AdamWState from the state of the JAX package's
+    optimizer as numpy arrays (``jax.tree_util.tree_map(np.asarray,
+    opt_state)``): ``(ScaleByAdamState(count, mu, nu), EmptyState(),
+    EmptyState() or ScaleByScheduleState(count))``, optionally behind the
+    clip's ``(EmptyState(), ...)``. mu and nu are mapped like the params;
+    every count in the state must agree."""
+    from ..train.optim import AdamWState
+    adam = [s for s in _states(opt_state)
+            if _field(s, "mu") is not None and _field(s, "nu") is not None]
+    if len(adam) != 1:
+        raise ValueError(f"expected one Adam state (mu, nu) in the optax "
+                         f"state, found {len(adam)}")
+    counts = {int(np.asarray(_field(s, "count")))
+              for s in _states(opt_state) if _field(s, "count") is not None}
+    if len(counts) != 1:
+        raise ValueError(f"the optax state's counts disagree: {counts}")
+
+    def moments(tree, what):
+        return {n: torch.from_numpy(v).to(device)
+                for n, _, v in _mapped(tree, model, what)}
+    return AdamWState(counts.pop(), moments(adam[0].mu, "Adam's mu"),
+                      moments(adam[0].nu, "Adam's nu"))

@@ -79,10 +79,57 @@ def depth_to_space(x: torch.Tensor, block: int) -> torch.Tensor:
     return x.reshape(n, c, h * block, w * block)
 
 
+# (shapes, strides, dtype, conv arguments, cuDNN switches) -> whether
+# cuDNN's engine for that conv gives an image other bits in another slot
+# of the batch
+_SLOT_DEPENDENT: dict = {}
+
+
+def _slot_dependent(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    stride, padding) -> bool:
+    """Whether the conv that ``F.conv2d`` picks for these shapes computes
+    an image with other bits when it sits in another slot of the batch,
+    as an engine that splits its reduction by output tile does: the conv
+    of seeded random data and of the same data rolled by one image (in
+    ``x``'s strides) are compared. Random data, so that no zero input
+    hides a split."""
+    g = torch.Generator(device=x.device).manual_seed(0)
+    xr, wr, br = (torch.empty_like(t).normal_(generator=g) for t in (x, w, b))
+    rolled = torch.empty_like(xr).copy_(xr.roll(1, 0))
+    y = F.conv2d(xr, wr, br, stride=stride, padding=padding)
+    yr = F.conv2d(rolled, wr, br, stride=stride, padding=padding)
+    return not torch.equal(yr, y.roll(1, 0))
+
+
+def _conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride=1,
+            padding=0) -> torch.Tensor:
+    """``F.conv2d``, and in an inference forward on the card an image's
+    result does not depend on its slot in the batch (a served chip's
+    class map must equal ``predict``'s whichever slot it was given): a
+    conv whose cuDNN engine is slot dependent (one bf16 conv of the
+    full-width s2d 2 tree is) runs without cuDNN, as an im2col and a GEMM
+    per image. Each shape is tested once (``_slot_dependent``). Callers
+    hold the Trainer's lock on the cuDNN switches, which this flips."""
+    if x.is_cuda and x.shape[0] > 1 and not torch.is_grad_enabled():
+        cudnn = torch.backends.cudnn
+        key = (tuple(x.shape), x.stride(), tuple(w.shape), x.dtype,
+               x.device, stride, padding, cudnn.benchmark, cudnn.allow_tf32)
+        if key not in _SLOT_DEPENDENT:
+            _SLOT_DEPENDENT[key] = _slot_dependent(x, w, b, stride, padding)
+        if _SLOT_DEPENDENT[key]:
+            saved = cudnn.enabled
+            cudnn.enabled = False
+            try:
+                return F.conv2d(x, w, b, stride=stride, padding=padding)
+            finally:
+                cudnn.enabled = saved
+    return F.conv2d(x, w, b, stride=stride, padding=padding)
+
+
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype,
           padding=0, stride=1) -> torch.Tensor:
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype),
-                    conv.bias.to(dtype), stride=stride, padding=padding)
+    return _conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
+                   stride=stride, padding=padding)
 
 
 def _upsample(up: nn.ConvTranspose2d, x: torch.Tensor,
@@ -97,7 +144,7 @@ def _upsample(up: nn.ConvTranspose2d, x: torch.Tensor,
     cin, cout, kh, kw = up.weight.shape
     w = up.weight.permute(1, 2, 3, 0).reshape(cout * kh * kw, cin, 1, 1)
     b = up.bias.repeat_interleave(kh * kw)
-    return F.pixel_shuffle(F.conv2d(x, w.to(dtype), b.to(dtype)), kh)
+    return F.pixel_shuffle(_conv2d(x, w.to(dtype), b.to(dtype)), kh)
 
 
 class ConvBlock(nn.Module):
@@ -235,7 +282,7 @@ class UNet(nn.Module):
             x = _upsample(up, x, dt)
             x = x[:, :, :skip.shape[2], :skip.shape[3]]
             x = block(torch.cat([x, skip.to(dt)], dim=1))
-        logits = F.conv2d(x.float(), self.head.weight, self.head.bias)
+        logits = _conv2d(x.float(), self.head.weight, self.head.bias)
         if self.s2d > 1:
             logits = depth_to_space(logits, self.s2d)
         return logits

@@ -11,10 +11,10 @@ come with later slices.
 
 from __future__ import annotations
 
-from .geotiff import GeoTIFF, decode_geotiff
+from .geotiff import GeoTIFF, RasterInfo, decode_geotiff, decode_geotiff_info
 
 __all__ = ["CorruptRasterError", "UnsupportedFormatError",
-           "decode_image_bytes"]
+           "decode_image_bytes", "sniff_image_info"]
 
 
 class UnsupportedFormatError(ValueError):
@@ -78,4 +78,13 @@ def decode_image_bytes(data: bytes) -> GeoTIFF:
     bands-last. Other containers raise UnsupportedFormatError."""
     if _is_tiff(data):
         return _named("GeoTIFF", decode_geotiff, data)
+    raise _unsupported(data)
+
+
+def sniff_image_info(data: bytes) -> RasterInfo:
+    """Shape, dtype and georeferencing of a TIFF/GeoTIFF from its header,
+    without decoding pixels. Other containers raise
+    UnsupportedFormatError."""
+    if _is_tiff(data):
+        return _named("GeoTIFF", decode_geotiff_info, data)
     raise _unsupported(data)

@@ -229,3 +229,70 @@ def test_burn_kernels_read_at_most_E_edges():
     dense, binned = _both_kernels(e, v, w, H, W, True,
                                   extra_edges=3 * e.shape[1])
     assert torch.equal(dense, ref) and torch.equal(binned, ref)
+
+
+def test_train_step_card_equals_cpu():
+    """Three fp32 steps from one state dict on the card and on the CPU:
+    losses within 1e-4 relative; parameters within 2 * lr * steps (Adam's
+    first steps move a parameter by about lr whatever its gradient's
+    size, so a near-zero gradient of the other sign moves it the other
+    way)."""
+    _need_card()
+    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+    cfg = TrainConfig(num_classes=3, base_features=8, levels=2, image_size=32,
+                      batch_size=2, precision="fp32", grad_clip_norm=1.0)
+    card, cpu = Trainer(cfg), Trainer(cfg, device="cpu")
+    cpu.model.load_state_dict(card.model.state_dict())
+    rng = np.random.RandomState(0)
+    for _ in range(3):
+        x = rng.randint(0, 256, (2, 32, 32, 3)).astype(np.uint8)
+        y = rng.randint(0, 3, (2, 32, 32)).astype(np.int32)
+        y[:, :4] = 255
+        got, want = card.train_step(x, y), cpu.train_step(x, y)
+        assert abs(got["loss"] - want["loss"]) <= 1e-4 * abs(want["loss"])
+    assert card.state.step == cpu.state.step == 3
+    diff = max(float((card.state.params[n].detach().cpu() - p.detach())
+                     .abs().max())
+               for n, p in cpu.state.params.items())
+    assert diff <= 2 * cfg.learning_rate * 3
+
+
+def test_device_prefetcher_stream_handoff():
+    """Batches placed on the prefetcher's side stream reach a consumer
+    whose stream is stalled (torch.cuda._sleep) intact: the consumer's
+    stream waits for each copy, and record_stream keeps the allocator
+    from handing a batch's memory to a later copy while the stalled
+    stream still reads it."""
+    _need_card()
+    from dl_image_segmentation_tpu_torch.pipeline.input import \
+        DevicePrefetcher
+    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+    t = Trainer(TrainConfig(base_features=8, levels=1, image_size=32))
+    batches = [(np.full((64, 128, 128, 3), i, np.float32),
+                np.full((64, 128, 128), i, np.int32)) for i in range(12)]
+    sums = []
+    with DevicePrefetcher(iter(batches), t.place_batch, depth=2) as pf:
+        for x, y in pf:
+            assert x.is_cuda and y.is_cuda
+            torch.cuda._sleep(20_000_000)
+            sums.append(torch.stack([x.double().mean(), y.double().mean()]))
+    got = torch.stack(sums).cpu().numpy()
+    np.testing.assert_array_equal(got, np.repeat(np.arange(12.0)[:, None],
+                                                 2, 1))
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_forward_bits_do_not_depend_on_batch_slot(precision):
+    """The full-width s2d 2 U-Net at batch 8: each image's logits are the
+    same bits whatever its slot in the batch (cuDNN's engine for one bf16
+    conv of this tree splits its reduction by output tile, so that conv
+    runs without cuDNN in an inference forward), and the served == predict
+    check does not depend on the order in which requests arrive."""
+    _need_card()
+    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+    t = Trainer(TrainConfig(batch_size=8, precision=precision))
+    x = torch.from_numpy(np.random.RandomState(5).rand(
+        8, 256, 256, 3).astype(np.float32)).cuda()
+    perm = torch.tensor([3, 7, 0, 5, 1, 6, 2, 4]).cuda()
+    base = t.logits(x)
+    assert torch.equal(t.logits(x[perm].contiguous()), base[perm])

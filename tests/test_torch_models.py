@@ -331,3 +331,30 @@ def test_trainer_predict_equals_jax_trainer(precision, monkeypatch):
     both_cls, both_probs = tt.predict_both(x)
     np.testing.assert_array_equal(both_cls, cls)
     np.testing.assert_array_equal(both_probs, got)
+
+
+def test_slot_check_sees_a_slot_dependent_conv(monkeypatch):
+    """``_slot_dependent`` finds a conv that gives an image other bits in
+    another batch slot (a fake conv that adds its slot index) and passes
+    the CPU's conv, whose images do not depend on their slots."""
+    x = torch.zeros(4, 16, 8, 8)
+    w, b = torch.zeros(32, 16, 3, 3), torch.zeros(32)
+    assert not tunet._slot_dependent(x, w, b, 1, 1)
+    conv = F.conv2d
+
+    def by_slot(x, w, b=None, **kw):
+        y = conv(x, w, b, **kw)
+        return y + 1e-3 * torch.arange(y.shape[0]).view(-1, 1, 1, 1)
+    monkeypatch.setattr(tunet.F, "conv2d", by_slot)
+    assert tunet._slot_dependent(x, w, b, 1, 1)
+
+
+def test_cpu_forward_runs_no_slot_check():
+    """Only an inference forward on the card tests its convs' slots: the
+    CPU forward is the plain F.conv2d."""
+    t = ttrainer.Trainer(ttrainer.TrainConfig(
+        base_features=8, levels=1, image_size=32, batch_size=2),
+        device="cpu")
+    before = dict(tunet._SLOT_DEPENDENT)
+    t.predict(np.zeros((2, 32, 32, 3), np.float32))
+    assert tunet._SLOT_DEPENDENT == before

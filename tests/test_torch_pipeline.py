@@ -298,6 +298,13 @@ class TestImportHygiene:
             rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
             mods.append(rel[:-len(".__init__")]
                         if rel.endswith(".__init__") else rel)
+        # the training path's modules are among them
+        training = {f"dl_image_segmentation_tpu_torch.{m}" for m in (
+            "records", "records.crc32c", "records.proto", "records.tfrecord",
+            "records.example", "records.parsers", "records.writers",
+            "pipeline.input", "ops.augment", "train.optim", "train.pool",
+            "train.trainer", "models.convert")}
+        assert training <= set(mods), sorted(training - set(mods))
         code = f"""
 import sys, importlib, importlib.abc
 BLOCKED = {BLOCKED!r}
