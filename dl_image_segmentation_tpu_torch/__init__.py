@@ -1,9 +1,12 @@
 """dl_image_segmentation_tpu_torch -- the PyTorch + CUDA port of
 dl_image_segmentation_tpu, for one NVIDIA H100.
 
-Ported so far: chip creation (tile planning, scene compositing --
-cloud-masked temporal median, nearest-to-date mosaic --, vector label
-burning and GeoTIFF chip pairs), U-Net training (chips to TFRecord
+Ported so far: chip creation (tile planning, scenes from a LocalCatalog
+root -- windowed COG reads, five resamplers, cross-zone warps -- or the
+synthetic catalog, scene compositing -- cloud-masked temporal median,
+nearest-to-date mosaic --, vector label burning and GeoTIFF chip
+pairs), the ``dlseg-torch`` command line (``python -m
+dl_image_segmentation_tpu_torch.cli``), U-Net training (chips to TFRecord
 shards, the training feed, optax-equal AdamW steps, scanned training
 from a device pool, evaluation and checkpoints) and U-Net serving (the
 model with its flax weight converter, predict, sliding-window

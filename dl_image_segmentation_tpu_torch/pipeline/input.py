@@ -51,7 +51,8 @@ class TFRecordFeed:
     multiplier, ``"raw"`` = the parsed dtype untouched (for device pools;
     the trainer scales on the card). tifarr and tifraw parse to float32
     raw DNs, which pass every scale setting unscaled. ``verify_crc``
-    checks each frame's CRCs while feeding."""
+    checks each frame's CRCs while feeding. ``per_host`` is accepted as
+    the JAX package accepts it; with one process it changes nothing."""
 
     def __init__(self, shard_pattern, parse_mode: str, batch_size: int,
                  image_size: Optional[int] = None,
@@ -59,6 +60,7 @@ class TFRecordFeed:
                  num_workers: int = 4, repeat: bool = True,
                  scale: Optional[float] = None,
                  drop_remainder: bool = True,
+                 per_host: bool = True,
                  interleave: int = 4,
                  verify_crc: bool = False):
         if isinstance(shard_pattern, str):
@@ -69,7 +71,7 @@ class TFRecordFeed:
         files = [f for f in files if not f.endswith(".tmp")]
         if not files:
             raise FileNotFoundError(f"no shards match {shard_pattern!r}")
-        self.files = host_shard_files(files)
+        self.files = host_shard_files(files) if per_host else list(files)
         if parse_mode == "rgbraw":
             raise NotImplementedError(parsers.RGBRAW_NOT_PORTED)
         self.parse = PARSE_FNS[parse_mode]

@@ -222,9 +222,13 @@ def decode_geotiff_info(data: bytes) -> RasterInfo:
 
 class _Layout:
     """Parsed pixel-storage layout of one TIFF IFD: everything needed
-    to turn a raw chunk (tile or strip) into pixels."""
+    to turn a raw chunk (tile or strip) into pixels, wherever the chunk
+    bytes come from (a whole in-memory buffer here; ranged reads in
+    raster/cog.py)."""
 
     def __init__(self, fmt: str, tags: Dict[int, list]):
+        self.fmt = fmt
+        self.tags = tags
         self.width = int(tags[_T_IMAGE_WIDTH][0])
         self.height = int(tags[_T_IMAGE_LENGTH][0])
         self.spp = int(tags.get(_T_SAMPLES_PER_PIXEL, [1])[0])

@@ -40,21 +40,24 @@ def _named(fmt: str, fn, *args, **kwargs):
             f"{type(e).__name__}: {e}") from e
 
 
+# (magic, name, ROADMAP queue 1 item that ports its decoder): item 6 is
+# what the JAX package decodes through PIL or OpenJPEG, item 10 the
+# scientific containers of its universal decode
 _KNOWN_MAGICS = (
-    (b"\x89PNG\r\n\x1a\n", "PNG"),
-    (b"\xff\xd8\xff", "JPEG"),
-    (b"GIF8", "GIF"),
-    (b"BM", "BMP"),
-    (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000 (JP2)"),
-    (b"\xffO\xffQ", "JPEG 2000 codestream (J2K)"),
-    (b"CDF\x01", "NetCDF classic"),
-    (b"CDF\x02", "NetCDF classic"),
-    (b"CDF\x05", "NetCDF classic"),
-    (b"\x89HDF\r\n\x1a\n", "HDF5 / NetCDF-4"),
-    (b"\x0e\x03\x13\x01", "HDF4"),
-    (b"GRIB", "GRIB"),
-    (b"NITF", "NITF"),
-    (b"SQLite format 3\x00", "GeoPackage (SQLite)"),
+    (b"\x89PNG\r\n\x1a\n", "PNG", 6),
+    (b"\xff\xd8\xff", "JPEG", 6),
+    (b"GIF8", "GIF", 6),
+    (b"BM", "BMP", 6),
+    (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000 (JP2)", 6),
+    (b"\xffO\xffQ", "JPEG 2000 codestream (J2K)", 6),
+    (b"CDF\x01", "NetCDF classic", 10),
+    (b"CDF\x02", "NetCDF classic", 10),
+    (b"CDF\x05", "NetCDF classic", 10),
+    (b"\x89HDF\r\n\x1a\n", "HDF5 / NetCDF-4", 10),
+    (b"\x0e\x03\x13\x01", "HDF4", 10),
+    (b"GRIB", "GRIB", 10),
+    (b"NITF", "NITF", 10),
+    (b"SQLite format 3\x00", "GeoPackage (SQLite)", 10),
 )
 
 
@@ -64,13 +67,14 @@ def _is_tiff(data: bytes) -> bool:
 
 
 def _unsupported(data: bytes) -> UnsupportedFormatError:
-    name = next((n for magic, n in _KNOWN_MAGICS
-                 if data[:len(magic)] == magic),
-                f"unknown container (magic bytes {data[:4]!r})")
+    name, item = next(((n, i) for magic, n, i in _KNOWN_MAGICS
+                       if data[:len(magic)] == magic),
+                      (f"unknown container (magic bytes {data[:4]!r})", 10))
     return UnsupportedFormatError(
         f"unsupported raster format: {name}. The port decodes GeoTIFF "
         "(classic and BigTIFF) and .npy bodies; convert other "
-        "containers (e.g. with gdal_translate) first.")
+        "containers (e.g. with gdal_translate) first. Decoding this one "
+        f"is ROADMAP queue 1 item {item}.")
 
 
 def decode_image_bytes(data: bytes) -> GeoTIFF:

@@ -6,7 +6,11 @@ A port of the JAX package's ``train/trainer.py`` for one device. The
 entry points run on the CUDA card unless the caller passes
 ``device="cpu"``. Every forward and backward runs under
 ``_forward_flags`` (cuDNN benchmark off, and TF32 off at fp32), so a
-training thread and a serving thread launch the same algorithms.
+training thread and a serving thread launch the same algorithms; the
+train step also takes cuDNN's deterministic algorithms, so two runs of
+the same steps end with the same parameters, as in the JAX package.
+Inference runs in batch_size chunks padded as the server pads, so
+``predict`` gives each image the server's class map.
 Checkpoints are ``torch.save`` files of ``{"params", "opt_state",
 "step"}`` (orbax checkpoints of the JAX package are not read).
 """
@@ -159,23 +163,31 @@ def masked_xent_loss(logits: torch.Tensor, labels: torch.Tensor,
 # backward runs with benchmark off (cuDNN's heuristics give every thread
 # the same choice) and, at fp32, with TF32 off; the lock keeps one thread
 # from restoring the switches while another's work is being launched.
+# The train step also asks cuDNN for deterministic algorithms: at fp32
+# its default backward convs accumulate in an order that changes from
+# run to run, so two runs of the same steps ended with other parameters.
 _FORWARD_FLAGS = threading.Lock()
 
 
 @contextlib.contextmanager
-def _forward_flags(fp32: bool):
-    """cuDNN benchmark off, and TF32 off when ``fp32``, for the block;
-    the switches are restored after it."""
+def _forward_flags(fp32: bool, deterministic: bool = False):
+    """cuDNN benchmark off, TF32 off when ``fp32``, and cuDNN's
+    deterministic algorithms when ``deterministic``, for the block; the
+    switches are restored after it."""
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     with _FORWARD_FLAGS:
-        saved = (cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32)
+        saved = (cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32,
+                 matmul.allow_tf32)
         cudnn.benchmark = False
+        if deterministic:
+            cudnn.deterministic = True
         if fp32:
             cudnn.allow_tf32 = matmul.allow_tf32 = False
         try:
             yield
         finally:
-            cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32 = saved
+            (cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32,
+             matmul.allow_tf32) = saved
 
 
 _NOT_PORTED = {
@@ -187,6 +199,8 @@ _NOT_PORTED = {
                 "yet: ROADMAP queue 1 item 8 (parallel/)",
     "remat": "activation rematerialisation is not ported yet: ROADMAP "
              "queue 1 item 1",
+    "orbax": "reading the JAX package's orbax checkpoints is not ported "
+             "yet: ROADMAP queue 1 item 1",
 }
 
 
@@ -327,7 +341,8 @@ class Trainer:
             p.grad = None
         # cuDNN reads the switches when each conv is launched, so the
         # lock is held until backward() has launched
-        with _forward_flags(self.compute_dtype == torch.float32):
+        with _forward_flags(self.compute_dtype == torch.float32,
+                            deterministic=True):
             self.model.train()
             logits = self.model(images.permute(0, 3, 1, 2))
             loss, acc = masked_xent_loss(logits.permute(0, 2, 3, 1), labels,
@@ -456,26 +471,47 @@ class Trainer:
             self.model.eval()
             return self.model(x).permute(0, 2, 3, 1)
 
+    def _chunked_logits(self, images):
+        """Logits of ``images`` in batch_size chunks, the last padded with
+        zeros as the server pads its dispatches: cuDNN picks its engine
+        by shape, so an image's bits depend on the batch's size, and
+        predict must give the class map the server gives for the same
+        image. Yields the logits of each chunk's real images."""
+        x = self._to_device(images)
+        bs = int(self.config.batch_size)
+        for i in range(0, x.shape[0], bs):
+            chunk = x[i:i + bs]
+            n = chunk.shape[0]
+            if n < bs:
+                chunk = torch.cat([chunk, chunk.new_zeros(
+                    (bs - n,) + tuple(chunk.shape[1:]))])
+            yield self.logits(chunk)[:n]
+
     def predict_both(self, images) -> Tuple[np.ndarray, np.ndarray]:
         """(class map int32 (N, H, W), probabilities float32 (N, H, W,
-        num_classes)) from one forward; the class map is
+        num_classes)) from the same forwards; the class map is
         :meth:`predict`'s."""
-        logits = self.logits(self._to_device(images))
-        classes = torch.argmax(logits, dim=-1).to(torch.int32)
-        probs = torch.softmax(logits.float(), dim=-1)
-        return classes.cpu().numpy(), probs.cpu().numpy()
+        classes, probs = [], []
+        for logits in self._chunked_logits(images):
+            classes.append(torch.argmax(logits, dim=-1).to(torch.int32))
+            probs.append(torch.softmax(logits.float(), dim=-1))
+        return (torch.cat(classes).cpu().numpy(),
+                torch.cat(probs).cpu().numpy())
 
     def predict_probs(self, images) -> np.ndarray:
         """(N, H, W, C) host batch -> (N, H, W, num_classes) float32
-        softmax probabilities."""
-        logits = self.logits(self._to_device(images))
-        return torch.softmax(logits.float(), dim=-1).cpu().numpy()
+        softmax probabilities, in padded batch_size chunks."""
+        return torch.cat([torch.softmax(lg.float(), dim=-1)
+                          for lg in self._chunked_logits(images)]
+                         ).cpu().numpy()
 
     def predict(self, images) -> np.ndarray:
         """(N, H, W, C) host batch -> (N, H, W) int32 class map (the
-        first maximum wins, as in jnp.argmax)."""
-        logits = self.logits(self._to_device(images))
-        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        first maximum wins, as in jnp.argmax), in padded batch_size
+        chunks: the map the server gives each image."""
+        return torch.cat([torch.argmax(lg, dim=-1).to(torch.int32)
+                          for lg in self._chunked_logits(images)]
+                         ).cpu().numpy()
 
     def _eval_sums(self, images, labels):
         """One batch's sums: loss over valid pixels, correct count,
@@ -603,7 +639,11 @@ class Trainer:
     def restore_checkpoint(self, path: str) -> None:
         """Load a checkpoint of :meth:`save_checkpoint`; under s2d AUTO a
         checkpoint of another reachable tree rebuilds this trainer as
-        that tree (``_try_other_s2d_variant``)."""
+        that tree (``_try_other_s2d_variant``). A directory (an orbax
+        checkpoint of the JAX package) raises NotImplementedError."""
+        if os.path.isdir(check_local(path)):
+            raise NotImplementedError(f"{path} is a directory: "
+                                      + _NOT_PORTED["orbax"])
         payload = torch.load(check_local(path), map_location="cpu",
                              weights_only=True)
         try:

@@ -296,3 +296,154 @@ def test_forward_bits_do_not_depend_on_batch_slot(precision):
     perm = torch.tensor([3, 7, 0, 5, 1, 6, 2, 4]).cuda()
     base = t.logits(x)
     assert torch.equal(t.logits(x[perm].contiguous()), base[perm])
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_served_maps_equal_unpadded_predict(precision):
+    """The full-width s2d 2 U-Net at batch 8: PredictServer pads every
+    dispatch to the batch size; its class maps equal Trainer.predict of
+    bs - 1, 1 and 2 * bs images (as the JAX package asserts for bs - 1,
+    __graft_entry__.py:146), whatever N the caller gives predict."""
+    _need_card()
+    from dl_image_segmentation_tpu_torch.serve import PredictServer
+    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+    bs = 8
+    t = Trainer(TrainConfig(batch_size=bs, precision=precision))
+    assert t.s2d == 2
+    images = np.random.RandomState(11).rand(2 * bs, 256, 256, 3).astype(
+        np.float32)
+    ps = PredictServer(t, max_wait_ms=1.0)
+    try:
+        served = []
+        for img in images:  # one request a dispatch: padded with zeros
+            p = ps.submit(img, probs=False)
+            assert p.error is None, p.error
+            served.append(p.result)
+    finally:
+        ps.close()
+    for n in (bs - 1, 1, 2 * bs):
+        got = t.predict(images[:n])
+        assert got.shape == (n, 256, 256)
+        for i in range(n):
+            np.testing.assert_array_equal(got[i], served[i],
+                                          err_msg=f"N={n}, image {i}")
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_train_steps_are_deterministic(precision):
+    """Two runs of 3 steps from one state dict on the card, at full width
+    (TrainConfig defaults with 10 classes, batch 8): bitwise-equal losses
+    and parameters (the step takes cuDNN's deterministic algorithms; at
+    fp32 the default backward convs differ from run to run)."""
+    _need_card()
+    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+    cfg = TrainConfig(num_classes=10, batch_size=8, precision=precision)
+    rng = np.random.RandomState(2)
+    x = rng.randint(0, 256, (8, 256, 256, 3)).astype(np.float32)
+    y = rng.randint(0, 10, (8, 256, 256)).astype(np.int32)
+    y[:, :16] = 255
+    first = Trainer(cfg)
+    state = {k: v.detach().clone()
+             for k, v in first.model.state_dict().items()}
+    runs = []
+    for _ in range(2):
+        t = Trainer(cfg)
+        t.model.load_state_dict(state)
+        losses = [t.train_step(x, y)["loss"] for _ in range(3)]
+        runs.append((losses, {n: p.detach().clone()
+                              for n, p in t.state.params.items()}))
+    (l1, p1), (l2, p2) = runs
+    assert l1 == l2
+    assert [n for n in p1 if not torch.equal(p1[n], p2[n])] == []
+
+
+def _local_root(root, tile):
+    """A LocalCatalog root over the 3 x 2 tiles from ``tile``: Sentinel-2
+    scenes of 4 uint16 bands with nodata 0, one at 2.5 m (a ~3.5 MB file,
+    read windowed below), one in zone 42 at 10 m and one at 20 m; and a
+    label GeoJSON of 80 seeded polygons over the block. Returns the label
+    path."""
+    import datetime as dt
+    import json
+    import os
+    from dl_image_segmentation_tpu_torch.catalog import LocalCatalog
+    from dl_image_segmentation_tpu_torch.catalog.base import reproject_bounds
+    from dl_image_segmentation_tpu_torch.geo import crs
+    cat = LocalCatalog.create(root)
+    x0, y0, x1, y1 = tile.bounds
+    span = x1 - x0
+    block = (x0 - 50, y0 - span - 50, x1 + 2 * span + 50, y1 + 50)
+    rng = np.random.RandomState(9)
+    for k, (zone, res) in enumerate(((43, 2.5), (42, 10.0), (43, 20.0))):
+        bx0, by0, bx1, by1 = reproject_bounds(block, 43, zone, margin=res)
+        w = int(np.ceil((bx1 - bx0) / res))
+        h = int(np.ceil((by1 - by0) / res))
+        arr = rng.randint(1, 4096, (h, w, 4)).astype(np.uint16)
+        arr[rng.rand(h, w) < 0.05] = 0
+        cat.add_scene("sentinel-2:L1C", ["red", "green", "blue", "nir"],
+                      f"s{k}", dt.date(2020, 9, 1 + k), arr,
+                      (bx0 + 0.3, res, 0.0, by1 - 0.7, 0.0, -res),
+                      32600 + zone, nodata=0)
+    # 80 polygons: a tile burns fewer than 65 (the dense kernel), a
+    # batch of tiles more (the binned one)
+    feats = []
+    for i in range(80):
+        c = (x0 + (0.3 + 2.4 * rng.rand()) * span,
+             y1 - (0.3 + 1.4 * rng.rand()) * span)
+        ang = np.sort(rng.rand(9) * 2 * np.pi)
+        rad = (0.2 + 0.8 * rng.rand(9)) * 0.12 * span
+        ring = np.stack([c[0] + rad * np.cos(ang), c[1] + rad * np.sin(ang)],
+                        1)
+        ring = np.concatenate([ring, ring[:1]])
+        lon, lat = crs.utm_to_lonlat(ring[:, 0], ring[:, 1], 43)
+        feats.append({"type": "Feature", "properties": {"cls": i % 4 + 1},
+                      "geometry": {"type": "Polygon", "coordinates": [
+                          np.stack([lon, lat], 1).tolist()]}})
+    path = os.path.join(root, "labels.geojson")
+    with open(path, "w") as f:
+        json.dump({"type": "FeatureCollection", "features": feats}, f)
+    return path
+
+
+@pytest.mark.parametrize("batch_tiles", [0, 16])
+def test_local_catalog_export_card_equals_cpu(tmp_path, batch_tiles):
+    """A median export from a LocalCatalog root (a windowed scene, a
+    zone-42 scene, one decoded whole): the card's chip bytes equal the
+    CPU's, and the path launched its kernels."""
+    _need_card()
+    import datetime as dt
+    import os
+    from dl_image_segmentation_tpu_torch.catalog import LocalCatalog
+    from dl_image_segmentation_tpu_torch.geo import Tile
+    from dl_image_segmentation_tpu_torch.pipeline.chips import (
+        DLSampleCreationConfig, OGRLabelDataDesc)
+    from dl_image_segmentation_tpu_torch.pipeline.export import run_export
+    root = str(tmp_path / "cat")
+    labels = _local_root(root, Tile(60, 2, 10.0, 43, -380, 3491))
+    trees = {}
+    for device in ("cuda", "cpu"):
+        cat = LocalCatalog(root, window_bytes=2 << 20)
+        cfg = DLSampleCreationConfig(
+            64, 2, 10.0, "sentinel-2:L1C", "red green blue nir",
+            str(tmp_path / device), "t", OGRLabelDataDesc(labels, 0, "cls"),
+            max_cloud_fraction=0, catalog=cat)
+        jobs = cfg.create_tile_job_configs("aoi", 2020, dt.date(2020, 11, 1))
+        assert len(jobs) > 2
+        before = {c.name: c.count for c in kernels.COUNTERS}
+        report = run_export(jobs, n_workers=4, progress=None,
+                            batch_tiles=batch_tiles, device=device)
+        assert report.ok and report.attempts == 1
+        if device == "cuda":
+            burn = "burn_binned" if batch_tiles else "burn_dense"
+            for name in ("masked_median", burn):
+                assert kernels.COUNTERS[[c.name for c in kernels.COUNTERS]
+                                        .index(name)].count > before[name]
+        assert list(cat._readers) == ["scenes/s0.tif"]
+        assert sorted(cat._cache) == ["scenes/s1.tif", "scenes/s2.tif"]
+        folder = jobs[0].OUTFOLDER
+        trees[device] = {
+            (sub, n): open(os.path.join(folder, sub, n), "rb").read()
+            for sub in ("images", "labels")
+            for n in sorted(os.listdir(os.path.join(folder, sub)))}
+    assert len(trees["cpu"]) == 2 * len(jobs)
+    assert trees["cuda"] == trees["cpu"]

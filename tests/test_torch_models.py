@@ -31,6 +31,9 @@ from dl_image_segmentation_tpu_torch.models import convert as tconvert
 from dl_image_segmentation_tpu_torch.models import unet as tunet
 from dl_image_segmentation_tpu_torch.train import trainer as ttrainer
 
+# one intra-op thread: the test workers share the host's cores
+torch.set_num_threads(1)
+
 FP32_ATOL = FP32_RTOL = 1e-4
 FP32_GAP = 1e-3
 BF16_ATOL = 5e-2

@@ -23,6 +23,9 @@ from dl_image_segmentation_tpu.ops.rasterize import (
 from dl_image_segmentation_tpu_torch import kernels
 from dl_image_segmentation_tpu_torch.ops import compositing as tc
 
+# one intra-op thread: the test workers share the host's cores
+torch.set_num_threads(1)
+
 tr = importlib.import_module("dl_image_segmentation_tpu_torch.ops.rasterize")
 
 N = 80  # canvas of the burn comparisons (one JAX compile per feature pad)

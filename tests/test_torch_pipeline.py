@@ -23,7 +23,8 @@ from dl_image_segmentation_tpu.raster import lzw as jlzw
 from dl_image_segmentation_tpu.raster.geotiff import (
     encode_geotiff as j_encode)
 from dl_image_segmentation_tpu_torch.catalog import (
-    SyntheticCatalog as TCatalog, get_default_catalog)
+    LocalCatalog, SyntheticCatalog as TCatalog, get_default_catalog,
+    set_default_catalog)
 from dl_image_segmentation_tpu_torch.device import resolve_device
 from dl_image_segmentation_tpu_torch.geo import Tile as TTile
 from dl_image_segmentation_tpu_torch.pipeline import chips as tchips
@@ -36,6 +37,9 @@ from dl_image_segmentation_tpu_torch.raster.geotiff import (
     encode_geotiff as t_encode, write_geotiff as t_write)
 
 from tests.test_pipeline import ZONE, write_labels_geojson
+
+# one intra-op thread: the test workers share the host's cores
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "dl_image_segmentation_tpu_torch")
@@ -261,10 +265,20 @@ class TestDevice:
             t_export([job], progress=None)
         assert resolve_device("cpu").type == "cpu"
 
-    def test_default_catalog_names_missing_local_catalog(self, monkeypatch):
-        monkeypatch.setenv("DLSEG_CATALOG", "/nonexistent")
-        with pytest.raises(NotImplementedError, match="LocalCatalog"):
-            get_default_catalog()
+    def test_default_catalog_names_missing_local_catalog(self, monkeypatch,
+                                                         tmp_path):
+        """$DLSEG_CATALOG names a LocalCatalog root, which the default
+        catalog resolves to, as in the JAX package."""
+        root = str(tmp_path / "cat")
+        LocalCatalog.create(root)
+        monkeypatch.setenv("DLSEG_CATALOG", root)
+        set_default_catalog(None)
+        try:
+            cat = get_default_catalog()
+            assert isinstance(cat, LocalCatalog) and cat.root == root
+            assert get_default_catalog() is cat
+        finally:
+            set_default_catalog(None)
 
 
 def _imported_names(path):
@@ -298,12 +312,13 @@ class TestImportHygiene:
             rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
             mods.append(rel[:-len(".__init__")]
                         if rel.endswith(".__init__") else rel)
-        # the training path's modules are among them
+        # the training path's modules and the CLI's are among them
         training = {f"dl_image_segmentation_tpu_torch.{m}" for m in (
             "records", "records.crc32c", "records.proto", "records.tfrecord",
             "records.example", "records.parsers", "records.writers",
             "pipeline.input", "ops.augment", "train.optim", "train.pool",
-            "train.trainer", "models.convert")}
+            "train.trainer", "models.convert", "cli", "catalog.local",
+            "raster.cog", "geo.georef", "utils.webmap")}
         assert training <= set(mods), sorted(training - set(mods))
         code = f"""
 import sys, importlib, importlib.abc

@@ -24,6 +24,9 @@ from dl_image_segmentation_tpu_torch.records import parsers as tparsers
 from dl_image_segmentation_tpu_torch.records import tfrecord as ttfrecord
 from dl_image_segmentation_tpu_torch.records import writers as twriters
 
+# one intra-op thread: the test workers share the host's cores
+torch.set_num_threads(1)
+
 PAIRS, SIZE = 12, 16
 
 

@@ -18,6 +18,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from dl_image_segmentation_tpu.geo import Tile as JTile
 from dl_image_segmentation_tpu.pipeline import stitch as jstitch
@@ -33,6 +34,9 @@ from dl_image_segmentation_tpu_torch.raster import image as timage
 from dl_image_segmentation_tpu_torch.train import trainer as ttrainer
 
 from tests.test_torch_models import flax_params, jax_trainer, top2_gap
+
+# one intra-op thread: the test workers share the host's cores
+torch.set_num_threads(1)
 
 SIZE = 32
 CFG = dict(num_classes=3, in_channels=3, base_features=8, levels=2,
@@ -140,6 +144,34 @@ class TestPredictServer:
                                                          imgs[1]))[0])
         finally:
             ps.close()
+
+    def test_predict_runs_padded_batch_size_chunks(self, monkeypatch):
+        """predict, predict_probs and predict_both forward batch_size
+        chunks, the last padded with zeros as the server pads a
+        dispatch, so each image gets the server's class map whatever N
+        the caller passes; the padding never reaches the output."""
+        trainer = port_trainer()
+        seen = []
+        real = trainer.logits
+
+        def logits(x):
+            seen.append(x.clone())
+            return real(x)
+        monkeypatch.setattr(trainer, "logits", logits)
+        imgs = np.random.RandomState(4).rand(6, SIZE, SIZE, 3).astype(
+            np.float32)
+        maps = trainer.predict(imgs)
+        assert maps.shape == (6, SIZE, SIZE)
+        assert [tuple(x.shape) for x in seen] == [(4, SIZE, SIZE, 3)] * 2
+        assert not seen[1][2:].any()
+        np.testing.assert_array_equal(seen[1][:2].numpy(), imgs[4:])
+        padded = np.zeros_like(imgs[:4])
+        padded[:2] = imgs[4:]
+        np.testing.assert_array_equal(maps[4:], trainer.predict(padded)[:2])
+        assert trainer.predict_probs(imgs[:1]).shape == (1, SIZE, SIZE, 3)
+        classes, probs = trainer.predict_both(imgs)
+        np.testing.assert_array_equal(classes, maps)
+        assert probs.shape == (6, SIZE, SIZE, 3) and len(seen) == 6
 
     def test_overload_rejected_503_and_close_fails_pending(self):
         trainer = port_trainer(batch_size=2)

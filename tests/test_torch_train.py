@@ -52,6 +52,9 @@ from dl_image_segmentation_tpu_torch.train import trainer as ttrainer
 
 from tests.test_torch_models import flax_params
 
+# one intra-op thread: the test workers share the host's cores
+torch.set_num_threads(1)
+
 N, SIZE, K = 4, 32, 3
 PIXEL = 1.0 / (N * SIZE * SIZE)
 CFG = dict(num_classes=K, base_features=8, levels=2, image_size=SIZE,
@@ -543,3 +546,36 @@ class TestCheckpoints:
         with pytest.raises(NotImplementedError, match="queue 1 item 1"):
             ttrainer.Trainer(ttrainer.TrainConfig(**CFG, remat=True),
                              device="cpu")
+
+    def test_orbax_checkpoint_directory_raises_item_1(self, tmp_path):
+        tt = ttrainer.Trainer(ttrainer.TrainConfig(**CFG), device="cpu")
+        with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+            tt.restore_checkpoint(str(tmp_path))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_train_step_takes_deterministic_cudnn_and_restores(precision,
+                                                           monkeypatch):
+    """The train step's forward and backward run with cuDNN's
+    deterministic algorithms (and benchmark off); inference keeps the
+    caller's choice; the switches come back after each call."""
+    cudnn = torch.backends.cudnn
+    monkeypatch.setattr(cudnn, "benchmark", True)
+    monkeypatch.setattr(cudnn, "deterministic", False)
+    cfg = ttrainer.TrainConfig(**{**CFG, "precision": precision})
+    tt = ttrainer.Trainer(cfg, device="cpu")
+    seen = []
+    tt.model.register_forward_pre_hook(lambda *_: seen.append(
+        (cudnn.benchmark, cudnn.deterministic)))
+    tt.model.register_full_backward_pre_hook(lambda *_: seen.append(
+        ("backward", cudnn.benchmark, cudnn.deterministic)))
+    x = np.random.RandomState(0).rand(N, SIZE, SIZE, 3).astype(np.float32)
+    y = np.random.RandomState(1).randint(0, K, (N, SIZE, SIZE)).astype(
+        np.int32)
+    tt.train_step(x, y)
+    assert seen == [(False, True), ("backward", False, True)]
+    assert (cudnn.benchmark, cudnn.deterministic) == (True, False)
+    tt.predict(x)
+    assert seen[2:] == [(False, False)]
+    assert (cudnn.benchmark, cudnn.deterministic) == (True, False)
+
