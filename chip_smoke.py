@@ -48,8 +48,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    predict_windowed_batched at stride 128 (== the offline
    predict_windowed), and one HTTP round trip each of /healthz,
    /predict (.npy and GeoTIFF) and /metrics; any errored request fails
-   the run. The U-Net path has no hand-written kernel: its convs,
-   GroupNorm and transposed convs are cuDNN/cuBLAS calls;
+   the run. The same rows (card vs CPU, forward ms, FLOPs share,
+   memory, profiler, benchmark mode) for DeepLab-lite (base 32, ASPP
+   128) and SegFormer-lite (dims 32/64/160/256, decoder 256) at bf16 and
+   fp32, and for the int8 U-Net (int8 and calibrated int8-static, both
+   trees, bf16) beside the float bf16 forward, with the int8 model
+   against its float twin on the same parameters and the tree's first
+   int8 conv on the card against the CPU (int32 sums bitwise equal);
+   24 concurrent requests to SegFormer-lite and to each int8 U-Net must
+   give predict's class maps, and predict(chips[:7])'s. These paths have
+   no hand-written kernel: convs, norms, matmuls and attention are
+   cuDNN/cuBLAS calls, the int8 convs torch._int_mm;
 6. training, cmd_train's sequence at full width (TrainConfig defaults
    with num_classes=10: 256 px RGB, base_features 32, 4 levels, s2d
    AUTO = s2d 2 at width 64, batch 32, lr 1e-3, wd 1e-4, bf16): a
@@ -75,7 +84,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    card's peak (3 x the forward's conv FLOPs), max memory allocated,
    and torch.profiler's top 5 device ops and device-busy share over 5
    steps; train_scanned's examples/s and duty cycles; the feed's
-   records/s;
+   records/s. Then DeepLab-lite and SegFormer-lite at the same config:
+   20 steps from the feed (falling loss), 3 fp32 steps card against CPU
+   and card against card (bitwise), and the step numbers at bf16 and
+   fp32;
 7. LocalCatalog + CLI, through ``cli.main`` in-process: a LocalCatalog
    root written with ``LocalCatalog.create`` + ``add_scene`` (10 seeded
    Sentinel-2 scenes of 13 uint16 bands with nodata over phase 4's
@@ -92,8 +104,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    with 10 classes for 20 steps with ``--save-every 10`` (the loss must
    fall), again with ``--scan-steps 10``, ``eval --json``, ``stitch``,
    ``predict --geotiff`` and ``serve`` in a subprocess on port 0 (one
-   /healthz, one /predict equal to ``predict``'s map, then SIGINT). Every
-   command must exit 0; the seconds of each are printed.
+   /healthz, one /predict equal to ``predict``'s map, then SIGINT);
+   then ``train --model segformer`` (20 steps, falling loss), ``predict
+   --quantize int8-static --calibrate-records`` and ``eval --quantize
+   int8``. Every command must exit 0; the seconds of each are printed.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script
@@ -120,6 +134,7 @@ import numpy as np
 MEM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12  # dense, tensor cores
+INT8_OPS_PER_S = 1979e12  # dense, tensor cores
 L2_BYTES = 50 * 2**20
 # (S, H, W, B, wrapper reps) of the median cases: one 260 px tile of 13
 # bands, the batched stack of 16 tiles, and a year of Sentinel-2 scenes
@@ -782,9 +797,143 @@ def http_round_trip(ps, trainer, rng):
         thread.join(timeout=30)
 
 
+def forward_row(label, card_t, images, smi, bf16_ms=None, bench=True):
+    """Card against CPU, forward time, FLOPs share, memory and profiler
+    (and with ``bench`` cuDNN's benchmark mode) of one trainer's forward
+    on a batch of 8 at 256 px; a CPU copy holds the card's parameters
+    and, for int8-static, its calibrated scales."""
+    import torch
+    from dl_image_segmentation_tpu_torch.train import Trainer
+    t0 = time.perf_counter()
+    cfg = card_t.config
+    precision = cfg.precision
+    cpu_t = Trainer(cfg, device="cpu")
+    cpu_t.model.load_state_dict(card_t.model.state_dict())
+    if cfg.quantize == "int8-static":
+        cpu_t.load_flax_quant(card_t.quant_vars)
+    err, sure = card_vs_cpu(card_t, cpu_t, images)
+    del cpu_t
+    x = torch.from_numpy(images).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = forward_ms(card_t, x)
+    peak_mem = torch.cuda.max_memory_allocated()
+    flops = card_t.model.flops(256, 256)
+    int8 = cfg.quantize != "none"
+    peak = (INT8_OPS_PER_S if int8 else
+            BF16_OPS_PER_S if precision == "bf16" else FP32_OPS_PER_S)
+    share = flops * 8 / (ms / 1e3) / peak
+    top, busy = profile_steps(lambda: card_t.logits(x))
+    bench_ms, bench_diff = benchmark_mode(card_t, x) if bench else (None,
+                                                                    None)
+    row = {"config": label, "model": cfg.model, "precision": precision,
+           "quantize": cfg.quantize, "s2d": card_t.s2d,
+           "width": card_t.model_features,
+           "forward_ms": ms, "images_per_s": 8 / (ms / 1e3),
+           "cudnn_benchmark_mode_ms": bench_ms,
+           "cudnn_benchmark_mode_thread_diff": bench_diff,
+           "gflop_per_image": flops / 1e9, "peak_share": share,
+           "max_memory_allocated": peak_mem,
+           "card_vs_cpu_max_err": err, "decided_share": sure,
+           "device_busy_share": busy,
+           "top_device_ops": [[k, v] for k, v in top]}
+    if bf16_ms is not None:
+        row["float_bf16_forward_ms"] = bf16_ms
+    row["seconds"] = time.perf_counter() - t0
+    log(f"  {label}, {precision} (s2d {card_t.s2d}, width "
+        f"{card_t.model_features}): card vs CPU max "
+        f"{'logit' if precision == 'fp32' else 'probability'} "
+        f"difference {err:.3g} ({sure:.1%} of pixels decided); "
+        f"forward {ms:.4f} ms per batch of 8 = "
+        f"{row['images_per_s']:.1f} images/s"
+        + (f" (float bf16 {bf16_ms:.4f} ms)" if bf16_ms else "")
+        + f"; {flops / 1e9:.3f} GFLOP per image = {share:.2%} of "
+        f"{peak / 1e12:.0f} T{'OP' if int8 else 'FLOP'}/s ({smi}); max "
+        f"memory allocated {peak_mem / 2**20:.1f} MiB"
+        + (f"; with cuDNN benchmark mode (not used) {bench_ms:.4f} ms, "
+           f"logits of two threads apart by {bench_diff:.3g}" if bench
+           else "") + f"; row in {row['seconds']:.1f} s")
+    log("    device-busy share over 5 forwards: "
+        + (f"{busy:.1%}" if busy is not None else "not measured")
+        + "; top device ops (ms per forward): "
+        + "; ".join(f"{k[:70]} {v:.4f}" for k, v in top))
+    return row
+
+
+def int8_checks(card_t, images):
+    """The int8 U-Net against its float twin on the same parameters and
+    images (class maps agreeing, largest logit difference), and the first
+    int8 conv of the tree on the card against the CPU: int32 sums bitwise
+    equal."""
+    import torch
+    from dl_image_segmentation_tpu_torch.models.quant import (
+        int8_conv2d, quantize_tensor)
+    from dl_image_segmentation_tpu_torch.models.unet import space_to_depth
+    from dl_image_segmentation_tpu_torch.train.trainer import (
+        normalize_images)
+    x = torch.from_numpy(images).cuda()
+    q = card_t.logits(x)
+    with torch.inference_mode():
+        card_t.model.eval()
+        f = card_t.model(normalize_images(x).permute(0, 3, 1, 2)).permute(
+            0, 2, 3, 1)
+    if not torch.isfinite(q).all():
+        raise AssertionError("int8 logits are not finite")
+    agree = float((q.argmax(-1) == f.argmax(-1)).float().mean())
+    diff = float((q - f).abs().max() / f.abs().max())
+    conv = card_t.infer_model.down_blocks[0].conv0
+    xin = normalize_images(x).permute(0, 3, 1, 2).to(card_t.compute_dtype)
+    if card_t.s2d > 1:
+        xin = space_to_depth(xin, card_t.s2d)
+    qx, _ = quantize_tensor(xin, dims=(1, 2, 3), keepdim=True)
+    qw, _ = quantize_tensor(conv.weight.detach(), dims=(1, 2, 3))
+    got = int8_conv2d(qx, qw)
+    want = int8_conv2d(qx.cpu(), qw.cpu())
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("int8 conv: the card's int32 sums differ from "
+                             "the CPU's")
+    return {"int8_vs_float_class_agreement": agree,
+            "int8_vs_float_max_logit_diff_rel": diff,
+            "int8_conv_card_equals_cpu": True,
+            "int8_conv_shape": [list(qx.shape), list(qw.shape)]}
+
+
+def served_equals_predict(trainer, chips):
+    """24 concurrent requests (after 8 to warm up) through a PredictServer
+    on ``trainer``: every class map must equal ``predict``'s in batches
+    of 8 and ``predict(chips[:7])``'s. Returns (pendings, seconds,
+    latencies, dispatches)."""
+    from dl_image_segmentation_tpu_torch.serve import PredictServer
+    ps = PredictServer(trainer, max_wait_ms=5.0)
+    try:
+        serve_requests(ps, chips[:8])  # warm-up
+        batches0 = ps.batches
+        pend, secs, lat = serve_requests(ps, chips)
+        errors = [p.error for p in pend if p.error is not None]
+        if errors:
+            raise AssertionError(f"served requests errored: {errors[:3]}")
+        dispatches = ps.batches - batches0
+        if ps.errors:
+            raise AssertionError(f"{ps.errors} server batches failed")
+    finally:
+        ps.close()
+    want = np.concatenate([trainer.predict(chips[i:i + 8])
+                           for i in range(0, len(chips), 8)])
+    if not all(np.array_equal(p.result, w) for p, w in zip(pend, want)):
+        raise AssertionError("served class maps differ from predict's")
+    # an odd, unpadded batch, as __graft_entry__.py:146 asserts
+    seven = trainer.predict(chips[:7])
+    if not all(np.array_equal(p.result, w) for p, w in zip(pend, seven)):
+        raise AssertionError("served class maps differ from predict of 7 "
+                             "images")
+    return pend, secs, lat, dispatches
+
+
 def serving_phase(smi):
-    """U-Net serving at full width on the card: card against CPU, forward
-    times, the micro-batching server, a windowed raster and HTTP."""
+    """Serving at full width on the card: the U-Net (both s2d trees),
+    DeepLab-lite and SegFormer-lite at bf16 and fp32 and the int8 U-Net
+    against the CPU, forward times, the micro-batching server, a windowed
+    raster and HTTP."""
     import torch
     from dl_image_segmentation_tpu_torch.pipeline.window import (
         predict_windowed, window_origins)
@@ -794,82 +943,71 @@ def serving_phase(smi):
 
     log("phase 5: serving")
     rng = np.random.RandomState(5)
-    out = {"forward": [], "serve": None}
+    out = {"forward": [], "serve": None, "served_equals_predict": []}
     configs = [("TrainConfig defaults, batch 8, s2d AUTO", {}),
-               ("classic tree (s2d 1)", {"s2d": 1})]
-    serve_trainer = None
+               ("classic tree (s2d 1)", {"s2d": 1}),
+               ("DeepLab-lite", {"model": "deeplab"}),
+               ("SegFormer-lite", {"model": "segformer"})]
+    keep = {}
+    bf16_ms = {}
     for label, kw in configs:
         for precision in ("bf16", "fp32"):
-            cfg = TrainConfig(batch_size=8, precision=precision, **kw)
-            card_t = Trainer(cfg)
-            cpu_t = Trainer(cfg, device="cpu")
-            cpu_t.model.load_state_dict(card_t.model.state_dict())
+            card_t = Trainer(TrainConfig(batch_size=8, precision=precision,
+                                         **kw))
             images = rng.rand(8, 256, 256, 3).astype(np.float32)
-            err, sure = card_vs_cpu(card_t, cpu_t, images)
-            del cpu_t
-            x = torch.from_numpy(images).cuda()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            ms = forward_ms(card_t, x)
-            peak_mem = torch.cuda.max_memory_allocated()
-            flops = card_t.model.conv_flops(256, 256)
-            peak = BF16_OPS_PER_S if precision == "bf16" else FP32_OPS_PER_S
-            share = flops * 8 / (ms / 1e3) / peak
-            top, busy = profile_steps(lambda: card_t.logits(x))
-            bench_ms, bench_diff = benchmark_mode(card_t, x)
-            row = {"config": label, "precision": precision,
-                   "s2d": card_t.s2d, "width": card_t.model_features,
-                   "forward_ms": ms, "images_per_s": 8 / (ms / 1e3),
-                   "cudnn_benchmark_mode_ms": bench_ms,
-                   "cudnn_benchmark_mode_thread_diff": bench_diff,
-                   "gflop_per_image": flops / 1e9, "peak_share": share,
-                   "max_memory_allocated": peak_mem,
-                   "card_vs_cpu_max_err": err, "decided_share": sure,
-                   "device_busy_share": busy,
-                   "top_device_ops": [[k, v] for k, v in top]}
+            row = forward_row(label, card_t, images, smi,
+                              bench="model" not in kw)
             out["forward"].append(row)
-            log(f"  {label}, {precision} (s2d {card_t.s2d}, width "
-                f"{card_t.model_features}): card vs CPU max "
-                f"{'logit' if precision == 'fp32' else 'probability'} "
-                f"difference {err:.3g} ({sure:.1%} of pixels decided); "
-                f"forward {ms:.4f} ms per batch of 8 = "
-                f"{row['images_per_s']:.1f} images/s; "
-                f"{flops / 1e9:.3f} GFLOP per image = {share:.2%} of "
-                f"{peak / 1e12:.0f} TFLOP/s ({smi}); max memory allocated "
-                f"{peak_mem / 2**20:.1f} MiB; with cuDNN benchmark mode "
-                f"(not used) {bench_ms:.4f} ms, logits of two threads "
-                f"apart by {bench_diff:.3g}")
-            log("    device-busy share over 5 forwards: "
-                + (f"{busy:.1%}" if busy is not None else "not measured")
-                + "; top device ops (ms per forward): "
-                + "; ".join(f"{k[:70]} {v:.4f}" for k, v in top))
-            if label == configs[0][0] and precision == "bf16":
-                serve_trainer = card_t
+            if precision == "bf16":
+                bf16_ms[label] = row["forward_ms"]
+                if label in (configs[0][0], "SegFormer-lite"):
+                    keep[label] = card_t
+            del card_t
+            torch.cuda.empty_cache()
+    # the int8 U-Net on both trees: its own rows, the float twin, one
+    # int8 conv card == CPU
+    for label, kw in configs[:2]:
+        for quantize in ("int8", "int8-static"):
+            card_t = Trainer(TrainConfig(batch_size=8, quantize=quantize,
+                                         **kw))
+            images = rng.rand(8, 256, 256, 3).astype(np.float32)
+            if card_t.calibrate([images]) != (quantize == "int8-static"):
+                raise AssertionError("calibrate consumed no batch")
+            row = forward_row(f"{label}, {quantize}", card_t, images, smi,
+                              bf16_ms=bf16_ms[label], bench=False)
+            row.update(int8_checks(card_t, images))
+            out["forward"].append(row)
+            log(f"    int8 vs float on the same parameters: class maps "
+                f"agree on {row['int8_vs_float_class_agreement']:.2%}, "
+                f"largest logit difference "
+                f"{row['int8_vs_float_max_logit_diff_rel']:.3g} of the "
+                f"largest |logit|; int8 conv {row['int8_conv_shape']} card "
+                f"int32 == CPU int32")
+            if label == configs[0][0]:
+                keep[f"U-Net {quantize}"] = card_t
             else:
                 del card_t
-            del x
             torch.cuda.empty_cache()
 
-    trainer = serve_trainer
+    chips = rng.rand(24, 256, 256, 3).astype(np.float32)
+    for name in ("SegFormer-lite", "U-Net int8", "U-Net int8-static"):
+        _, secs, lat, dispatches = served_equals_predict(keep[name], chips)
+        lat = sorted(lat)
+        out["served_equals_predict"].append({
+            "trainer": name, "requests": 24, "seconds": secs,
+            "requests_per_s": 24 / secs,
+            "p50_latency_s": lat[len(lat) // 2], "dispatches": dispatches})
+        log(f"  PredictServer, {name} (bf16): 24 concurrent chips in "
+            f"{secs:.4f} s = {24 / secs:.1f} requests/s, p50 "
+            f"{lat[len(lat) // 2] * 1e3:.2f} ms; served == predict, == "
+            f"predict(chips[:7])")
+        del keep[name]
+        torch.cuda.empty_cache()
+
+    trainer = keep[configs[0][0]]
+    pend, secs, lat, dispatches = served_equals_predict(trainer, chips)
     ps = PredictServer(trainer, max_wait_ms=5.0)
     try:
-        chips = rng.rand(24, 256, 256, 3).astype(np.float32)
-        serve_requests(ps, chips[:8])  # warm-up
-        batches0 = ps.batches
-        pend, secs, lat = serve_requests(ps, chips)
-        errors = [p.error for p in pend if p.error is not None]
-        if errors:
-            raise AssertionError(f"served requests errored: {errors[:3]}")
-        dispatches = ps.batches - batches0
-        want = np.concatenate([trainer.predict(chips[i:i + 8])
-                               for i in range(0, 24, 8)])
-        if not all(np.array_equal(p.result, w) for p, w in zip(pend, want)):
-            raise AssertionError("served class maps differ from predict's")
-        # an odd, unpadded batch, as __graft_entry__.py:146 asserts
-        seven = trainer.predict(chips[:7])
-        if not all(np.array_equal(p.result, w) for p, w in zip(pend, seven)):
-            raise AssertionError("served class maps differ from predict of "
-                                 "7 images")
         raster = rng.rand(1000, 1150, 3).astype(np.float32)
         n_win = (len(window_origins(1000, 256, 128))
                  * len(window_origins(1150, 256, 128)))
@@ -939,17 +1077,19 @@ def step_numbers(trainer, x, y, smi, reps=10):
     ms = cuda_ms(step, reps)
     peak_mem = torch.cuda.max_memory_allocated()
     size = trainer.config.image_size
-    flops = 3 * trainer.model.conv_flops(size, size) * n
+    flops = 3 * trainer.model.flops(size, size) * n
     fp32 = trainer.compute_dtype == torch.float32
     peak = FP32_OPS_PER_S if fp32 else BF16_OPS_PER_S
     top, busy = profile_steps(step)
-    row = {"precision": trainer.config.precision, "batch": n,
+    row = {"model": trainer.config.model,
+           "precision": trainer.config.precision, "batch": n,
            "train_step_ms": ms, "images_per_s": n / (ms / 1e3),
            "gflop_per_step": flops / 1e9,
            "peak_share": flops / (ms / 1e3) / peak,
            "max_memory_allocated": peak_mem, "device_busy_share": busy,
            "top_device_ops": [[k, v] for k, v in top]}
-    log(f"  train step at {row['precision']}, batch {n}: {ms:.4f} ms = "
+    log(f"  train step ({row['model']}) at {row['precision']}, batch {n}: "
+        f"{ms:.4f} ms = "
         f"{row['images_per_s']:.1f} images/s; {flops / 1e9:.1f} GFLOP a "
         f"step = {row['peak_share']:.2%} of {peak / 1e12:.0f} TFLOP/s "
         f"({smi}); max memory allocated {peak_mem / 2**20:.1f} MiB; "
@@ -1169,6 +1309,34 @@ def training_phase(smi):
             out["steps"].append(step_numbers(t, xd, yd, smi))
             del t, xd, yd
             torch.cuda.empty_cache()
+        # 9. DeepLab-lite and SegFormer-lite (TrainConfig defaults with
+        # the model, 10 classes, batch 32): 20 steps from the feed, 3 fp32
+        # steps card against CPU and card against card, step numbers
+        out["families"] = []
+        for model in ("deeplab", "segformer"):
+            fam = {**kw, "model": model}
+            t = Trainer(TrainConfig(**fam))
+            losses = train_steps(t, feed(seed=1), 20)
+            del t
+            log(f"  {model}: 20 steps: losses {losses[0]:.4f} -> "
+                f"{np.mean(losses[-5:]):.4f} (mean of the last 5)")
+            cmp = card_vs_cpu_steps(TrainConfig(**{
+                **fam, "batch_size": 2, "precision": "fp32"}), x[:2], y[:2])
+            log(f"  {model}: card vs CPU, 3 fp32 steps on 2 images: loss "
+                "relative differences "
+                + ", ".join(f"{v:.3g}" for v in cmp["loss_rel_diff"])
+                + f"; largest parameter difference "
+                f"{cmp['max_param_diff']:.3g}; two card runs bitwise "
+                f"equal: {cmp['card_runs_bitwise_equal']}")
+            steps = []
+            for precision in ("bf16", "fp32"):
+                t = Trainer(TrainConfig(**{**fam, "precision": precision}))
+                xd, yd = t.place_batch(x, y)
+                steps.append(step_numbers(t, xd, yd, smi))
+                del t, xd, yd
+                torch.cuda.empty_cache()
+            out["families"].append({"model": model, "losses": losses,
+                                    "card_vs_cpu": cmp, "steps": steps})
         log(f"  feed: {out['feed_records_per_s']:.1f} records/s "
             f"(tifarr, {cfg.image_size} px, parse and batch; {smi})")
     finally:
@@ -1434,6 +1602,31 @@ def cli_phase(smi):
         torch.cuda.empty_cache()
         log(f"  loss {losses[0]:.4f} -> {np.mean(losses[-5:]):.4f} (mean of "
             f"the last 5 of 20); served /predict == predict; {smi}")
+        # the other families and int8 inference through the CLI
+        seg_log = os.path.join(tmp, "segformer.jsonl")
+        cli_run(["train", "--records", pattern, "--mode", "tifarr",
+                 "--classes", "10", "--model", "segformer", "--steps", "20",
+                 "--log-every", "1", "--metrics-log", seg_log,
+                 "--checkpoint", os.path.join(tmp, "segformer.pt")], secs,
+                "train --model segformer")
+        seg = [json.loads(ln)["loss"] for ln in open(seg_log)]
+        if len(seg) != 20 or not np.mean(seg[-5:]) < seg[0]:
+            raise AssertionError(f"train --model segformer: losses {seg}")
+        out["segformer_losses"] = seg
+        qdir = os.path.join(tmp, "pred-int8-static")
+        cli_run(["predict", "--images", os.path.join(folder, "images"),
+                 "--checkpoint", ckpt, "--classes", "10", "--scale", "none",
+                 "--quantize", "int8-static", "--calibrate-records", pattern,
+                 "--calibrate-batches", "1", "--out", qdir], secs,
+                "predict --quantize int8-static")
+        if len(glob.glob(os.path.join(qdir, "*.tif"))) != 32:
+            raise AssertionError("predict --quantize int8-static: "
+                                 f"{os.listdir(qdir)[:3]}")
+        cli_run(["eval", "--records", pattern, "--checkpoint", ckpt,
+                 "--classes", "10", "--quantize", "int8", "--json"], secs,
+                "eval --quantize int8")
+        log(f"  segformer loss {seg[0]:.4f} -> {np.mean(seg[-5:]):.4f} (mean "
+            f"of the last 5 of 20); int8-static predict wrote 32 maps")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -1473,9 +1666,12 @@ def main() -> int:
         launches, runs = export_phase(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    serving = serving_phase(smi)
-    training = training_phase(smi)
-    cli = cli_phase(smi)
+    results = []
+    for phase in (serving_phase, training_phase, cli_phase):
+        t0 = time.perf_counter()
+        results.append(phase(smi))
+        log(f"  {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    serving, training, cli = results
 
     out = []
     for c in kernels.COUNTERS:

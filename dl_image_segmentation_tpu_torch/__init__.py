@@ -6,15 +6,17 @@ root -- windowed COG reads, five resamplers, cross-zone warps -- or the
 synthetic catalog, scene compositing -- cloud-masked temporal median,
 nearest-to-date mosaic --, vector label burning and GeoTIFF chip
 pairs), the ``dlseg-torch`` command line (``python -m
-dl_image_segmentation_tpu_torch.cli``), U-Net training (chips to TFRecord
+dl_image_segmentation_tpu_torch.cli``), training (chips to TFRecord
 shards, the training feed, optax-equal AdamW steps, scanned training
-from a device pool, evaluation and checkpoints) and U-Net serving (the
-model with its flax weight converter, predict, sliding-window
-inference, the micro-batching HTTP server and stitch). The three Pallas kernels of
-chip creation are hand-written CUDA kernels for Hopper (csrc/), built
-with nvcc into the checkout's ``build/`` at first use; the U-Net's
-convs, GroupNorm and transposed convs are cuDNN/cuBLAS calls through
-torch. Entry points run on the CUDA card unless called with
+from a device pool, evaluation and checkpoints) and serving (the models
+with their flax weight converter, predict, sliding-window inference, the
+micro-batching HTTP server and stitch) of the U-Net, DeepLab-lite and
+SegFormer-lite, and the U-Net's int8 inference (dynamic and calibrated
+static scales). The three Pallas kernels of chip creation are
+hand-written CUDA kernels for Hopper (csrc/), built with nvcc into the
+checkout's ``build/`` at first use; the models' convs, norms, matmuls and
+attention are cuDNN/cuBLAS calls through torch, their int8 convs
+``torch._int_mm``. Entry points run on the CUDA card unless called with
 ``device="cpu"``.
 
 The names of the reference's facade that the port has are exported
@@ -36,6 +38,8 @@ _LAZY["run_export"] = "dl_image_segmentation_tpu_torch.pipeline.export"
 _LAZY["Trainer"] = _LAZY["TrainConfig"] = \
     "dl_image_segmentation_tpu_torch.train.trainer"
 _LAZY["UNet"] = "dl_image_segmentation_tpu_torch.models.unet"
+_LAZY["DeepLabLite"] = "dl_image_segmentation_tpu_torch.models.deeplab"
+_LAZY["SegFormerLite"] = "dl_image_segmentation_tpu_torch.models.segformer"
 _LAZY["PredictServer"] = "dl_image_segmentation_tpu_torch.serve"
 _LAZY["DeviceDataPool"] = "dl_image_segmentation_tpu_torch.train.pool"
 _LAZY["TFRecordFeed"] = _LAZY["DevicePrefetcher"] = \

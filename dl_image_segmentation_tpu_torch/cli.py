@@ -10,7 +10,8 @@ defaults and output lines. Commands:
                    GeoTIFF chip pairs (catalog: 'synthetic' or a
                    LocalCatalog root)
     to-tfrecords   chip folders -> sharded TFRecords (--engine mp)
-    train          TFRecords -> U-Net training on the card
+    train          TFRecords -> training on the card (--model unet,
+                   deeplab or segformer)
     eval           dataset mIoU / accuracy / loss of a checkpoint
     predict        chips, shards or one large GeoTIFF -> class maps
     serve          micro-batching HTTP inference endpoint
@@ -26,9 +27,11 @@ unless ``--device cpu`` is given. Checkpoints are the port's
 naming its ROADMAP queue 1 item: ``convert``, ``ingest-safe``, PNG/JPEG
 records (the default ``train --mode rgbraw``; pass ``--mode tifarr``),
 ``--engine mt`` and ``inspect --preview`` (item 6); ``push``, remote
-paths and catalogs (item 3); ``--model deeplab|segformer`` and
-``--quantize`` (item 7); ``--n-model``, ``--spatial`` and ``--fsdp``
-(item 8); ``--remat`` and orbax checkpoints (item 1).
+paths and catalogs (item 3); ``--n-model``, ``--spatial`` and ``--fsdp``
+(item 8); ``--remat`` and orbax checkpoints (item 1). predict, eval and
+serve take ``--quantize int8|int8-static`` (the U-Net only); int8-static
+calibrates on ``--calibrate-records`` (``--calibrate-batches`` batches)
+or else on the first batch it infers.
 """
 
 from __future__ import annotations
@@ -333,7 +336,26 @@ def _inference_trainer(args, **extra):
                       s2d=args.s2d, **extra)
     trainer = Trainer(cfg, device=args.device)
     trainer.restore_checkpoint(args.checkpoint)
+    _maybe_calibrate(trainer, args)
     return trainer
+
+
+def _maybe_calibrate(trainer, args) -> None:
+    """int8-static calibration from --calibrate-records (a shard glob read
+    with the command's --mode, raw dtypes: the calibration forward
+    normalizes as inference does). Without it int8-static calibrates on
+    the first batch it infers."""
+    recs = getattr(args, "calibrate_records", None)
+    if trainer.config.quantize != "int8-static" or not recs:
+        return
+    from .pipeline.input import TFRecordFeed
+    feed = TFRecordFeed(recs, getattr(args, "mode", "tifarr"),
+                        batch_size=trainer.config.batch_size,
+                        image_size=trainer.config.image_size,
+                        num_workers=2, repeat=False, scale="raw")
+    n = trainer.calibrate(feed.batches(), max_batches=args.calibrate_batches)
+    print(f"int8-static: calibrated activation scales over {n} "
+          f"batch(es) from {recs}")
 
 
 def _pad_batch(imgs, batch_size: int):
@@ -795,8 +817,7 @@ def _model_args(p, batch_size: int) -> None:
     p.add_argument("--batch-size", type=int, default=batch_size)
     p.add_argument("--model", default="unet",
                    choices=["unet", "deeplab", "segformer"],
-                   help="model family; deeplab and segformer raise "
-                        "(ROADMAP queue 1 item 7)")
+                   help="model family (must match the checkpoint)")
 
 
 _S2D_HELP = ("space-to-depth block (unet only): every conv runs at 1/s2d "
@@ -812,11 +833,18 @@ def _inference_args(p) -> None:
     p.add_argument("--s2d", type=int, default=0, help=_S2D_HELP)
     p.add_argument("--quantize", default="none",
                    choices=["none", "int8", "int8-static"],
-                   help="int8 inference; raises (ROADMAP queue 1 item 7)")
+                   help="inference compute (unet only): int8 = int8 convs "
+                        "with dynamic per-example activation scales; "
+                        "int8-static = calibrated constant scales "
+                        "(auto-calibrates on the first batch, or pass "
+                        "--calibrate-records). Float checkpoints serve "
+                        "quantized as is")
     p.add_argument("--calibrate-records", default=None,
-                   help="int8-static calibration shards (with --quantize, "
-                        "ROADMAP queue 1 item 7)")
-    p.add_argument("--calibrate-batches", type=int, default=8)
+                   help="int8-static: shard glob to calibrate activation "
+                        "scales on; without it, calibrate on the first "
+                        "inference batch")
+    p.add_argument("--calibrate-batches", type=int, default=8,
+                   help="batches consumed from --calibrate-records")
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"],
                    help="compute precision; match the checkpoint's "
                         "training run for identical numerics "
@@ -910,8 +938,7 @@ def main(argv=None) -> int:
                          "--store-as-array shards")
     tr.add_argument("--model", default="unet",
                     choices=["unet", "deeplab", "segformer"],
-                    help="model family; deeplab and segformer raise "
-                         "(ROADMAP queue 1 item 7)")
+                    help="model family")
     tr.add_argument("--classes", type=int, default=2)
     tr.add_argument("--channels", type=int, default=3)
     tr.add_argument("--features", type=int, default=32)

@@ -35,29 +35,17 @@ from the caller's ``torch.Generator``.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import GN_EPS, _conv2d, group_norm, lecun_normal_
+from .quant import Int8Conv
+
 __all__ = ["ConvBlock", "UNet", "space_to_depth", "depth_to_space",
-           "GN_EPS"]
-
-GN_EPS = 1e-6  # flax nn.GroupNorm's epsilon (torch's default is 1e-5)
-
-# flax lecun_normal: truncated normal on [-2, 2], rescaled so that the
-# truncated distribution's stddev is sqrt(1 / fan_in)
-_TRUNC_STD = 0.87962566103423978
-
-
-def _lecun_normal_(weight: torch.Tensor, fan_in: int,
-                   generator: Optional[torch.Generator]) -> None:
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    with torch.no_grad():
-        nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
-                              generator=generator)
+           "GN_EPS", "share_parameters"]
 
 
 def space_to_depth(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -79,55 +67,12 @@ def depth_to_space(x: torch.Tensor, block: int) -> torch.Tensor:
     return x.reshape(n, c, h * block, w * block)
 
 
-# (shapes, strides, dtype, conv arguments, cuDNN switches) -> whether
-# cuDNN's engine for that conv gives an image other bits in another slot
-# of the batch
-_SLOT_DEPENDENT: dict = {}
-
-
-def _slot_dependent(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                    stride, padding) -> bool:
-    """Whether the conv that ``F.conv2d`` picks for these shapes computes
-    an image with other bits when it sits in another slot of the batch,
-    as an engine that splits its reduction by output tile does: the conv
-    of seeded random data and of the same data rolled by one image (in
-    ``x``'s strides) are compared. Random data, so that no zero input
-    hides a split."""
-    g = torch.Generator(device=x.device).manual_seed(0)
-    xr, wr, br = (torch.empty_like(t).normal_(generator=g) for t in (x, w, b))
-    rolled = torch.empty_like(xr).copy_(xr.roll(1, 0))
-    y = F.conv2d(xr, wr, br, stride=stride, padding=padding)
-    yr = F.conv2d(rolled, wr, br, stride=stride, padding=padding)
-    return not torch.equal(yr, y.roll(1, 0))
-
-
-def _conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride=1,
-            padding=0) -> torch.Tensor:
-    """``F.conv2d``, and in an inference forward on the card an image's
-    result does not depend on its slot in the batch (a served chip's
-    class map must equal ``predict``'s whichever slot it was given): a
-    conv whose cuDNN engine is slot dependent (one bf16 conv of the
-    full-width s2d 2 tree is) runs without cuDNN, as an im2col and a GEMM
-    per image. Each shape is tested once (``_slot_dependent``). Callers
-    hold the Trainer's lock on the cuDNN switches, which this flips."""
-    if x.is_cuda and x.shape[0] > 1 and not torch.is_grad_enabled():
-        cudnn = torch.backends.cudnn
-        key = (tuple(x.shape), x.stride(), tuple(w.shape), x.dtype,
-               x.device, stride, padding, cudnn.benchmark, cudnn.allow_tf32)
-        if key not in _SLOT_DEPENDENT:
-            _SLOT_DEPENDENT[key] = _slot_dependent(x, w, b, stride, padding)
-        if _SLOT_DEPENDENT[key]:
-            saved = cudnn.enabled
-            cudnn.enabled = False
-            try:
-                return F.conv2d(x, w, b, stride=stride, padding=padding)
-            finally:
-                cudnn.enabled = saved
-    return F.conv2d(x, w, b, stride=stride, padding=padding)
-
-
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype,
           padding=0, stride=1) -> torch.Tensor:
+    if isinstance(conv, Int8Conv):
+        # SAME padding on the int8 tensor: the zeros the float path pads
+        # quantize to zeros
+        return conv.quantized(x, dtype)
     return _conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
                    stride=stride, padding=padding)
 
@@ -147,26 +92,31 @@ def _upsample(up: nn.ConvTranspose2d, x: torch.Tensor,
     return F.pixel_shuffle(_conv2d(x, w.to(dtype), b.to(dtype)), kh)
 
 
+def _conv_layer(cin: int, cout: int, k: int, stride: int, quant):
+    """nn.Conv2d, or with ``quant`` (True: dynamic, "static": calibrated
+    scales) an Int8Conv with the same parameters."""
+    if quant:
+        return Int8Conv(cin, cout, k, stride=stride, static=quant == "static")
+    return nn.Conv2d(cin, cout, k, stride=stride)
+
+
 class ConvBlock(nn.Module):
-    """Two (3x3 conv SAME -> GroupNorm -> ReLU)."""
+    """Two (3x3 conv SAME -> GroupNorm -> ReLU); ``quant`` makes both
+    convs int8."""
 
     def __init__(self, in_features: int, features: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, quant=False):
         super().__init__()
         self.features = features
         self.dtype = dtype
         groups = features // min(16, features)
-        self.conv0 = nn.Conv2d(in_features, features, 3)
+        self.conv0 = _conv_layer(in_features, features, 3, 1, quant)
         self.norm0 = nn.GroupNorm(groups, features, eps=GN_EPS)
-        self.conv1 = nn.Conv2d(features, features, 3)
+        self.conv1 = _conv_layer(features, features, 3, 1, quant)
         self.norm1 = nn.GroupNorm(groups, features, eps=GN_EPS)
 
     def _norm(self, norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-        # float32 statistics and normalisation, output in the compute
-        # dtype (flax: force_float32_reductions, then cast)
-        y = F.group_norm(x.float(), norm.num_groups, norm.weight,
-                         norm.bias, norm.eps)
-        return F.relu(y.to(self.dtype))
+        return F.relu(group_norm(norm, x, self.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self._norm(self.norm0, _conv(self.conv0, x, self.dtype, 1))
@@ -176,17 +126,21 @@ class ConvBlock(nn.Module):
 class UNet(nn.Module):
     """num_classes: segmentation classes (float32 logits out);
     base_features: width of the first stage (doubles per level);
-    s2d > 1: space-to-depth stem and sub-pixel logits head."""
+    s2d > 1: space-to-depth stem and sub-pixel logits head; quant (True:
+    int8 with dynamic per-example activation scales, "static": calibrated
+    constant scales) makes the ConvBlocks' 3x3 convs and the 2x2 down
+    convs int8 (``models/quant.py``), with the float model's parameter
+    names; the upsamplers and the float32 head stay float."""
 
     def __init__(self, num_classes: int = 2, base_features: int = 32,
                  levels: int = 4, dtype: torch.dtype = torch.bfloat16,
                  quant=False, s2d: int = 1, in_channels: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if quant:
-            raise NotImplementedError(
-                "int8 U-Net (quant) is not ported yet: ROADMAP queue 1 "
-                "item 7 (models/quant.py)")
+        if quant not in (False, True, "static"):
+            raise ValueError(f"quant={quant!r} (expected False, True or "
+                             "'static')")
+        self.quant = quant
         self.num_classes = num_classes
         self.base_features = base_features
         self.levels = levels
@@ -199,17 +153,17 @@ class UNet(nn.Module):
         self.downs = nn.ModuleList()
         for lvl in range(levels):
             w = f * 2 ** lvl
-            self.down_blocks.append(ConvBlock(c, w, dtype))
-            self.downs.append(nn.Conv2d(w, w, 2, stride=2))
+            self.down_blocks.append(ConvBlock(c, w, dtype, quant))
+            self.downs.append(_conv_layer(w, w, 2, 2, quant))
             c = w
-        self.bottom = ConvBlock(c, f * 2 ** levels, dtype)
+        self.bottom = ConvBlock(c, f * 2 ** levels, dtype, quant)
         c = f * 2 ** levels
         self.ups = nn.ModuleList()
         self.up_blocks = nn.ModuleList()
         for lvl in reversed(range(levels)):
             w = f * 2 ** lvl
             self.ups.append(nn.ConvTranspose2d(c, w, 2, stride=2))
-            self.up_blocks.append(ConvBlock(2 * w, w, dtype))
+            self.up_blocks.append(ConvBlock(2 * w, w, dtype, quant))
             c = w
         self.head = nn.Conv2d(c, num_classes * s2d * s2d, 1)
         self.reset_parameters(generator)
@@ -221,17 +175,17 @@ class UNet(nn.Module):
         for m in self.modules():
             if isinstance(m, nn.ConvTranspose2d):
                 cin, _, kh, kw = m.weight.shape
-                _lecun_normal_(m.weight, cin * kh * kw, generator)
+                lecun_normal_(m.weight, cin * kh * kw, generator)
                 nn.init.zeros_(m.bias)
             elif isinstance(m, nn.Conv2d):
                 _, cin, kh, kw = m.weight.shape
-                _lecun_normal_(m.weight, cin * kh * kw, generator)
+                lecun_normal_(m.weight, cin * kh * kw, generator)
                 nn.init.zeros_(m.bias)
             elif isinstance(m, nn.GroupNorm):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
 
-    def conv_flops(self, height: int, width: int) -> int:
+    def flops(self, height: int, width: int) -> int:
         """Floating-point operations (2 per multiply-add) of the convs,
         transposed convs and head of one forward on one (height, width)
         image, counted from the layer shapes this forward gives them."""
@@ -272,7 +226,8 @@ class UNet(nn.Module):
             skips.append(x)
             # SAME for a 2x2 stride-2 conv: an odd extent gets one row /
             # column of zeros at its end
-            x = F.pad(x, (0, x.shape[3] % 2, 0, x.shape[2] % 2))
+            if not self.quant:
+                x = F.pad(x, (0, x.shape[3] % 2, 0, x.shape[2] % 2))
             x = _conv(down, x, dt, stride=2)
         x = self.bottom(x)
         for up, block, skip in zip(self.ups, self.up_blocks,
@@ -286,3 +241,14 @@ class UNet(nn.Module):
         if self.s2d > 1:
             logits = depth_to_space(logits, self.s2d)
         return logits
+
+
+def share_parameters(src: nn.Module, dst: nn.Module) -> nn.Module:
+    """Make ``dst`` (a model of ``src``'s structure, e.g. its int8 twin)
+    hold ``src``'s parameter tensors themselves, so that a train step or
+    a loaded checkpoint changes what ``dst`` computes; returns ``dst``."""
+    src_mods = dict(src.named_modules())
+    for name, mod in dst.named_modules():
+        for pname in list(mod._parameters):
+            mod._parameters[pname] = src_mods[name]._parameters[pname]
+    return dst

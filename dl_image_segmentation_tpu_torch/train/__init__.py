@@ -1,5 +1,6 @@
-"""U-Net training and inference: config, loss, optimizer, steps, scanned
-training from a device pool, evaluation, checkpoints and predict."""
+"""Training and inference of the U-Net, DeepLab-lite and SegFormer-lite:
+config, loss, optimizer, steps, scanned training from a device pool,
+evaluation, checkpoints, predict, and the U-Net's int8 inference."""
 
 from .optim import AdamWState
 from .pool import DeviceDataPool, sample_batch

@@ -1,6 +1,8 @@
-"""U-Net trainer on one CUDA card: config, loss and mIoU, optax-equal
-AdamW steps, scanned training from a device pool, evaluation,
-checkpoints, and inference (predict, predict_probs).
+"""Trainer on one CUDA card for the U-Net, DeepLab-lite and
+SegFormer-lite: config, loss and mIoU, optax-equal AdamW steps, scanned
+training from a device pool, evaluation, checkpoints, and inference
+(predict, predict_probs), float or int8 (the U-Net's ``quantize="int8"``
+and calibrated ``"int8-static"``, on the float model's parameters).
 
 A port of the JAX package's ``train/trainer.py`` for one device. The
 entry points run on the CUDA card unless the caller passes
@@ -12,13 +14,14 @@ the same steps end with the same parameters, as in the JAX package.
 Inference runs in batch_size chunks padded as the server pads, so
 ``predict`` gives each image the server's class map.
 Checkpoints are ``torch.save`` files of ``{"params", "opt_state",
-"step"}`` (orbax checkpoints of the JAX package are not read).
+"step", "model"}`` (orbax checkpoints of the JAX package are not read).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import os
 import re
 import threading
@@ -29,8 +32,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.convert import adamw_state_from_optax, unet_params_from_flax
-from ..models.unet import UNet
+from ..models.convert import (_walk, adamw_state_from_optax,
+                              params_from_flax, quant_from_flax)
+from ..models.deeplab import DeepLabLite
+from ..models.quant import Int8Conv
+from ..models.segformer import SegFormerLite
+from ..models.unet import UNet, share_parameters
 from ..ops.augment import apply_augment, draw_augment
 from ..records.tfrecord import check_local
 from .optim import (AdamWState, adamw_init, adamw_update_,
@@ -191,10 +198,6 @@ def _forward_flags(fp32: bool, deterministic: bool = False):
 
 
 _NOT_PORTED = {
-    "model": "DeepLab and SegFormer are not ported yet: ROADMAP queue 1 "
-             "item 7",
-    "quantize": "int8 inference is not ported yet: ROADMAP queue 1 item 7 "
-                "(models/quant.py)",
     "parallel": "model-axis, spatial and FSDP sharding are not ported "
                 "yet: ROADMAP queue 1 item 8 (parallel/)",
     "remat": "activation rematerialisation is not ported yet: ROADMAP "
@@ -237,7 +240,10 @@ class Trainer:
     (raises without one), ``device="cpu"`` the plain CPU run. Weights
     are the seeded flax-scheme init (``config.seed``) until
     ``load_flax_params``, a checkpoint, or ``model.load_state_dict``
-    replaces them."""
+    replaces them. ``model`` trains; ``infer_model`` predicts and
+    evaluates: the model itself, or with ``quantize`` its int8 twin,
+    which holds the same parameter tensors (and, for ``int8-static``,
+    the calibrated ``act_amax`` buffers)."""
 
     def __init__(self, config: TrainConfig, device=None,
                  _variant: Optional[Tuple[int, int]] = None):
@@ -256,20 +262,18 @@ class Trainer:
             raise ValueError(
                 f"class_weights has {len(config.class_weights)} entries "
                 f"for {config.num_classes} classes")
-        if config.model in ("deeplab", "segformer"):
-            raise NotImplementedError(f"model={config.model!r}: "
-                                      + _NOT_PORTED["model"])
-        if config.model != "unet":
+        if config.model not in ("unet", "deeplab", "segformer"):
             raise ValueError(f"unknown model {config.model!r} "
                              "(expected 'unet', 'deeplab' or "
                              "'segformer')")
-        if config.quantize in ("int8", "int8-static"):
-            raise NotImplementedError(f"quantize={config.quantize!r}: "
-                                      + _NOT_PORTED["quantize"])
-        if config.quantize != "none":
+        if config.quantize not in ("none", "int8", "int8-static"):
             raise ValueError(f"unknown quantize {config.quantize!r} "
                              "(expected 'none', 'int8' or "
                              "'int8-static')")
+        if config.quantize != "none" and config.model != "unet":
+            raise ValueError(
+                f"quantize={config.quantize!r} currently supports "
+                f"model='unet' only (got {config.model!r})")
         if config.n_model > 1 or config.spatial or config.fsdp:
             raise NotImplementedError(
                 f"n_model={config.n_model}, spatial={config.spatial}, "
@@ -278,17 +282,24 @@ class Trainer:
             raise NotImplementedError("remat=True: " + _NOT_PORTED["remat"])
         self._s2d_auto = config.s2d == 0 and _variant is None
         self.s2d, self.model_features = _variant or resolve_s2d(config)
+        if self.s2d > 1 and config.model != "unet":
+            raise ValueError(f"s2d>1 currently supports model='unet' only "
+                             f"(got {config.model!r})")
         if self.s2d > 1 and config.image_size % self.s2d:
             raise ValueError(f"image_size {config.image_size} must divide "
                              f"by s2d {self.s2d}")
         self.device = resolve_device(device)
-        gen = torch.Generator().manual_seed(config.seed)
-        model = UNet(num_classes=config.num_classes,
-                     base_features=self.model_features,
-                     levels=config.levels, dtype=self.compute_dtype,
-                     s2d=self.s2d, in_channels=config.in_channels,
-                     generator=gen)
-        self.model = model.to(self.device).eval()
+        self.model = self._build(False).to(self.device).eval()
+        self.infer_model = self.model
+        if config.quantize != "none":
+            # the int8 twin computes on the float model's parameter
+            # tensors: a train step or a checkpoint changes what it
+            # quantizes, and a float checkpoint serves quantized as is
+            twin = self._build("static" if config.quantize == "int8-static"
+                               else True)
+            self.infer_model = share_parameters(self.model, twin).to(
+                self.device).eval()
+        self._calibrated = False
         params = dict(self.model.named_parameters())
         self.state = TrainState(0, params, adamw_init(params))
         self.schedule = make_schedule(config)
@@ -302,11 +313,33 @@ class Trainer:
         self.examples_seen = 0
         self.scan_losses: List[float] = []
 
+    def _build(self, quant):
+        """The config's model on the CPU, seeded init (``quant``: the
+        U-Net's int8 mode)."""
+        cfg = self.config
+        kw = dict(num_classes=cfg.num_classes, dtype=self.compute_dtype,
+                  in_channels=cfg.in_channels,
+                  generator=torch.Generator().manual_seed(cfg.seed))
+        if cfg.model == "deeplab":
+            return DeepLabLite(base_features=cfg.base_features, **kw)
+        if cfg.model == "segformer":
+            return SegFormerLite(base_features=cfg.base_features, **kw)
+        return UNet(base_features=self.model_features, levels=cfg.levels,
+                    s2d=self.s2d, quant=quant, **kw)
+
     # -- state --------------------------------------------------------------
     def load_flax_params(self, params: Mapping) -> "Trainer":
         """Load the JAX package's flax param tree (nested dicts of numpy
         arrays) into the model."""
-        unet_params_from_flax(params, self.model)
+        params_from_flax(params, self.model)
+        return self
+
+    def load_flax_quant(self, quant: Mapping) -> "Trainer":
+        """Load the JAX package's ``"quant"`` collection (calibrated
+        ``act_amax`` per int8 conv, numpy arrays) into the int8-static
+        model; it then counts as calibrated."""
+        quant_from_flax(quant, self.infer_model)
+        self._calibrated = True
         return self
 
     def load_optax_state(self, opt_state, step: Optional[int] = None
@@ -463,20 +496,87 @@ class Trainer:
 
     def logits(self, images: torch.Tensor) -> torch.Tensor:
         """(N, H, W, C) images on the model's device -> (N, H, W,
-        num_classes) float32 logits on the device, the same bits in
-        every thread (see ``_forward_flags``)."""
+        num_classes) float32 logits of ``infer_model`` on the device, the
+        same bits in every thread (see ``_forward_flags``)."""
+        self._quant_arg()
         x = normalize_images(images).permute(0, 3, 1, 2)
         with torch.inference_mode(), _forward_flags(
                 self.compute_dtype == torch.float32):
-            self.model.eval()
-            return self.model(x).permute(0, 2, 3, 1)
+            self.infer_model.eval()
+            return self.infer_model(x).permute(0, 2, 3, 1)
+
+    # -- int8-static calibration --------------------------------------------
+    def _quant_arg(self, auto_batch=None) -> None:
+        """Readies int8-static for inference (the JAX package's
+        ``_quant_arg``, whose scales here live in ``infer_model``'s
+        buffers): uncalibrated, it calibrates on ``auto_batch`` (the host
+        batch about to be inferred) when given; without one it raises,
+        rather than let zero scales saturate every activation."""
+        if self.config.quantize == "int8-static" and not self._calibrated:
+            if auto_batch is None:
+                raise RuntimeError(
+                    "quantize='int8-static' requires calibration before "
+                    "inference: run Trainer.calibrate(batches) first "
+                    "(CLI: --calibrate-batches N)")
+            self.calibrate([auto_batch], max_batches=1)
+
+    @property
+    def quant_vars(self) -> dict:
+        """The calibrated activation max-abs of each int8 conv as the JAX
+        package's ``"quant"`` collection (``{"ConvBlock_0": {"Conv_0":
+        {"act_amax": float32}}, ...}``); {} until int8-static is
+        calibrated."""
+        if self.config.quantize != "int8-static" or not self._calibrated:
+            return {}
+        out: dict = {}
+        for name, mod in _walk(self.infer_model).convs:
+            if isinstance(mod, Int8Conv):
+                node = out
+                for part in name.split("/"):
+                    node = node.setdefault(part, {})
+                node["act_amax"] = np.float32(mod.act_amax.item())
+        return out
+
+    def calibrate(self, batches, max_batches: int = 8) -> int:
+        """Calibrate int8-static activation scales over up to
+        ``max_batches`` batches (each (images, labels) or bare images):
+        every int8 conv folds the max-abs of its input into its
+        ``act_amax`` (a layer sees its input as the layers before it, with
+        the scales updated so far, compute it), and inference then
+        quantizes with those constants. Returns the batches consumed; a
+        no-op for other quantize modes."""
+        if self.config.quantize != "int8-static":
+            return 0
+        convs = [m for m in self.infer_model.modules()
+                 if isinstance(m, Int8Conv)]
+        n = 0
+        for batch in batches:
+            if n >= max_batches:
+                break
+            images = batch[0] if isinstance(batch, (tuple, list)) else batch
+            x = normalize_images(self._to_device(images)).permute(0, 3, 1, 2)
+            for m in convs:
+                m.calibrating = True
+            try:
+                with torch.no_grad(), _forward_flags(
+                        self.compute_dtype == torch.float32):
+                    self.infer_model.eval()
+                    self.infer_model(x)
+            finally:
+                for m in convs:
+                    m.calibrating = False
+            n += 1
+        self._calibrated = self._calibrated or n > 0
+        return n
 
     def _chunked_logits(self, images):
         """Logits of ``images`` in batch_size chunks, the last padded with
         zeros as the server pads its dispatches: cuDNN picks its engine
         by shape, so an image's bits depend on the batch's size, and
         predict must give the class map the server gives for the same
-        image. Yields the logits of each chunk's real images."""
+        image. Yields the logits of each chunk's real images. Uncalibrated
+        int8-static first calibrates on a host batch of ``images``."""
+        self._quant_arg(images if isinstance(images, np.ndarray) else None)
         x = self._to_device(images)
         bs = int(self.config.batch_size)
         for i in range(0, x.shape[0], bs):
@@ -537,10 +637,20 @@ class Trainer:
     def evaluate(self, batches, max_batches: Optional[int] = None
                  ) -> Dict[str, float]:
         """Dataset-level loss, accuracy, mIoU and per-class IoU and F1
-        over an iterator of (images, labels): the sums and the confusion
-        matrix accumulate on the device over all batches and are read
-        once. (The JAX package pads each host batch to its mesh's data
-        axis with nodata labels; on one device that is a no-op.)"""
+        over an iterator of (images, labels), through ``infer_model``
+        (uncalibrated int8-static calibrates on the first batch): the
+        sums and the confusion matrix accumulate on the device over all
+        batches and are read once. (The JAX package pads each host batch
+        to its mesh's data axis with nodata labels; on one device that
+        is a no-op.)"""
+        if self.config.quantize == "int8-static" and not self._calibrated:
+            # calibrate on the first batch; an empty iterable gives empty
+            # metrics (the JAX package raises there)
+            batches = iter(batches)
+            first = next(batches, None)
+            if first is not None:
+                self.calibrate([first], max_batches=1)
+                batches = itertools.chain([first], batches)
         K = self.config.num_classes
         cm = torch.zeros((K, K), dtype=torch.int64, device=self.device)
         sums = torch.zeros(3, dtype=torch.float64, device=self.device)
@@ -606,7 +716,7 @@ class Trainer:
                 "opt_state": {"count": st.opt_state.count,
                               "mu": cpu(st.opt_state.mu),
                               "nu": cpu(st.opt_state.nu)},
-                "step": st.step}
+                "step": st.step, "model": self.config.model}
 
     def _load_payload(self, payload: dict) -> None:
         st = self.state
@@ -628,7 +738,8 @@ class Trainer:
         st.step = int(payload["step"])
 
     def save_checkpoint(self, path: str) -> None:
-        """``torch.save`` of {"params", "opt_state", "step"} to ``path``,
+        """``torch.save`` of {"params", "opt_state", "step", "model"} (the
+        family) to ``path``,
         written to ``path.tmp`` and renamed into place."""
         path = os.path.abspath(check_local(path))
         os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -646,6 +757,11 @@ class Trainer:
                                       + _NOT_PORTED["orbax"])
         payload = torch.load(check_local(path), map_location="cpu",
                              weights_only=True)
+        family = payload.get("model", "unet")
+        if family != self.config.model:
+            raise ValueError(f"checkpoint does not match the model's "
+                             f"parameters: {path} holds a {family!r} model, "
+                             f"this trainer builds {self.config.model!r}")
         try:
             self._load_payload(payload)
         except ValueError as e:
@@ -682,7 +798,7 @@ class Trainer:
         so the caller retries; an explicit s2d never switches."""
         cands = getattr(self, "_s2d_untried", None)
         if cands is None:
-            if not self._s2d_auto:
+            if not self._s2d_auto or self.config.model != "unet":
                 return False
             bf = self.config.base_features
             variants = [(1, bf)]

@@ -32,6 +32,7 @@ from dl_image_segmentation_tpu_torch.pipeline.input import (PARSE_FNS,
                                                            TFRecordFeed)
 from dl_image_segmentation_tpu_torch.raster.geotiff import read_geotiff
 from dl_image_segmentation_tpu_torch.records.tfrecord import read_records
+from dl_image_segmentation_tpu_torch.serve import scale_image
 from dl_image_segmentation_tpu_torch.train import trainer as ttrainer
 
 from tests.test_torch_catalog import scene_over
@@ -205,19 +206,29 @@ ARGV = {
               "--channels", "13", "--levels", "5", "--batch-size", "16",
               "--precision", "fp32"],
 }
+# the other model families and int8 inference
+FAMILY = {
+    "train": ["--records", "x", "--model", "segformer", "--features", "16"],
+    "eval": ["--records", "x", "--checkpoint", "c", "--model", "deeplab"],
+    "predict": ["--checkpoint", "c", "--out", "o", "--quantize",
+                "int8-static", "--calibrate-records", "r",
+                "--calibrate-batches", "2"],
+    "serve": ["--checkpoint", "c", "--quantize", "int8"],
+}
 REQUIRED = {"train": ["--records", "x"],
             "eval": ["--records", "x", "--checkpoint", "c"],
             "predict": ["--checkpoint", "c", "--out", "o"],
             "serve": ["--checkpoint", "c"]}
 
 
-@pytest.mark.parametrize("flags", ["defaults", "set"])
+@pytest.mark.parametrize("flags", ["defaults", "set", "family"])
 @pytest.mark.parametrize("cmd", sorted(ARGV))
 def test_commands_build_equal_train_configs(monkeypatch, cmd, flags):
     """The same argv through both parsers builds TrainConfigs equal
     field by field (each CLI's Trainer replaced by a recorder)."""
     got = _capture_configs(monkeypatch)
-    argv = [cmd] + (REQUIRED[cmd] if flags == "defaults" else ARGV[cmd])
+    argv = [cmd] + {"defaults": REQUIRED, "set": ARGV,
+                    "family": FAMILY}[flags][cmd]
     for name, cli, extra in (("jax", jcli, []),
                              ("port", tcli, ["--device", "cpu"])):
         with pytest.raises(_Built):
@@ -389,8 +400,6 @@ def test_eval_predict_geotiff_and_serve(seq, tmp_path):
 
 
 NOT_PORTED = [
-    (["train", "--records", "x", "--mode", "tifarr", "--model", "deeplab"],
-     NotImplementedError, "item 7"),
     (["train", "--records", "x", "--mode", "tifarr", "--n-model", "2"],
      NotImplementedError, "item 8"),
     (["train", "--records", "x", "--mode", "tifarr", "--spatial"],
@@ -399,12 +408,6 @@ NOT_PORTED = [
      NotImplementedError, "item 8"),
     (["train", "--records", "x", "--mode", "tifarr", "--remat"],
      NotImplementedError, "item 1"),
-    (["predict", "--checkpoint", "c", "--out", "o", "--quantize", "int8"],
-     NotImplementedError, "item 7"),
-    (["serve", "--checkpoint", "c", "--model", "segformer"],
-     NotImplementedError, "item 7"),
-    (["eval", "--records", "x", "--checkpoint", "c", "--quantize",
-      "int8-static"], NotImplementedError, "item 7"),
     (["convert", "--directory", "d", "--out", "o"], NotImplementedError,
      "item 6"),
     (["ingest-safe", "--catalog", "c", "--safe", "s"], NotImplementedError,
@@ -424,6 +427,75 @@ def test_unported_flags_raise_their_item(argv, exc, match):
         "train", "predict", "serve", "eval") else []
     with pytest.raises(exc, match=match):
         tcli.main(argv + dev)
+
+
+def test_model_families_and_int8_through_the_cli(seq, tmp_path):
+    """train and eval --model segformer; predict --quantize int8-static
+    calibrated on --calibrate-records (the maps of a Trainer calibrated
+    on the same batch); eval --quantize int8 on the float checkpoint."""
+    work, _ = seq
+    recs = os.path.join(work, "port-recs", "mumbai-*")
+    seg = str(tmp_path / "seg.pt")
+    rc, _ = run(tcli, ["train", "--records", recs, "--mode", "tifarr",
+                       *MODEL, "--model", "segformer", "--steps", "2",
+                       "--checkpoint", seg, "--device", "cpu"])
+    assert rc == 0 and torch.load(seg, weights_only=True)["model"] == \
+        "segformer"
+    rc, lines = run(tcli, ["eval", "--records", recs, "--checkpoint", seg,
+                           *MODEL, "--model", "segformer", "--json",
+                           "--device", "cpu"])
+    ev = json.loads(lines[-1])
+    assert rc == 0 and ev["batches"] == 3 and np.isfinite(ev["loss"])
+    ckpt = _train_checkpoint(work, tmp_path)
+    images = os.path.join(work, "port-cat", FOLDER, "images")
+    out = tmp_path / "q"
+    rc, lines = run(tcli, ["predict", "--images", images, "--checkpoint",
+                           ckpt, "--out", str(out), *MODEL, "--quantize",
+                           "int8-static", "--calibrate-records", recs,
+                           "--calibrate-batches", "1", "--device", "cpu"])
+    assert rc == 0 and lines == [
+        f"int8-static: calibrated activation scales over 1 batch(es) from "
+        f"{recs}", f"wrote 15 prediction chips to {out}"]
+    t = ttrainer.Trainer(ttrainer.TrainConfig(
+        num_classes=3, base_features=8, levels=2, image_size=64,
+        batch_size=4, quantize="int8-static"), device="cpu")
+    t.restore_checkpoint(ckpt)
+    feed = TFRecordFeed(recs, "tifarr", batch_size=4, image_size=64,
+                        num_workers=2, repeat=False, scale="raw")
+    assert t.calibrate(feed.batches(), max_batches=1) == 1
+    names = sorted(os.listdir(images))[:4]  # predict's first batch
+    chips = np.stack([read_geotiff(os.path.join(images, n)).array
+                      for n in names])
+    want = t.predict(scale_image(chips, "auto"))
+    got = np.stack([read_geotiff(os.path.join(out, n)).array[:, :, 0]
+                    for n in names])
+    np.testing.assert_array_equal(got, want.astype(got.dtype))
+    rc, lines = run(tcli, ["eval", "--records", recs, "--checkpoint", ckpt,
+                           *MODEL, "--quantize", "int8", "--json",
+                           "--device", "cpu"])
+    ev = json.loads(lines[-1])
+    assert rc == 0 and ev["batches"] == 3 and np.isfinite(ev["loss"])
+
+
+UNSUPPORTED = [
+    ["train", "--records", "x", "--mode", "tifarr", "--model", "deeplab",
+     "--s2d", "2"],
+    ["predict", "--checkpoint", "c", "--out", "o", "--model", "segformer",
+     "--quantize", "int8"],
+    ["serve", "--checkpoint", "c", "--model", "deeplab", "--quantize",
+     "int8-static"],
+    ["eval", "--records", "x", "--checkpoint", "c", "--model", "segformer",
+     "--s2d", "2"],
+]
+
+
+@pytest.mark.parametrize("argv", UNSUPPORTED,
+                         ids=[" ".join(a[0:1] + a[-4:]) for a in UNSUPPORTED])
+def test_unet_only_options_raise_for_other_models(argv):
+    """--s2d > 1 and --quantize are the U-Net's: the JAX package's
+    ValueError, before any file is read."""
+    with pytest.raises(ValueError, match="model='unet' only"):
+        tcli.main(argv + ["--device", "cpu"])
 
 
 def test_unported_inputs_raise_their_item(seq, tmp_path, monkeypatch):

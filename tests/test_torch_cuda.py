@@ -357,6 +357,84 @@ def test_train_steps_are_deterministic(precision):
     assert [n for n in p1 if not torch.equal(p1[n], p2[n])] == []
 
 
+@pytest.mark.parametrize("kw", [
+    {"model": "segformer"}, {"quantize": "int8"},
+    {"quantize": "int8-static"}], ids=["segformer", "int8", "int8-static"])
+def test_family_served_maps_equal_unpadded_predict(kw):
+    """SegFormer-lite and the int8 U-Net (full width, bf16, batch 8):
+    served class maps equal Trainer.predict of bs - 1, 1 and 2 * bs
+    images (int8-static calibrated once, on the first images)."""
+    _need_card()
+    from dl_image_segmentation_tpu_torch.serve import PredictServer
+    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+    bs = 8
+    t = Trainer(TrainConfig(batch_size=bs, **kw))
+    images = np.random.RandomState(12).rand(2 * bs, 256, 256, 3).astype(
+        np.float32)
+    assert t.calibrate([images[:bs]]) == (
+        1 if kw.get("quantize") == "int8-static" else 0)
+    ps = PredictServer(t, max_wait_ms=1.0)
+    try:
+        served = []
+        for img in images:
+            p = ps.submit(img, probs=False)
+            assert p.error is None, p.error
+            served.append(p.result)
+    finally:
+        ps.close()
+    for n in (bs - 1, 1, 2 * bs):
+        got = t.predict(images[:n])
+        for i in range(n):
+            np.testing.assert_array_equal(got[i], served[i],
+                                          err_msg=f"N={n}, image {i}")
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+@pytest.mark.parametrize("model", ["deeplab", "segformer"])
+def test_family_train_steps_are_deterministic(model, precision):
+    """DeepLab-lite and SegFormer-lite at full width (10 classes, batch
+    8): two runs of 3 steps from one state dict, bitwise equal."""
+    _need_card()
+    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+    cfg = TrainConfig(num_classes=10, batch_size=8, precision=precision,
+                      model=model)
+    rng = np.random.RandomState(3)
+    x = rng.randint(0, 256, (8, 256, 256, 3)).astype(np.float32)
+    y = rng.randint(0, 10, (8, 256, 256)).astype(np.int32)
+    y[:, :16] = 255
+    state = {k: v.detach().clone()
+             for k, v in Trainer(cfg).model.state_dict().items()}
+    runs = []
+    for _ in range(2):
+        t = Trainer(cfg)
+        t.model.load_state_dict(state)
+        losses = [t.train_step(x, y)["loss"] for _ in range(3)]
+        runs.append((losses, {n: p.detach().clone()
+                              for n, p in t.state.params.items()}))
+    (l1, p1), (l2, p2) = runs
+    assert l1 == l2
+    assert [n for n in p1 if not torch.equal(p1[n], p2[n])] == []
+
+
+@pytest.mark.parametrize("n,c,hw,o,k,s", [
+    (8, 12, 128, 64, 3, 1),     # the s2d 2 tree's first conv (K = 108)
+    (8, 64, 128, 64, 2, 2),     # its first down conv
+    (8, 512, 16, 1024, 3, 1),   # the bottom
+    (1, 3, 4, 5, 3, 1)])        # M, K, O all below the GEMM's minimum
+def test_int8_conv_card_equals_cpu(n, c, hw, o, k, s):
+    """torch._int_mm's int32 sums on the card equal the CPU's bitwise."""
+    _need_card()
+    from dl_image_segmentation_tpu_torch.models.quant import int8_conv2d
+    g = torch.Generator().manual_seed(n * c + o)
+    qx = torch.randint(-127, 128, (n, c, hw, hw), generator=g,
+                       dtype=torch.int8)
+    qw = torch.randint(-127, 128, (o, c, k, k), generator=g,
+                       dtype=torch.int8)
+    want = int8_conv2d(qx, qw, s)
+    got = int8_conv2d(qx.cuda(), qw.cuda(), s)
+    assert torch.equal(got.cpu(), want)
+
+
 def _local_root(root, tile):
     """A LocalCatalog root over the 3 x 2 tiles from ``tile``: Sentinel-2
     scenes of 4 uint16 bands with nodata 0, one at 2.5 m (a ~3.5 MB file,

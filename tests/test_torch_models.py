@@ -1,7 +1,8 @@
 """The PyTorch port's U-Net, weight converter and Trainer against the JAX
 package, on the CPU: layout moves, the transposed conv's orientation,
-forward passes through the converter at fp32 and bf16, s2d resolution,
-and the configurations the port refuses.
+forward passes through the converter at fp32 and bf16, s2d resolution
+(the real Trainer of each family), and the configurations the port
+refuses.
 
 Tolerances, with the largest differences measured on this CPU (numpy
 seeds below; JAX and the port both on the CPU):
@@ -28,6 +29,7 @@ from dl_image_segmentation_tpu.models import unet as junet
 from dl_image_segmentation_tpu.train import trainer as jtrainer
 from dl_image_segmentation_tpu_torch import models as tmodels
 from dl_image_segmentation_tpu_torch.models import convert as tconvert
+from dl_image_segmentation_tpu_torch.models import layers as tlayers
 from dl_image_segmentation_tpu_torch.models import unet as tunet
 from dl_image_segmentation_tpu_torch.train import trainer as ttrainer
 
@@ -131,7 +133,7 @@ def test_unet_forward_equals_jax(s2d, size, precision):
     x = np.random.RandomState(size + s2d).rand(4, size, size, 3).astype(
         np.float32)
     ref = np.asarray(jax.jit(jm.apply)({"params": params}, x))
-    tm = tmodels.unet_params_from_flax(
+    tm = tmodels.params_from_flax(
         params, tmodels.UNet(3, 8, 2, dtype=td, s2d=s2d))
     with torch.no_grad():
         got = tm(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(
@@ -157,20 +159,20 @@ class TestConverter:
         _, params = flax_params()
         del params["ConvBlock_3"]["GroupNorm_1"]["scale"]
         with pytest.raises(ValueError, match="lack 1 leaves.*ConvBlock_3"):
-            tmodels.unet_params_from_flax(params, tmodels.UNet(3, 8, 2))
+            tmodels.params_from_flax(params, tmodels.UNet(3, 8, 2))
 
     def test_extra_leaf_raises(self):
         _, params = flax_params()
         params["Conv_9"] = {"kernel": np.zeros((1, 1, 8, 3), np.float32)}
         with pytest.raises(ValueError, match="no place for.*Conv_9"):
-            tmodels.unet_params_from_flax(params, tmodels.UNet(3, 8, 2))
+            tmodels.params_from_flax(params, tmodels.UNet(3, 8, 2))
 
     def test_wrong_tree_raises(self):
         """An s2d=2 tree does not fit the classic model (stem and head
         widths differ)."""
         _, params = flax_params(s2d=2)
         with pytest.raises(ValueError, match="does not fit"):
-            tmodels.unet_params_from_flax(params, tmodels.UNet(3, 8, 2))
+            tmodels.params_from_flax(params, tmodels.UNet(3, 8, 2))
 
     def test_flatten_names_every_leaf(self):
         _, params = flax_params(levels=3)
@@ -207,7 +209,7 @@ class TestInit:
         m = tmodels.UNet(3, 8, 2, dtype=torch.float32, s2d=s2d)
         with FlopCounterMode(display=False) as fc, torch.no_grad():
             m(torch.zeros(2, 3, size, size))
-        assert fc.get_total_flops() == 2 * m.conv_flops(size, size)
+        assert fc.get_total_flops() == 2 * m.flops(size, size)
 
 
 def jax_trainer_resolution(cfg, monkeypatch):
@@ -228,7 +230,7 @@ def test_s2d_resolution_equals_jax_trainer(model, monkeypatch):
                 got = ttrainer.resolve_s2d(ttrainer.TrainConfig(**kw))
                 assert got == ref, kw
                 seen.add(got[0])
-                if model == "unet" and size <= 128:
+                if size <= 128 and (model == "unet" or bf <= 32):
                     t = ttrainer.Trainer(ttrainer.TrainConfig(**kw),
                                          device="cpu")
                     assert (t.s2d, t.model_features) == ref
@@ -244,10 +246,12 @@ def test_train_config_fields_equal_jax():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    ({"model": "deeplab"}, NotImplementedError, "queue 1 item 7"),
-    ({"model": "segformer"}, NotImplementedError, "queue 1 item 7"),
-    ({"quantize": "int8"}, NotImplementedError, "queue 1 item 7"),
-    ({"quantize": "int8-static"}, NotImplementedError, "queue 1 item 7"),
+    ({"model": "deeplab", "s2d": 2}, ValueError, "model='unet' only"),
+    ({"model": "segformer", "s2d": 2}, ValueError, "model='unet' only"),
+    ({"model": "deeplab", "quantize": "int8"}, ValueError,
+     "model='unet' only"),
+    ({"model": "segformer", "quantize": "int8-static"}, ValueError,
+     "model='unet' only"),
     ({"n_model": 2}, NotImplementedError, "queue 1 item 8"),
     ({"spatial": True}, NotImplementedError, "queue 1 item 8"),
     ({"fsdp": True}, NotImplementedError, "queue 1 item 8"),
@@ -262,11 +266,6 @@ def test_unsupported_configs_raise(kw, exc, match):
                                   "image_size": 32, **kw})
     with pytest.raises(exc, match=match):
         ttrainer.Trainer(cfg, device="cpu")
-
-
-def test_quantized_unet_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tmodels.UNet(2, 8, 1, quant=True)
 
 
 def test_trainer_without_device_raises_here():
@@ -342,14 +341,14 @@ def test_slot_check_sees_a_slot_dependent_conv(monkeypatch):
     the CPU's conv, whose images do not depend on their slots."""
     x = torch.zeros(4, 16, 8, 8)
     w, b = torch.zeros(32, 16, 3, 3), torch.zeros(32)
-    assert not tunet._slot_dependent(x, w, b, 1, 1)
+    assert not tlayers._slot_dependent(x, w, b, 1, 1)
     conv = F.conv2d
 
     def by_slot(x, w, b=None, **kw):
         y = conv(x, w, b, **kw)
         return y + 1e-3 * torch.arange(y.shape[0]).view(-1, 1, 1, 1)
-    monkeypatch.setattr(tunet.F, "conv2d", by_slot)
-    assert tunet._slot_dependent(x, w, b, 1, 1)
+    monkeypatch.setattr(tlayers.F, "conv2d", by_slot)
+    assert tlayers._slot_dependent(x, w, b, 1, 1)
 
 
 def test_cpu_forward_runs_no_slot_check():
@@ -358,6 +357,6 @@ def test_cpu_forward_runs_no_slot_check():
     t = ttrainer.Trainer(ttrainer.TrainConfig(
         base_features=8, levels=1, image_size=32, batch_size=2),
         device="cpu")
-    before = dict(tunet._SLOT_DEPENDENT)
+    before = dict(tlayers._SLOT_DEPENDENT)
     t.predict(np.zeros((2, 32, 32, 3), np.float32))
-    assert tunet._SLOT_DEPENDENT == before
+    assert tlayers._SLOT_DEPENDENT == before

@@ -312,13 +312,15 @@ class TestImportHygiene:
             rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
             mods.append(rel[:-len(".__init__")]
                         if rel.endswith(".__init__") else rel)
-        # the training path's modules and the CLI's are among them
+        # the training path's modules, the CLI's and the model families'
+        # are among them
         training = {f"dl_image_segmentation_tpu_torch.{m}" for m in (
             "records", "records.crc32c", "records.proto", "records.tfrecord",
             "records.example", "records.parsers", "records.writers",
             "pipeline.input", "ops.augment", "train.optim", "train.pool",
             "train.trainer", "models.convert", "cli", "catalog.local",
-            "raster.cog", "geo.georef", "utils.webmap")}
+            "raster.cog", "geo.georef", "utils.webmap", "models.layers",
+            "models.deeplab", "models.segformer", "models.quant")}
         assert training <= set(mods), sorted(training - set(mods))
         code = f"""
 import sys, importlib, importlib.abc

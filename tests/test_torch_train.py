@@ -41,7 +41,8 @@ import pytest
 import torch
 
 from dl_image_segmentation_tpu.ops import augment as jaugment
-from dl_image_segmentation_tpu.parallel.sharding import make_mesh
+from dl_image_segmentation_tpu.parallel.sharding import (make_mesh,
+                                                         replicated_sharding)
 from dl_image_segmentation_tpu.train import pool as jpool
 from dl_image_segmentation_tpu.train import trainer as jtrainer
 from dl_image_segmentation_tpu_torch.models import convert as tconvert
@@ -81,7 +82,11 @@ def jax_trainer(cfg, params):
         mp.setattr(jtrainer.Trainer, "_build_step", lambda self: None)
         t = jtrainer.Trainer(cfg, mesh=make_mesh(devices=jax.devices()[:1]))
     p = jax.tree_util.tree_map(jnp.asarray, params)
-    t.state = jtrainer.TrainState(p, t.tx.init(p), jnp.zeros((), jnp.int32))
+    # placed on the mesh as the step's outputs are (as _init_state places
+    # it), so that the step compiles once, not again for the second step
+    t.state = jax.device_put(
+        jtrainer.TrainState(p, t.tx.init(p), jnp.zeros((), jnp.int32)),
+        replicated_sharding(t.mesh))
     t._step_fn = t._build_step()
     return t
 
