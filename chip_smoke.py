@@ -107,7 +107,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
    /healthz, one /predict equal to ``predict``'s map, then SIGINT);
    then ``train --model segformer`` (20 steps, falling loss), ``predict
    --quantize int8-static --calibrate-records`` and ``eval --quantize
-   int8``. Every command must exit 0; the seconds of each are printed.
+   int8``. Every command must exit 0; the seconds of each are printed;
+8. remote storage and catalogs, through the port's loopback fakes
+   (``FakeGCS``, ``FakeS3``, ``SceneServer``, ``StacServer``; NO_PROXY
+   names loopback) and ``cli.main``, on phase 7's root and outputs:
+   ``create-chips --catalog http://... --batch-tiles 16 --out gs://...``
+   with the server's first 3 answers failing (retried), all 64
+   GeoTIFFs equal to phase 7's card export, tiles/s and the ranged GETs
+   and bytes a tile; the RGB export the same way, equal to phase 7's; a
+   STAC tree of the same scenes (``stac_tree_from_root``) served in API
+   mode, exported per tile on the card and the CPU (equal bytes, and
+   equal to phase 7's per-tile export); the launch counters set to 0
+   before the card's exports and read after (every kernel launched);
+   ``to-tfrecords`` gs:// -> s3:// (shards equal to phase 7's),
+   ``inspect --verify-crc`` on s3://, the feed's records/s from s3://
+   beside local's, ``train`` from s3:// with ``--checkpoint gs://...
+   --save-every 10 --keep 1`` (falling loss; only the newest step stays
+   in the bucket), ``predict`` and ``eval --json`` from the gs://
+   checkpoint equal to a local copy's, ``stitch`` gs:// -> gs:// equal to
+   phase 7's mosaic, and ``push`` from s3:// to a directory and to
+   presigned URLs on a loopback PUT server (every shard's bytes).
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script
@@ -116,6 +135,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import datetime as dt
 import json
 import math
@@ -508,12 +528,14 @@ def write_labels(path, zone, res, nx, ny, n, seed):
 
 
 def read_tree(folder):
+    """{relative path: bytes} of every file under ``folder``."""
     out = {}
-    for sub in ("images", "labels"):
-        d = os.path.join(folder, sub)
-        for name in sorted(os.listdir(d)):
-            with open(os.path.join(d, name), "rb") as f:
-                out[f"{sub}/{name}"] = f.read()
+    for d, _, files in os.walk(folder):
+        for f in files:
+            p = os.path.join(d, f)
+            with open(p, "rb") as fh:
+                out[os.path.relpath(p, folder).replace(os.sep, "/")] = \
+                    fh.read()
     return out
 
 
@@ -1389,15 +1411,53 @@ def write_catalog(root, x0, y0, span, nx, ny):
     return sizes
 
 
+def stac_tree_from_root(root, tree):
+    """A static STAC tree under ``tree`` (the port's StacBuilder) that
+    publishes the scenes of the LocalCatalog root ``root``: one
+    collection a product, one item a scene with one multi-band asset
+    ("data", eo:bands = the product's bands, its nodata), the scene's
+    date and cloud cover. Returns the number of items."""
+    from dl_image_segmentation_tpu_torch.catalog.stacserver import (
+        StacBuilder)
+    from dl_image_segmentation_tpu_torch.raster import read_geotiff
+    with open(os.path.join(root, "index.json")) as f:
+        index = json.load(f)
+    builder = StacBuilder(tree)
+    n = 0
+    for product, p in index["products"].items():
+        builder.add_collection(product, bands=p["bands"])
+        for s in p["scenes"]:
+            g = read_geotiff(os.path.join(root, s["path"]))
+            cf = s.get("cloud_fraction")
+            builder.add_item(
+                product, s["id"], dt.date.fromisoformat(s["date"]),
+                {"data": {"array": g.array, "epsg": g.info.epsg,
+                          "geotransform": g.info.geotransform,
+                          "eo_bands": p["bands"],
+                          "nodata": s.get("nodata", g.info.nodata)}},
+                cloud_cover=None if cf is None else 100.0 * cf)
+            n += 1
+    return n
+
+
 def cli_run(argv, secs, name):
-    """One in-process call of the port's CLI; its exit code must be 0."""
+    """One in-process call of the port's CLI; its exit code must be 0.
+    Returns the lines it printed (echoed here once it ends)."""
+    import contextlib
+    import io
     from dl_image_segmentation_tpu_torch import cli
+    buf = io.StringIO()
     t0 = time.perf_counter()
-    rc = cli.main(argv)
-    secs[name] = time.perf_counter() - t0
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        secs[name] = time.perf_counter() - t0
+        sys.stdout.write(buf.getvalue())
     if rc != 0:
         raise AssertionError(f"{name}: exit code {rc}")
     log(f"  {name}: {secs[name]:.3f} s")
+    return buf.getvalue().splitlines()
 
 
 def serve_round_trip(ckpt, chip, secs):
@@ -1451,9 +1511,11 @@ def serve_round_trip(ckpt, chip, secs):
     return served
 
 
-def cli_phase(smi):
+def cli_phase(smi, tmp, share):
     """Phase 7: chip creation from a LocalCatalog root and the verify
-    sequence, through the port's CLI in-process (``cli.main``)."""
+    sequence, through the port's CLI in-process (``cli.main``). It writes
+    into ``tmp`` and leaves its outputs there for phase 8, naming them in
+    ``share``."""
     import glob
     import torch
     import dl_image_segmentation_tpu_torch.catalog as catalog_pkg
@@ -1465,169 +1527,444 @@ def cli_phase(smi):
     log(f"phase 7: LocalCatalog + CLI on the card ({smi})")
     out = {"seconds": {}, "exports": []}
     secs = out["seconds"]
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    labels = write_labels(os.path.join(tmp, "labels.geojson"), 43, 10.0,
+                          8, 4, 1024, seed=11)
+    x0, y0, _, _ = Tile(256, 2, 10.0, 43, -10, 1400).bounds_unpadded
+    root = os.path.join(tmp, "catalog")
+    t0 = time.perf_counter()
+    sizes = write_catalog(root, x0, y0, 2560.0, 8, 4)
+    secs["write catalog"] = time.perf_counter() - t0
+    log(f"  LocalCatalog root: 10 scenes in {secs['write catalog']:.3f} "
+        f"s; file sizes (MiB) "
+        + ", ".join(f"{k} {v / 2**20:.1f}" for k, v in sizes.items()))
+    base = ["create-chips", "--labels", labels, "--attribute", "cls",
+            "--product", "sentinel-2:L1C", "--bands", " ".join(S2_BANDS),
+            "--tile-size", "260", "--pad", "2", "--resolution", "10.0",
+            "--tag", "smoke", "--loc", "aoi", "--year", "2020",
+            "--ref-date", "2020-11-01", "--catalog", root,
+            "--workers", "8"]
+    made = []
+    original = catalog_pkg.LocalCatalog
+
+    class Recording(original):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    launches = {c.name: 0 for c in kernels.COUNTERS}
+    trees = {}
+    for device, batch in (("cuda", 16), ("cuda", 0), ("cpu", 16),
+                          ("cpu", 0)):
+        dest = os.path.join(tmp, f"s2-{device}-{batch}")
+        argv = base + ["--out", dest, "--max-cloud-fraction", "0",
+                       "--batch-tiles", str(batch), "--device", device]
+        name = f"create-chips {device} --batch-tiles {batch}"
+        catalog_pkg.LocalCatalog = Recording
+        try:
+            if device == "cuda":
+                torch.cuda.synchronize()
+                for c in kernels.COUNTERS:
+                    c.reset()
+            cli_run(argv, secs, name)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                for c in kernels.COUNTERS:
+                    launches[c.name] += c.count
+        finally:
+            catalog_pkg.LocalCatalog = original
+        cat = made[-1]
+        if not (cat._readers and cat._cache):
+            raise AssertionError(f"{name}: windowed reads "
+                                 f"{sorted(cat._readers)}, whole-decoded "
+                                 f"scenes {sorted(cat._cache)}")
+        if not any("z42" in k for k in cat._cache):
+            raise AssertionError(f"{name}: no zone-42 scene was loaded")
+        folder, = glob.glob(os.path.join(dest, "*"))
+        trees[(device, batch)] = read_tree(folder)
+        run = {"device": device, "batch_tiles": batch, "tiles": 32,
+               "seconds": secs[name], "tiles_per_s": 32 / secs[name],
+               "windowed": sorted(cat._readers),
+               "whole_decoded": len(cat._cache)}
+        out["exports"].append(run)
+        log(f"    {run['tiles_per_s']:.3f} tiles/s on "
+            f"{smi if device == 'cuda' else 'the host CPU'}; windowed "
+            f"{run['windowed']}, {run['whole_decoded']} scenes decoded "
+            "whole (zone 42 among them)")
+    for batch in (16, 0):
+        ref, got = trees[("cpu", batch)], trees[("cuda", batch)]
+        if len(ref) != 64 or got != ref:
+            bad = [k for k in ref if got.get(k) != ref[k]][:3]
+            raise AssertionError(f"LocalCatalog export batch_tiles="
+                                 f"{batch}: {len(ref)} files; card's "
+                                 f"bytes differ from the CPU's {bad}")
+    for name in ("masked_median", "burn_dense", "burn_binned"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name}: not launched by the "
+                                 "LocalCatalog export")
+    out["launches"] = launches
+    log(f"  LocalCatalog export: card == CPU bytes per tile and batched "
+        f"(64 GeoTIFFs each); launches on the card {launches}")
+    share.update(root=root, base=base, s2_trees={
+        b: trees[("cuda", b)] for b in (16, 0)}, s2_folder=os.path.basename(
+            glob.glob(os.path.join(tmp, "s2-cuda-16", "*"))[0]))
+
+    # the verify sequence: a nearest-date RGB mosaic of 256 px chips
+    # from the same root, shards, inspect, train, eval, stitch,
+    # predict, serve
+    rgb = os.path.join(tmp, "rgb")
+    argv = base + ["--out", rgb, "--bands", "red green blue",
+                   "--tile-size", "256", "--pad", "0"]
+    cli_run(argv, secs, "create-chips rgb")
+    folder, = glob.glob(os.path.join(rgb, "*"))
+    share.update(rgb_argv=argv, rgb_folder=folder)
+    shards = os.path.join(tmp, "shards")
+    cli_run(["to-tfrecords", "--name", "smoke", "--directory", folder,
+             "--out", shards, "--shards", "4", "--workers", "4",
+             "--engine", "mp", "--store-as-array"], secs, "to-tfrecords")
+    pattern = os.path.join(shards, "smoke-*")
+    cli_run(["inspect", "--records", pattern, "--verify-crc",
+             "--class-stats"], secs, "inspect")
+    ckdir = os.path.join(tmp, "managed")
+    mlog = os.path.join(tmp, "metrics.jsonl")
+    cli_run(["train", "--records", pattern, "--mode", "tifarr",
+             "--classes", "10", "--steps", "20", "--log-every", "1",
+             "--save-every", "10", "--checkpoint", ckdir,
+             "--metrics-log", mlog], secs, "train")
+    losses = [json.loads(ln)["loss"] for ln in open(mlog)]
+    if len(losses) != 20 or not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"train: losses {losses}")
+    out["losses"] = losses
+    ckpt = os.path.join(ckdir, "20.pt")
+    if sorted(os.listdir(ckdir)) != ["10.pt", "20.pt"]:
+        raise AssertionError(f"managed checkpoints {os.listdir(ckdir)}")
+    cli_run(["train", "--records", pattern, "--mode", "tifarr",
+             "--classes", "10", "--steps", "20", "--scan-steps", "10",
+             "--pool-size", "32", "--checkpoint",
+             os.path.join(tmp, "scanned.pt")], secs, "train --scan-steps")
+    cli_run(["eval", "--records", pattern, "--checkpoint", ckpt,
+             "--classes", "10", "--json"], secs, "eval")
+    mosaic = os.path.join(tmp, "mosaic.tif")
+    cli_run(["stitch", "--chips", os.path.join(folder, "images"),
+             "--out", mosaic], secs, "stitch")
+    share.update(shards=shards, mosaic=mosaic, losses=losses)
+    pred = os.path.join(tmp, "pred.tif")
+    cli_run(["predict", "--geotiff", mosaic, "--checkpoint", ckpt,
+             "--classes", "10", "--scale", "none", "--out", pred], secs,
+            "predict --geotiff")
+    g, m = read_geotiff(pred), read_geotiff(mosaic)
+    if g.array.shape[:2] != m.array.shape[:2] \
+            or g.info.geotransform != m.info.geotransform:
+        raise AssertionError(f"predict --geotiff: {g.array.shape} vs "
+                             f"{m.array.shape}")
+    chip = read_geotiff(sorted(glob.glob(os.path.join(
+        folder, "images", "*.tif")))[0]).array.astype(np.float32)
+    served = serve_round_trip(ckpt, chip, secs)
+    t = Trainer(TrainConfig(num_classes=10, batch_size=8))
+    t.restore_checkpoint(ckpt)
+    if not np.array_equal(served, t.predict(chip[None])[0]):
+        raise AssertionError("served class map differs from predict's")
+    del t
+    torch.cuda.empty_cache()
+    log(f"  loss {losses[0]:.4f} -> {np.mean(losses[-5:]):.4f} (mean of "
+        f"the last 5 of 20); served /predict == predict; {smi}")
+    # the other families and int8 inference through the CLI
+    seg_log = os.path.join(tmp, "segformer.jsonl")
+    cli_run(["train", "--records", pattern, "--mode", "tifarr",
+             "--classes", "10", "--model", "segformer", "--steps", "20",
+             "--log-every", "1", "--metrics-log", seg_log,
+             "--checkpoint", os.path.join(tmp, "segformer.pt")], secs,
+            "train --model segformer")
+    seg = [json.loads(ln)["loss"] for ln in open(seg_log)]
+    if len(seg) != 20 or not np.mean(seg[-5:]) < seg[0]:
+        raise AssertionError(f"train --model segformer: losses {seg}")
+    out["segformer_losses"] = seg
+    qdir = os.path.join(tmp, "pred-int8-static")
+    cli_run(["predict", "--images", os.path.join(folder, "images"),
+             "--checkpoint", ckpt, "--classes", "10", "--scale", "none",
+             "--quantize", "int8-static", "--calibrate-records", pattern,
+             "--calibrate-batches", "1", "--out", qdir], secs,
+            "predict --quantize int8-static")
+    if len(glob.glob(os.path.join(qdir, "*.tif"))) != 32:
+        raise AssertionError("predict --quantize int8-static: "
+                             f"{os.listdir(qdir)[:3]}")
+    cli_run(["eval", "--records", pattern, "--checkpoint", ckpt,
+             "--classes", "10", "--quantize", "int8", "--json"], secs,
+            "eval --quantize int8")
+    log(f"  segformer loss {seg[0]:.4f} -> {np.mean(seg[-5:]):.4f} (mean "
+        f"of the last 5 of 20); int8-static predict wrote 32 maps")
+    return out
+
+
+def with_flags(argv, **flags):
+    """``argv`` with the value after each ``--flag`` replaced (flag names
+    with '_' for '-'), or the pair appended where it is missing."""
+    argv = list(argv)
+    for key, value in flags.items():
+        flag = "--" + key.replace("_", "-")
+        if flag in argv:
+            argv[argv.index(flag) + 1] = str(value)
+        else:
+            argv += [flag, str(value)]
+    return argv
+
+
+def objects_under(fake, bucket, prefix):
+    """{key below ``prefix``: bytes} of a fake's objects."""
+    return {k[1][len(prefix):]: v for k, v in list(fake.objects.items())
+            if k[0] == bucket and k[1].startswith(prefix)}
+
+
+def feed_rate(pattern, batch_size, image_size, batches=4):
+    """tifarr records/s through the feed's read, parse and batching, after
+    one warm batch (host only)."""
+    from dl_image_segmentation_tpu_torch.pipeline.input import TFRecordFeed
+    it = iter(TFRecordFeed(pattern, "tifarr", batch_size,
+                           image_size=image_size, scale="raw", seed=3))
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    return batches * batch_size / (time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def put_server():
+    """A loopback server that keeps the body of every PUT by path: the
+    stand-in for presigned upload URLs."""
+    import http.server
+    import threading
+    received = {}
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_PUT(self):
+            n = int(self.headers["Content-Length"])
+            received[self.path] = self.rfile.read(n)
+            self.send_response(200)
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
     try:
-        labels = write_labels(os.path.join(tmp, "labels.geojson"), 43, 10.0,
-                              8, 4, 1024, seed=11)
-        x0, y0, _, _ = Tile(256, 2, 10.0, 43, -10, 1400).bounds_unpadded
-        root = os.path.join(tmp, "catalog")
-        t0 = time.perf_counter()
-        sizes = write_catalog(root, x0, y0, 2560.0, 8, 4)
-        secs["write catalog"] = time.perf_counter() - t0
-        log(f"  LocalCatalog root: 10 scenes in {secs['write catalog']:.3f} "
-            f"s; file sizes (MiB) "
-            + ", ".join(f"{k} {v / 2**20:.1f}" for k, v in sizes.items()))
-        base = ["create-chips", "--labels", labels, "--attribute", "cls",
-                "--product", "sentinel-2:L1C", "--bands", " ".join(S2_BANDS),
-                "--tile-size", "260", "--pad", "2", "--resolution", "10.0",
-                "--tag", "smoke", "--loc", "aoi", "--year", "2020",
-                "--ref-date", "2020-11-01", "--catalog", root,
-                "--workers", "8"]
-        made = []
-        original = catalog_pkg.LocalCatalog
-
-        class Recording(original):
-            def __init__(self, *a, **kw):
-                super().__init__(*a, **kw)
-                made.append(self)
-
-        launches = {c.name: 0 for c in kernels.COUNTERS}
-        trees = {}
-        for device, batch in (("cuda", 16), ("cuda", 0), ("cpu", 16),
-                              ("cpu", 0)):
-            dest = os.path.join(tmp, f"s2-{device}-{batch}")
-            argv = base + ["--out", dest, "--max-cloud-fraction", "0",
-                           "--batch-tiles", str(batch), "--device", device]
-            name = f"create-chips {device} --batch-tiles {batch}"
-            catalog_pkg.LocalCatalog = Recording
-            try:
-                if device == "cuda":
-                    torch.cuda.synchronize()
-                    for c in kernels.COUNTERS:
-                        c.reset()
-                cli_run(argv, secs, name)
-                if device == "cuda":
-                    torch.cuda.synchronize()
-                    for c in kernels.COUNTERS:
-                        launches[c.name] += c.count
-            finally:
-                catalog_pkg.LocalCatalog = original
-            cat = made[-1]
-            if not (cat._readers and cat._cache):
-                raise AssertionError(f"{name}: windowed reads "
-                                     f"{sorted(cat._readers)}, whole-decoded "
-                                     f"scenes {sorted(cat._cache)}")
-            if not any("z42" in k for k in cat._cache):
-                raise AssertionError(f"{name}: no zone-42 scene was loaded")
-            folder, = glob.glob(os.path.join(dest, "*"))
-            trees[(device, batch)] = read_tree(folder)
-            run = {"device": device, "batch_tiles": batch, "tiles": 32,
-                   "seconds": secs[name], "tiles_per_s": 32 / secs[name],
-                   "windowed": sorted(cat._readers),
-                   "whole_decoded": len(cat._cache)}
-            out["exports"].append(run)
-            log(f"    {run['tiles_per_s']:.3f} tiles/s on "
-                f"{smi if device == 'cuda' else 'the host CPU'}; windowed "
-                f"{run['windowed']}, {run['whole_decoded']} scenes decoded "
-                "whole (zone 42 among them)")
-        for batch in (16, 0):
-            ref, got = trees[("cpu", batch)], trees[("cuda", batch)]
-            if len(ref) != 64 or got != ref:
-                bad = [k for k in ref if got.get(k) != ref[k]][:3]
-                raise AssertionError(f"LocalCatalog export batch_tiles="
-                                     f"{batch}: {len(ref)} files; card's "
-                                     f"bytes differ from the CPU's {bad}")
-        for name in ("masked_median", "burn_dense", "burn_binned"):
-            if launches[name] == 0:
-                raise AssertionError(f"{name}: not launched by the "
-                                     "LocalCatalog export")
-        out["launches"] = launches
-        log(f"  LocalCatalog export: card == CPU bytes per tile and batched "
-            f"(64 GeoTIFFs each); launches on the card {launches}")
-
-        # the verify sequence: a nearest-date RGB mosaic of 256 px chips
-        # from the same root, shards, inspect, train, eval, stitch,
-        # predict, serve
-        rgb = os.path.join(tmp, "rgb")
-        argv = base + ["--out", rgb, "--bands", "red green blue",
-                       "--tile-size", "256", "--pad", "0"]
-        cli_run(argv, secs, "create-chips rgb")
-        folder, = glob.glob(os.path.join(rgb, "*"))
-        shards = os.path.join(tmp, "shards")
-        cli_run(["to-tfrecords", "--name", "smoke", "--directory", folder,
-                 "--out", shards, "--shards", "4", "--workers", "4",
-                 "--engine", "mp", "--store-as-array"], secs, "to-tfrecords")
-        pattern = os.path.join(shards, "smoke-*")
-        cli_run(["inspect", "--records", pattern, "--verify-crc",
-                 "--class-stats"], secs, "inspect")
-        ckdir = os.path.join(tmp, "managed")
-        mlog = os.path.join(tmp, "metrics.jsonl")
-        cli_run(["train", "--records", pattern, "--mode", "tifarr",
-                 "--classes", "10", "--steps", "20", "--log-every", "1",
-                 "--save-every", "10", "--checkpoint", ckdir,
-                 "--metrics-log", mlog], secs, "train")
-        losses = [json.loads(ln)["loss"] for ln in open(mlog)]
-        if len(losses) != 20 or not np.mean(losses[-5:]) < losses[0]:
-            raise AssertionError(f"train: losses {losses}")
-        out["losses"] = losses
-        ckpt = os.path.join(ckdir, "20.pt")
-        if sorted(os.listdir(ckdir)) != ["10.pt", "20.pt"]:
-            raise AssertionError(f"managed checkpoints {os.listdir(ckdir)}")
-        cli_run(["train", "--records", pattern, "--mode", "tifarr",
-                 "--classes", "10", "--steps", "20", "--scan-steps", "10",
-                 "--pool-size", "32", "--checkpoint",
-                 os.path.join(tmp, "scanned.pt")], secs, "train --scan-steps")
-        cli_run(["eval", "--records", pattern, "--checkpoint", ckpt,
-                 "--classes", "10", "--json"], secs, "eval")
-        mosaic = os.path.join(tmp, "mosaic.tif")
-        cli_run(["stitch", "--chips", os.path.join(folder, "images"),
-                 "--out", mosaic], secs, "stitch")
-        pred = os.path.join(tmp, "pred.tif")
-        cli_run(["predict", "--geotiff", mosaic, "--checkpoint", ckpt,
-                 "--classes", "10", "--scale", "none", "--out", pred], secs,
-                "predict --geotiff")
-        g, m = read_geotiff(pred), read_geotiff(mosaic)
-        if g.array.shape[:2] != m.array.shape[:2] \
-                or g.info.geotransform != m.info.geotransform:
-            raise AssertionError(f"predict --geotiff: {g.array.shape} vs "
-                                 f"{m.array.shape}")
-        chip = read_geotiff(sorted(glob.glob(os.path.join(
-            folder, "images", "*.tif")))[0]).array.astype(np.float32)
-        served = serve_round_trip(ckpt, chip, secs)
-        t = Trainer(TrainConfig(num_classes=10, batch_size=8))
-        t.restore_checkpoint(ckpt)
-        if not np.array_equal(served, t.predict(chip[None])[0]):
-            raise AssertionError("served class map differs from predict's")
-        del t
-        torch.cuda.empty_cache()
-        log(f"  loss {losses[0]:.4f} -> {np.mean(losses[-5:]):.4f} (mean of "
-            f"the last 5 of 20); served /predict == predict; {smi}")
-        # the other families and int8 inference through the CLI
-        seg_log = os.path.join(tmp, "segformer.jsonl")
-        cli_run(["train", "--records", pattern, "--mode", "tifarr",
-                 "--classes", "10", "--model", "segformer", "--steps", "20",
-                 "--log-every", "1", "--metrics-log", seg_log,
-                 "--checkpoint", os.path.join(tmp, "segformer.pt")], secs,
-                "train --model segformer")
-        seg = [json.loads(ln)["loss"] for ln in open(seg_log)]
-        if len(seg) != 20 or not np.mean(seg[-5:]) < seg[0]:
-            raise AssertionError(f"train --model segformer: losses {seg}")
-        out["segformer_losses"] = seg
-        qdir = os.path.join(tmp, "pred-int8-static")
-        cli_run(["predict", "--images", os.path.join(folder, "images"),
-                 "--checkpoint", ckpt, "--classes", "10", "--scale", "none",
-                 "--quantize", "int8-static", "--calibrate-records", pattern,
-                 "--calibrate-batches", "1", "--out", qdir], secs,
-                "predict --quantize int8-static")
-        if len(glob.glob(os.path.join(qdir, "*.tif"))) != 32:
-            raise AssertionError("predict --quantize int8-static: "
-                                 f"{os.listdir(qdir)[:3]}")
-        cli_run(["eval", "--records", pattern, "--checkpoint", ckpt,
-                 "--classes", "10", "--quantize", "int8", "--json"], secs,
-                "eval --quantize int8")
-        log(f"  segformer loss {seg[0]:.4f} -> {np.mean(seg[-5:]):.4f} (mean "
-            f"of the last 5 of 20); int8-static predict wrote 32 maps")
+        yield f"http://127.0.0.1:{srv.server_address[1]}", received
     finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=60)
+
+
+def remote_phase(smi, share):
+    """Phase 8: remote storage and catalogs, through the port's loopback
+    fakes (FakeGCS, FakeS3, SceneServer, StacServer) and ``cli.main``,
+    on phase 7's root, chips, shards and mosaic (``share``)."""
+    import urllib.request
+    import torch
+    from dl_image_segmentation_tpu_torch import kernels, storage
+    from dl_image_segmentation_tpu_torch.catalog.httpserver import (
+        SceneServer)
+    from dl_image_segmentation_tpu_torch.catalog.stacserver import StacServer
+    from dl_image_segmentation_tpu_torch.storage.fake_gcs import FakeGCS
+    from dl_image_segmentation_tpu_torch.storage.fake_s3 import FakeS3
+
+    log(f"phase 8: remote storage and catalogs on the card ({smi})")
+    log(f"  urllib.request.getproxies(): {urllib.request.getproxies()}")
+    out = {"seconds": {}, "launches": {c.name: 0 for c in kernels.COUNTERS}}
+    secs = out["seconds"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_remote_")
+    saved = {k: os.environ.get(k) for k in ("STORAGE_EMULATOR_HOST",
+                                            "AWS_ENDPOINT_URL_S3")}
+
+    def counted(argv, name):
+        """One CLI call whose kernel launches count as phase 8's."""
+        torch.cuda.synchronize()
+        for c in kernels.COUNTERS:
+            c.reset()
+        lines = cli_run(argv, secs, name)
+        torch.cuda.synchronize()
+        for c in kernels.COUNTERS:
+            out["launches"][c.name] += c.count
+        return lines
+
+    def must_equal(got, want, what):
+        if not want or got != want:
+            bad = sorted(k for k in set(got) | set(want)
+                         if got.get(k) != want.get(k))
+            raise AssertionError(f"{what}: {len(got)} files against "
+                                 f"{len(want)}; differ: {bad[:4]}")
+
+    try:
+        with FakeGCS() as gcs, FakeS3() as s3:
+            os.environ["STORAGE_EMULATOR_HOST"] = gcs.host
+            os.environ["AWS_ENDPOINT_URL_S3"] = s3.endpoint
+            s2 = with_flags(share["base"], max_cloud_fraction=0)
+            with SceneServer(share["root"]) as srv:
+                srv.fail_next(3)
+                name = "create-chips http:// --batch-tiles 16"
+                counted(with_flags(s2, catalog=srv.url, batch_tiles=16,
+                                   out="gs://smoke/chips", device="cuda"),
+                        name)
+                got = objects_under(gcs, "smoke",
+                                    f"chips/{share['s2_folder']}/")
+                must_equal(got, share["s2_trees"][16],
+                           "HTTP catalog -> gs:// against phase 7's export")
+                tiles = len(got) // 2
+                http = {"tiles": tiles, "tiles_per_s": tiles / secs[name],
+                        "requests": srv.requests,
+                        "range_gets_per_tile": srv.range_requests / tiles,
+                        "bytes_per_tile": srv.bytes_served / tiles}
+                out["http_export"] = http
+                log(f"    {http['tiles_per_s']:.3f} tiles/s; "
+                    f"{http['range_gets_per_tile']:.1f} ranged GETs and "
+                    f"{http['bytes_per_tile'] / 2**20:.2f} MiB a tile "
+                    f"({srv.requests} requests, 3 failed on purpose); "
+                    f"{len(got)} GeoTIFFs == phase 7's card export; {smi}")
+                cli_run(with_flags(share["rgb_argv"], catalog=srv.url,
+                                   out="gs://smoke/rgb", device="cuda"),
+                        secs, "create-chips http:// rgb")
+            rgb = f"smoke/rgb/{os.path.basename(share['rgb_folder'])}"
+            must_equal(objects_under(gcs, "smoke", rgb[len("smoke/"):] + "/"),
+                       read_tree(share["rgb_folder"]),
+                       "HTTP catalog rgb -> gs:// against phase 7's")
+
+            t0 = time.perf_counter()
+            n = stac_tree_from_root(share["root"], os.path.join(tmp, "stac"))
+            secs["STAC tree"] = time.perf_counter() - t0
+            log(f"  STAC tree of {n} items in {secs['STAC tree']:.3f} s")
+            with StacServer(os.path.join(tmp, "stac"), api=True) as ss:
+                trees = {}
+                for d in ("cuda", "cpu"):
+                    dest = os.path.join(tmp, f"stac-{d}")
+                    argv = with_flags(s2, catalog="stac+" + ss.url,
+                                      batch_tiles=0, out=dest, device=d)
+                    name = f"create-chips stac+http:// --device {d}"
+                    if d == "cpu":
+                        cli_run(argv, secs, name)
+                    else:
+                        counted(argv, name)
+                    trees[d] = read_tree(os.path.join(dest,
+                                                      share["s2_folder"]))
+                out["stac_search_requests"] = ss.search_requests
+            must_equal(trees["cuda"], trees["cpu"], "STAC export card vs CPU")
+            must_equal(trees["cpu"], share["s2_trees"][0],
+                       "STAC export against phase 7's per-tile export")
+            log(f"    STAC (API mode, {out['stac_search_requests']} searches):"
+                f" card bytes == CPU bytes == phase 7's per-tile export")
+            idle = [k for k, v in out["launches"].items() if not v]
+            if idle:
+                raise AssertionError(f"not launched in phase 8: {idle}")
+            log(f"  launches in phase 8's card exports {out['launches']}")
+
+            cli_run(["to-tfrecords", "--name", "smoke", "--directory",
+                     f"gs://{rgb}", "--out", "s3://smoke/recs", "--shards",
+                     "4", "--workers", "4", "--engine", "mp",
+                     "--store-as-array"], secs, "to-tfrecords gs:// -> s3://")
+            must_equal(objects_under(s3, "smoke", "recs/"),
+                       read_tree(share["shards"]),
+                       "s3:// shards against phase 7's local shards")
+            pattern = "s3://smoke/recs/smoke-*"
+            cli_run(["inspect", "--records", pattern, "--verify-crc"], secs,
+                    "inspect s3://")
+            local_pattern = os.path.join(share["shards"], "smoke-*")
+            rates = {"local": [], "s3": []}
+            for where in ("local", "s3", "s3", "local"):
+                rates[where].append(feed_rate(
+                    local_pattern if where == "local" else pattern, 32, 256))
+            out["feed_records_per_s"] = rates
+            log("  feed: tifarr records/s, local "
+                + ", ".join(f"{r:.1f}" for r in rates["local"]) + "; s3:// "
+                + ", ".join(f"{r:.1f}" for r in rates["s3"])
+                + f" (turns: local, s3, s3, local; host)")
+
+            mlog = os.path.join(tmp, "metrics.jsonl")
+            lines = cli_run(["train", "--records", pattern, "--mode",
+                             "tifarr", "--classes", "10", "--steps", "20",
+                             "--log-every", "1", "--save-every", "10",
+                             "--keep", "1", "--checkpoint",
+                             "gs://smoke/ckpt", "--metrics-log", mlog,
+                             "--device", "cuda"], secs, "train from s3://")
+            losses = [json.loads(ln)["loss"] for ln in open(mlog)]
+            if len(losses) != 20 or not np.mean(losses[-5:]) < losses[0]:
+                raise AssertionError(f"train from s3://: losses {losses}")
+            saved_at = [ln for ln in lines if "managed checkpoint saved" in ln]
+            remote = sorted(objects_under(gcs, "smoke", "ckpt/"))
+            if remote != ["20.pt"] or len(saved_at) != 2:
+                raise AssertionError(f"checkpoints on gs://: {remote}; "
+                                     f"saves {saved_at}")
+            out["losses"] = losses
+            out["losses_equal_phase_7"] = losses == share.get("losses")
+            log(f"  loss {losses[0]:.4f} -> {np.mean(losses[-5:]):.4f} (mean "
+                f"of the last 5 of 20; equal to phase 7's from local shards: "
+                f"{out['losses_equal_phase_7']}); gs://smoke/ckpt holds "
+                f"{remote} after saves at 10 and 20 with --keep 1")
+
+            ckpt = "gs://smoke/ckpt/20.pt"
+            local_ckpt = os.path.join(tmp, "20.pt")
+            storage.download_file(ckpt, local_ckpt)
+            inf = ["--classes", "10", "--device", "cuda"]
+            cli_run(["predict", "--images", f"gs://{rgb}/images",
+                     "--checkpoint", ckpt, "--scale", "none", "--out",
+                     "gs://smoke/pred", *inf], secs, "predict gs://")
+            cli_run(["predict", "--images",
+                     os.path.join(share["rgb_folder"], "images"),
+                     "--checkpoint", local_ckpt, "--scale", "none", "--out",
+                     os.path.join(tmp, "pred"), *inf], secs, "predict local")
+            must_equal(objects_under(gcs, "smoke", "pred/"),
+                       read_tree(os.path.join(tmp, "pred")),
+                       "predict from gs:// against the local checkpoint's")
+            evals = []
+            for recs, ck, where in ((pattern, ckpt, "s3:// + gs://"),
+                                    (local_pattern, local_ckpt, "local")):
+                lines = cli_run(["eval", "--records", recs, "--checkpoint",
+                                 ck, "--json", *inf], secs, f"eval {where}")
+                evals.append(json.loads(lines[-1]))
+            if evals[0] != evals[1]:
+                raise AssertionError(f"eval: {evals}")
+            out["eval_miou"] = evals[0]["miou"]
+            log(f"  predict and eval from gs:// == the local checkpoint's "
+                f"({len(read_tree(os.path.join(tmp, 'pred')))} maps; mIoU "
+                f"{evals[0]['miou']})")
+
+            cli_run(["stitch", "--chips", f"gs://{rgb}/images", "--out",
+                     "gs://smoke/mosaic.tif"], secs, "stitch gs:// -> gs://")
+            with open(share["mosaic"], "rb") as f:
+                if gcs.objects[("smoke", "mosaic.tif")] != f.read():
+                    raise AssertionError("stitch: gs:// mosaic differs "
+                                         "from phase 7's")
+            sink = os.path.join(tmp, "sink")
+            cli_run(["push", "--records", pattern, "--dest", sink], secs,
+                    "push s3:// -> dir")
+            shards = read_tree(share["shards"])
+            with open(os.path.join(sink, "manifest.json")) as f:
+                manifest = json.load(f)
+            if sorted(manifest) != sorted(shards) or any(
+                    read_tree(sink)[k] != v for k, v in shards.items()):
+                raise AssertionError(f"push to a dir: {sorted(manifest)}")
+            cli_run(["push", "--records", pattern, "--dest",
+                     "gs://smoke/sink"], secs, "push s3:// -> gs://")
+            pushed = objects_under(gcs, "smoke", "sink/")
+            if json.loads(pushed.pop("manifest.json")) != manifest \
+                    or pushed != shards:
+                raise AssertionError(f"push to gs://: {sorted(pushed)}")
+            with put_server() as (base, received):
+                urls = os.path.join(tmp, "urls.json")
+                with open(urls, "w") as f:
+                    json.dump({k: f"{base}/up/{k}" for k in shards}, f)
+                cli_run(["push", "--records", pattern, "--dest", urls],
+                        secs, "push s3:// -> signed URLs")
+            if received != {f"/up/{k}": v for k, v in shards.items()}:
+                raise AssertionError(f"push to URLs: {sorted(received)}")
+            log("  stitch gs:// == phase 7's mosaic; push to a dir, to "
+                "gs:// and to signed URLs: every shard's bytes")
+            out["fake_requests"] = {"gcs": gcs.requests, "s3": s3.requests}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         shutil.rmtree(tmp, ignore_errors=True)
     return out
 
@@ -1640,6 +1977,9 @@ def main() -> int:
         return 2
     from dl_image_segmentation_tpu_torch import kernels
 
+    # phase 8's fakes listen on loopback: urllib must not send those
+    # requests to a proxy that the machine's environment names
+    os.environ["NO_PROXY"] = os.environ["no_proxy"] = "127.0.0.1,localhost"
     t_start = time.perf_counter()
     card = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -1667,11 +2007,22 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     results = []
-    for phase in (serving_phase, training_phase, cli_phase):
+    for phase in (serving_phase, training_phase):
         t0 = time.perf_counter()
         results.append(phase(smi))
         log(f"  {phase.__name__}: {time.perf_counter() - t0:.1f} s")
-    serving, training, cli = results
+    serving, training = results
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    share = {}
+    try:
+        t0 = time.perf_counter()
+        cli = cli_phase(smi, work, share)
+        log(f"  cli_phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        remote = remote_phase(smi, share)
+        log(f"  remote_phase: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     out = []
     for c in kernels.COUNTERS:
@@ -1691,6 +2042,7 @@ def main() -> int:
     log(json.dumps({"serving": serving}))
     log(json.dumps({"training": training}))
     log(json.dumps({"cli": cli}))
+    log(json.dumps({"remote": remote}))
     log(f"seconds {time.perf_counter() - t_start:.1f}; runs "
         f"{json.dumps(runs)}")
     log(f"{smi}")

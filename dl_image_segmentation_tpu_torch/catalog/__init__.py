@@ -1,19 +1,25 @@
-"""Imagery catalog interface and the synthetic backend.
+"""Imagery catalog interface and its backends.
 
 ``search`` returns scene metadata (date, cloud fraction); ``load``
 materialises a (S, H, W, B) stack + (S, H, W) validity mask on a
-tile's geocontext. Backends: LocalCatalog (GeoTIFF scenes on local disk
-behind a JSON manifest, resampled onto the tile grid with any of the
-five resamplers, across UTM zones) and SyntheticCatalog (procedural
-scenes for tests and benchmarks). The remote catalogs (STAC, HTTP) are
-ROADMAP queue 1 item 3."""
+tile's geocontext. Backends: LocalCatalog (GeoTIFF scenes behind a JSON
+manifest on local disk, gs://, s3:// or http(s)://, resampled onto the
+tile grid with any of the five resamplers, across UTM zones),
+HTTPCatalog (a remote scene server: the LocalCatalog index over HTTP
+with COG windowed reads and retries; fixture: catalog/httpserver.py),
+STACCatalog (static STAC trees and item-search APIs; fixture:
+catalog/stacserver.py) and SyntheticCatalog (procedural scenes for
+tests and benchmarks)."""
 
 from .base import (Catalog, SceneMeta, RESAMPLERS, get_default_catalog,
                    set_default_catalog, validate_resampler)
+from .http import HTTPCatalog
 from .local import LocalCatalog
+from .stac import STACCatalog
 from .synthetic import SyntheticCatalog
 
 __all__ = [
-    "Catalog", "LocalCatalog", "SceneMeta", "RESAMPLERS", "SyntheticCatalog",
-    "get_default_catalog", "set_default_catalog", "validate_resampler",
+    "Catalog", "HTTPCatalog", "LocalCatalog", "SceneMeta", "RESAMPLERS",
+    "STACCatalog", "SyntheticCatalog", "get_default_catalog",
+    "set_default_catalog", "validate_resampler",
 ]

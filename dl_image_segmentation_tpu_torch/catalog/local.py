@@ -1,9 +1,9 @@
-"""LocalCatalog: GeoTIFF scenes on local disk behind a JSON manifest.
+"""LocalCatalog: GeoTIFF scenes behind a JSON manifest, on local disk
+or under a gs://, s3:// or http(s):// prefix.
 
-A copy of the JAX package's ``catalog/local.py`` for local roots (that
-package reaches its files through a storage layer that also serves
-gs:// and s3:// prefixes; object storage is ROADMAP queue 1 item 3 here,
-and a remote root raises).
+A copy of the JAX package's ``catalog/local.py``. All IO of a remote
+root rides the storage layer, so a bucket of COG scenes is a catalog:
+big remote scenes are read by byte range, never downloaded whole.
 
 Layout:
     root/
@@ -30,8 +30,8 @@ zone-43 tile -- the client-side equivalent of the reference server's
 any-geocontext reprojection (_descartes_img_chips.py:617-627).
 
 Scene files of at least ``window_bytes`` are read windowed
-(raster/cog.py over ``os.pread``: only the internal tiles a chip
-touches are decoded); smaller scenes are decoded whole into an LRU that
+(raster/cog.py over ``os.pread``, or ``storage.read_range`` for a
+remote root: only the internal tiles a chip touches are decoded); smaller scenes are decoded whole into an LRU that
 serves many tiles. The export's gather threads call ``load``
 concurrently: the LRU and the reader cache share one lock, and windowed
 reads are positionless.
@@ -40,7 +40,6 @@ reads are positionless.
 from __future__ import annotations
 
 import datetime as _dt
-import glob
 import json
 import os
 import threading
@@ -48,6 +47,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import storage
 from ..raster.geotiff import read_geotiff
 from .base import (Catalog, SceneMeta, bounds_in_tile_zone,
                    equator_referenced_gt, load_scene_window,
@@ -55,22 +55,16 @@ from .base import (Catalog, SceneMeta, bounds_in_tile_zone,
 
 __all__ = ["LocalCatalog"]
 
-_REMOTE = ("gs://", "s3://", "http://", "https://")
-REMOTE_NOT_PORTED = ("remote catalog roots are not ported yet: ROADMAP "
-                     "queue 1 item 3 (storage schemes and remote "
-                     "catalogs); use a local root")
 SAFE_NOT_PORTED = ("Sentinel-2 .SAFE ingestion needs the JP2 decoder, "
                    "which is not ported yet: ROADMAP queue 1 item 6")
 
 
-def _check_local_root(root: str) -> str:
-    if str(root).startswith(_REMOTE):
-        raise NotImplementedError(f"{root}: {REMOTE_NOT_PORTED}")
-    return root
-
-
 def _write_bytes(path: str, data: bytes) -> None:
-    """tmp + rename, as the JAX package's storage layer writes locally."""
+    """Atomic write: one object creation on a remote root; locally a
+    tmp file named per process and thread, then a rename."""
+    if storage.is_remote(path):
+        storage.write_bytes(path, data)
+        return
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     with open(tmp, "wb") as f:
         f.write(data)
@@ -86,9 +80,9 @@ class LocalCatalog(Catalog):
         whole-decoded into the LRU; an export over 10,000² scenes stays
         memory-bounded. Smaller scenes keep the whole-decode LRU (one
         decode serves many tiles)."""
-        self.root = _check_local_root(root)
-        with open(os.path.join(root, "index.json"), "rb") as f:
-            self._index = json.loads(f.read().decode("utf-8"))
+        self.root = root
+        self._index = json.loads(storage.read_bytes(
+            storage.join(root, "index.json")).decode("utf-8"))
         self._lock = threading.Lock()
         self._cache: Dict[str, object] = {}
         self._cache_order: List[str] = []
@@ -101,10 +95,9 @@ class LocalCatalog(Catalog):
     # -- write-side helper for building catalogs ------------------------
     @classmethod
     def create(cls, root: str) -> "LocalCatalog":
-        _check_local_root(root)
-        os.makedirs(os.path.join(root, "scenes"), exist_ok=True)
-        idx = os.path.join(root, "index.json")
-        if not os.path.exists(idx):
+        storage.makedirs(storage.join(root, "scenes"), exist_ok=True)
+        idx = storage.join(root, "index.json")
+        if not storage.exists(idx):
             _write_bytes(idx, json.dumps({"products": {}}).encode())
         return cls(root)
 
@@ -116,7 +109,7 @@ class LocalCatalog(Catalog):
                   save_index: bool = True) -> None:
         from ..raster.geotiff import write_geotiff
         rel = f"scenes/{scene_id}.tif"
-        write_geotiff(os.path.join(self.root, rel), array,
+        write_geotiff(storage.join(self.root, rel), array,
                       geotransform=tuple(geotransform), epsg=epsg,
                       nodata=nodata)
         prods = self._index.setdefault("products", {})
@@ -138,7 +131,7 @@ class LocalCatalog(Catalog):
             self._save_index()
 
     def _save_index(self) -> None:
-        _write_bytes(os.path.join(self.root, "index.json"),
+        _write_bytes(storage.join(self.root, "index.json"),
                      json.dumps(self._index).encode("utf-8"))
 
     def ingest_chips(self, product: str, bands: Sequence[str],
@@ -153,13 +146,12 @@ class LocalCatalog(Catalog):
         # the index is written ONCE at the end: per-scene dumps would
         # re-serialize the whole (growing) index N times -- O(N^2) over
         # a large predict-output folder
-        for f in sorted(glob.glob(os.path.join(_check_local_root(folder),
-                                               "*.tif"))):
+        for f in storage.glob(storage.join(folder, "*.tif")):
             g = read_geotiff(f)
             if g.info.geotransform is None or g.info.epsg is None:
                 continue
             sid = (f"{product.replace(':', '_')}-"
-                   f"{os.path.splitext(os.path.basename(f))[0]}")
+                   f"{os.path.splitext(storage.basename(f))[0]}")
             self.add_scene(product, bands, sid, date, g.array,
                            g.info.geotransform, g.info.epsg,
                            cloud_fraction=cloud_fraction,
@@ -294,8 +286,8 @@ class LocalCatalog(Catalog):
         if cached is not None:
             return cached
         from ..raster.geotiff import decode_geotiff_info
-        with open(os.path.join(self.root, rel_path), "rb") as f:
-            info = decode_geotiff_info(f.read())
+        info = decode_geotiff_info(storage.read_bytes(
+            storage.join(self.root, rel_path)))
         gt = equator_referenced_gt(info.geotransform, info.epsg)
         b = ([gt[0], gt[3] + info.height * gt[5],
               gt[0] + info.width * gt[1], gt[3]], info.epsg)
@@ -304,14 +296,16 @@ class LocalCatalog(Catalog):
         return b
 
     def _scene_size(self, rel_path: str) -> int:
-        # memoized: scenes are immutable, and a stat per (tile, scene)
-        # adds up across a whole export
+        # memoized: scenes are immutable, and on a remote root an
+        # uncached stat would cost one HTTP round trip per (tile, scene)
+        # across a whole export
         with self._lock:
             hit = self._size_cache.get(rel_path)
         if hit is not None:
             return hit
+        full = storage.join(self.root, rel_path)
         try:
-            size = os.path.getsize(os.path.join(self.root, rel_path))
+            size = storage.size(full)
         except OSError:
             size = 0
         with self._lock:
@@ -319,41 +313,48 @@ class LocalCatalog(Catalog):
         return size
 
     def _window_reader(self, rel_path: str):
-        """(CogReader over pread ranges, RasterInfo) for a big scene,
+        """(CogReader over byte ranges, RasterInfo) for a big scene,
         cached per path (the reader holds the parsed header; windowed
-        reads are stateless, so one reader serves concurrent tiles)."""
+        reads are stateless, so one reader serves concurrent tiles).
+        Local files use pread; remote scenes use ranged GETs."""
         with self._lock:
             hit = self._readers.get(rel_path)
         if hit is not None:
             return hit
         from ..raster.cog import CogReader
-        f = open(os.path.join(self.root, rel_path), "rb")
+        full = storage.join(self.root, rel_path)
+        f = None
+        if storage.is_remote(full):
+            def fetch(start, length, _p=full):
+                return storage.read_range(_p, start, start + length - 1)
+        else:
+            f = open(full, "rb")
 
-        def fetch(start, length, _f=f):
-            # pread: positionless, safe under concurrent tile loads
-            return os.pread(_f.fileno(), length, start)
+            def fetch(start, length, _f=f):
+                # pread: positionless, safe under concurrent tile loads
+                return os.pread(_f.fileno(), length, start)
 
         reader = CogReader(fetch)
         pair = (reader, reader.info)
         with self._lock:
             if rel_path in self._readers:  # another thread won the race
-                f.close()
+                if f is not None:
+                    f.close()
             else:
                 self._readers[rel_path] = pair
             return self._readers[rel_path]
 
     def _load_band_raster(self, path: str):
         """One SAFE band file through the scene LRU. ``path`` is stored
-        as written by ingest_safe -- a full path, independent of the
-        catalog root. GeoTIFF band files decode; other containers raise
+        as written by ingest_safe -- a full path or URL, independent of
+        the catalog root. GeoTIFF band files decode; other containers raise
         UnsupportedFormatError naming the ROADMAP item of their
         decoder."""
         with self._lock:
             if path in self._cache:
                 return self._cache[path]
         from ..raster.image import decode_image_bytes
-        with open(_check_local_root(path), "rb") as f:
-            g = decode_image_bytes(f.read())
+        g = decode_image_bytes(storage.read_bytes(path))
         with self._lock:
             if path not in self._cache:
                 self._cache[path] = g
@@ -368,7 +369,7 @@ class LocalCatalog(Catalog):
         with self._lock:
             if rel_path in self._cache:
                 return self._cache[rel_path]
-        g = read_geotiff(os.path.join(self.root, rel_path))
+        g = read_geotiff(storage.join(self.root, rel_path))
         with self._lock:
             if rel_path not in self._cache:
                 self._cache[rel_path] = g

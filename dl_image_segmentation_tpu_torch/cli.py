@@ -7,8 +7,9 @@ A port of the JAX package's ``cli.py``: the same commands, flags,
 defaults and output lines. Commands:
 
     create-chips   tile an AOI, composite imagery, burn labels, write
-                   GeoTIFF chip pairs (catalog: 'synthetic' or a
-                   LocalCatalog root)
+                   GeoTIFF chip pairs (catalog: 'synthetic', a
+                   LocalCatalog root, an http(s):// scene server or a
+                   stac+http(s):// STAC endpoint)
     to-tfrecords   chip folders -> sharded TFRecords (--engine mp)
     train          TFRecords -> training on the card (--model unet,
                    deeplab or segformer)
@@ -17,8 +18,15 @@ defaults and output lines. Commands:
     serve          micro-batching HTTP inference endpoint
     stitch         tile-key chips -> one GeoTIFF mosaic
     inspect        summarize shards, verify CRCs, label statistics
+    push           shards -> records sink (directory or signed URLs)
     doctor         environment self-check (card, nvcc, kernels, codecs)
     map            chips -> interactive HTML map
+
+Every path argument (chip folders, --out, shard globs, --checkpoint,
+--geotiff, catalog roots) may be ``gs://bucket/...`` or
+``s3://bucket/...``, and for reads ``http(s)://host/...``, through the
+storage layer (``storage/``): ``STORAGE_EMULATOR_HOST`` and
+``GCS_OAUTH_TOKEN`` configure gs://, the ``AWS_*`` variables s3://.
 
 The device commands (create-chips, train, eval, predict, serve) take
 ``--device {cuda,cpu}``, default ``cuda``: without a card they raise
@@ -26,9 +34,9 @@ unless ``--device cpu`` is given. Checkpoints are the port's
 ``torch.save`` files. What is not ported raises NotImplementedError
 naming its ROADMAP queue 1 item: ``convert``, ``ingest-safe``, PNG/JPEG
 records (the default ``train --mode rgbraw``; pass ``--mode tifarr``),
-``--engine mt`` and ``inspect --preview`` (item 6); ``push``, remote
-paths and catalogs (item 3); ``--n-model``, ``--spatial`` and ``--fsdp``
-(item 8); ``--remat`` and orbax checkpoints (item 1). predict, eval and
+``--engine mt`` and ``inspect --preview`` (item 6); ``--n-model``,
+``--spatial`` and ``--fsdp`` (item 8); ``--remat`` and orbax checkpoints
+(item 1). predict, eval and
 serve take ``--quantize int8|int8-static`` (the U-Net only); int8-static
 calibrates on ``--calibrate-records`` (``--calibrate-batches`` batches)
 or else on the first batch it infers.
@@ -47,10 +55,6 @@ _NOT_PORTED = {
                "ROADMAP queue 1 item 6",
     "ingest-safe": "ingest-safe reads Sentinel-2 JP2 band files, which is "
                    "not ported yet: ROADMAP queue 1 item 6",
-    "push": "push (records sinks and signed URLs) is not ported yet: "
-            "ROADMAP queue 1 item 3",
-    "remote catalog": "remote scene catalogs (HTTP, STAC) are not ported "
-                      "yet: ROADMAP queue 1 item 3",
     "preview": "inspect --preview encodes a PNG contact sheet, which is not "
                "ported yet: ROADMAP queue 1 item 6",
 }
@@ -67,10 +71,20 @@ def cmd_create_chips(args) -> int:
 
     if args.catalog == "synthetic":
         catalog = SyntheticCatalog()
-    elif args.catalog.startswith(("stac+http://", "stac+https://",
-                                  "http://", "https://")):
-        raise NotImplementedError(f"--catalog {args.catalog}: "
-                                  + _NOT_PORTED["remote catalog"])
+    elif args.catalog.startswith(("stac+http://", "stac+https://")):
+        # STAC endpoint (static tree or item-search API);
+        # --processing-level filters items' processing:level property
+        from .catalog.stac import STACCatalog
+        level = args.processing_level
+        catalog = STACCatalog(
+            args.catalog,
+            processing_level=None if level == "surface" else level)
+    elif args.catalog.startswith(("http://", "https://")):
+        # remote scene server: COG windowed reads and bounded retries;
+        # --processing-level picks the asset level
+        from .catalog.http import HTTPCatalog
+        catalog = HTTPCatalog(args.catalog,
+                              processing_level=args.processing_level)
     else:
         catalog = LocalCatalog(args.catalog)
     cfg = DLSampleCreationConfig(
@@ -169,8 +183,8 @@ def cmd_train(args) -> int:
         # rotating managed checkpoints + automatic latest-step resume: a
         # long run killed mid-way restarts where it left off with the
         # same command line
-        manager = trainer.checkpoint_manager(
-            os.path.abspath(args.checkpoint), keep=args.keep)
+        manager = trainer.checkpoint_manager(args.checkpoint,
+                                             keep=args.keep)
         resumed = trainer.restore_latest(manager)
         if resumed is not None:
             print(f"resumed from managed checkpoint step {resumed}")
@@ -315,7 +329,7 @@ def cmd_train(args) -> int:
         if manager is not None:
             maybe_save()
         elif args.checkpoint:
-            trainer.save_checkpoint(os.path.abspath(args.checkpoint))
+            trainer.save_checkpoint(args.checkpoint)
             print(f"checkpoint saved to {args.checkpoint}")
         if args.eval_records:
             run_eval(int(trainer.state.step))
@@ -374,8 +388,8 @@ def cmd_predict(args) -> int:
     multi-product stacking flow, reference :472-518)."""
     import numpy as np
 
+    from . import storage
     from .raster.geotiff import read_geotiff, write_geotiff
-    from .records.tfrecord import check_local
     from .serve import scale_image
 
     trainer = _inference_trainer(args)
@@ -389,8 +403,9 @@ def cmd_predict(args) -> int:
                   file=sys.stderr)
             return 2
         g = read_geotiff(args.geotiff)
-        os.makedirs(os.path.dirname(os.path.abspath(check_local(args.out))),
-                    exist_ok=True)
+        if not storage.is_remote(args.out):
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
 
         last = [-1]
 
@@ -412,16 +427,14 @@ def cmd_predict(args) -> int:
               f"{'probability' if args.probs else 'class'} map to "
               f"{args.out}")
         return 0
-    os.makedirs(check_local(args.out), exist_ok=True)
+    storage.makedirs(args.out, exist_ok=True)
     if args.records:
         return _predict_from_records(args, trainer)
     if not args.images:
         print("predict needs --images DIR, --records GLOB or "
               "--geotiff FILE", file=sys.stderr)
         return 2
-    import glob
-    files = sorted(glob.glob(os.path.join(check_local(args.images),
-                                          "*.tif")))
+    files = storage.glob(storage.join(args.images, "*.tif"))
     if not files:
         print(f"no .tif chips in {args.images}")
         return 1
@@ -441,7 +454,7 @@ def cmd_predict(args) -> int:
         else:
             outs = trainer.predict(imgs)[:n_real].astype(np.uint8)
         for f, g, p in zip(chunk, gs, outs):
-            write_geotiff(os.path.join(args.out, os.path.basename(f)), p,
+            write_geotiff(storage.join(args.out, storage.basename(f)), p,
                           geotransform=g.info.geotransform,
                           epsg=g.info.epsg)
             wrote += 1
@@ -497,7 +510,12 @@ def cmd_ingest_safe(args) -> int:
 
 
 def cmd_push(args) -> int:
-    raise NotImplementedError(_NOT_PORTED["push"])
+    """Push finished shards to a records sink (the reference's upload
+    flow, parse nb cells 39-46)."""
+    from .records.sink import push_shards, sink_from_dest
+    push_shards(args.records, sink_from_dest(args.dest),
+                resume=not args.no_resume)
+    return 0
 
 
 def cmd_doctor(args) -> int:
@@ -636,18 +654,17 @@ def _predict_from_records(args, trainer) -> int:
     the chip writer) and georeferenced from tile-key or `name|gt|crs`
     identifiers (geo/georef.py); identifiers without georeferencing
     still produce a plain raster."""
-    import glob
-
     import numpy as np
 
+    from . import storage
     from .geo.georef import georef_from_identifier
     from .pipeline.input import PARSE_FNS
     from .raster.geotiff import write_geotiff
-    from .records.tfrecord import check_local, read_records
+    from .records.tfrecord import read_records
     from .serve import scale_image
 
     parse = PARSE_FNS[args.mode]
-    files = sorted(glob.glob(check_local(args.records)))
+    files = storage.glob(args.records)
     if not files:
         print(f"no shards match {args.records!r}")
         return 1
@@ -679,7 +696,7 @@ def _predict_from_records(args, trainer) -> int:
             seen[stem] = k
             if k > 1:
                 stem = f"{stem}_{k}"
-            write_geotiff(os.path.join(args.out, stem + ".tif"), arr,
+            write_geotiff(storage.join(args.out, stem + ".tif"), arr,
                           geotransform=gt, epsg=epsg)
             wrote += 1
         batch.clear()
@@ -731,11 +748,10 @@ def cmd_serve(args) -> int:
 
 
 def cmd_inspect(args) -> int:
-    import glob
+    from . import storage
+    from .records.tfrecord import read_records
 
-    from .records.tfrecord import check_local, read_records
-
-    files = sorted(glob.glob(check_local(args.records)))
+    files = storage.glob(args.records)
     total = 0
     first = None
     for f in files:
@@ -877,9 +893,11 @@ def main(argv=None) -> int:
     c.add_argument("--max-cloud-fraction", type=float, default=None)
     c.add_argument("--nodata", type=int, default=255)
     c.add_argument("--catalog", required=True,
-                   help="local catalog root or 'synthetic'; http(s):// "
-                        "and stac+http(s):// catalogs raise (ROADMAP "
-                        "queue 1 item 3)")
+                   help="local catalog root (or a gs://, s3://, "
+                        "http(s):// prefix), 'synthetic', an http(s):// "
+                        "scene-server base URL, or a stac+http(s):// STAC "
+                        "endpoint (static catalog.json tree or "
+                        "item-search API)")
     c.add_argument("--processing-level", default="surface",
                    help="asset level of a remote catalog; local catalogs "
                         "store one level and ignore it")
@@ -1129,11 +1147,14 @@ def main(argv=None) -> int:
     ing.add_argument("--cloud-fraction", type=float, default=None)
     ing.set_defaults(fn=cmd_ingest_safe)
 
-    pu = sub.add_parser("push", help="shards -> records sink (raises: "
-                                     "ROADMAP queue 1 item 3)")
+    pu = sub.add_parser("push", help="shards -> records sink (dir or "
+                                     "signed-URL manifest)")
     pu.add_argument("--records", required=True, help="shard glob")
-    pu.add_argument("--dest", required=True)
-    pu.add_argument("--no-resume", action="store_true")
+    pu.add_argument("--dest", required=True,
+                    help="destination dir (local, gs:// or s3://), or "
+                         ".json of {shard: signed URL}")
+    pu.add_argument("--no-resume", action="store_true",
+                    help="re-push shards the sink already has")
     pu.set_defaults(fn=cmd_push)
 
     doc = sub.add_parser("doctor", help="environment self-check")

@@ -21,12 +21,12 @@ propagate.
 
 from __future__ import annotations
 
-import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import storage
 from ..device import resolve_device
 from ..geo.vector import open_vector
 from ..ops.compositing import (masked_median_composite,
@@ -263,12 +263,12 @@ def create_chips_for_tiles_batched(
             for (i, job, _), img_arr, lbl_arr in zip(ok, imgs, lbls):
                 tile = job.DLTILE
                 fn = tile.key.replace(":", "#")
-                img_dir = os.path.join(job.OUTFOLDER, "images")
-                lbl_dir = os.path.join(job.OUTFOLDER, "labels")
-                os.makedirs(img_dir, exist_ok=True)
-                os.makedirs(lbl_dir, exist_ok=True)
-                img_file = os.path.join(img_dir, fn) + ".tif"
-                lbl_file = os.path.join(lbl_dir, fn) + ".tif"
+                img_dir = storage.join(job.OUTFOLDER, "images")
+                lbl_dir = storage.join(job.OUTFOLDER, "labels")
+                storage.makedirs(img_dir, exist_ok=True)
+                storage.makedirs(lbl_dir, exist_ok=True)
+                img_file = storage.join(img_dir, fn) + ".tif"
+                lbl_file = storage.join(lbl_dir, fn) + ".tif"
                 write_geotiff(img_file, np.asarray(img_arr),
                               geotransform=tile.geotrans, epsg=tile.epsg)
                 write_geotiff(lbl_file, lbl_arr,

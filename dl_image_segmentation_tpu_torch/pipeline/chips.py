@@ -33,6 +33,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from .. import storage
 from ..catalog.base import (Catalog, get_default_catalog,
                             validate_resampler)
 from ..device import resolve_device
@@ -199,7 +200,7 @@ class DLSampleCreationConfig:
     def images_dir_name(self, loc, year):
         """`tag[-cf]_resolution m_padding pad_tilesize_loc_year` under
         the configured root (reference :302-310)."""
-        return os.path.join(
+        return storage.join(
             self._root,
             f"{self._tag_with_cf()}_{self._TILE_RES}m_{self._TILE_PAD}pad_"
             f"{self._total_tile_size()}_{loc}_{year}")
@@ -574,10 +575,10 @@ def create_chips_for_tile(job_details: DLTileJobConfig,
     bands = job_details.BANDS
     catalog = job_details.CATALOG
 
-    out_img_folder = os.path.join(out_base, "images")
-    out_lbl_folder = os.path.join(out_base, "labels")
-    os.makedirs(out_img_folder, exist_ok=True)
-    os.makedirs(out_lbl_folder, exist_ok=True)
+    out_img_folder = storage.join(out_base, "images")
+    out_lbl_folder = storage.join(out_base, "labels")
+    storage.makedirs(out_img_folder, exist_ok=True)
+    storage.makedirs(out_lbl_folder, exist_ok=True)
 
     fn = dltile.key.replace(":", "#")
 
@@ -618,8 +619,8 @@ def create_chips_for_tile(job_details: DLTileJobConfig,
         layer_idx=job_details.LABEL_LYR_NUM,
         background_value=job_details.LABEL_NODATA_VALUE, device=device)
 
-    img_file = os.path.join(out_img_folder, fn) + ".tif"
-    lbl_file = os.path.join(out_lbl_folder, fn) + ".tif"
+    img_file = storage.join(out_img_folder, fn) + ".tif"
+    lbl_file = storage.join(out_lbl_folder, fn) + ".tif"
     # hemisphere-aware CRS: EPSG:326xx north / 327xx south with the
     # matching false-northing geotransform (Tile.geotrans), so chips
     # open correctly in standard GIS tools in both hemispheres
@@ -633,8 +634,9 @@ def create_chips_for_tile(job_details: DLTileJobConfig,
 
 def is_done(job_details: DLTileJobConfig) -> bool:
     """Idempotent-resume check: both chip files already exist (the
-    notebook's resume pattern, create nb cell 76)."""
+    notebook's resume pattern, create nb cell 76; gs:// and s3:// output
+    folders through the storage layer)."""
     fn = job_details.DLTILE.key.replace(":", "#") + ".tif"
-    return (os.path.exists(os.path.join(job_details.OUTFOLDER, "images", fn))
-            and os.path.exists(
-                os.path.join(job_details.OUTFOLDER, "labels", fn)))
+    return (storage.exists(storage.join(job_details.OUTFOLDER, "images", fn))
+            and storage.exists(
+                storage.join(job_details.OUTFOLDER, "labels", fn)))

@@ -21,6 +21,7 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence
 
+from .. import storage
 from ..device import resolve_device
 from .chips import DLTileJobConfig, create_chips_for_tile, is_done
 
@@ -83,8 +84,8 @@ def run_export(jobs: Sequence[DLTileJobConfig],
     # pre-create directories once (notebook cell 76: avoids the
     # parallel-makedirs race in workers)
     for j in jobs:
-        os.makedirs(os.path.join(j.OUTFOLDER, "images"), exist_ok=True)
-        os.makedirs(os.path.join(j.OUTFOLDER, "labels"), exist_ok=True)
+        storage.makedirs(storage.join(j.OUTFOLDER, "images"), exist_ok=True)
+        storage.makedirs(storage.join(j.OUTFOLDER, "labels"), exist_ok=True)
 
     pending = [j for j in jobs if not is_done(j)]
     report.skipped_existing = len(jobs) - len(pending)

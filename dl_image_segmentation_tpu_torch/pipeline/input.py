@@ -12,7 +12,6 @@ that copy before the batch is handed over.
 
 from __future__ import annotations
 
-import glob
 import queue
 import threading
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
@@ -20,9 +19,10 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import storage
 from ..device import resolve_device
 from ..records import parsers
-from ..records.tfrecord import check_local, read_records
+from ..records.tfrecord import read_records
 
 __all__ = ["DevicePrefetcher", "PARSE_FNS", "TFRecordFeed",
            "host_shard_files"]
@@ -64,7 +64,8 @@ class TFRecordFeed:
                  interleave: int = 4,
                  verify_crc: bool = False):
         if isinstance(shard_pattern, str):
-            files = sorted(glob.glob(check_local(shard_pattern)))
+            # a local glob, or a gs:// / s3:// / http(s):// prefix list
+            files = storage.glob(shard_pattern)
         else:
             files = sorted(shard_pattern)
         # aborted writers leave .tmp shards; never read them

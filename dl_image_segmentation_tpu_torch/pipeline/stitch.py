@@ -11,18 +11,17 @@ catalog, _descartes_img_chips.py:472-518).
 
 All tiles must share zone + resolution + tile size (one grid). Output
 is written with the port's GeoTIFF codec, LZW tiled, georeferenced.
-Folders and outputs are local paths; object storage comes with the
-storage slice of the port.
+Chip folders and outputs may be local paths or gs:// / s3:// prefixes
+(folders also http(s)://), through the storage layer.
 """
 
 from __future__ import annotations
 
-import glob
-import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from .. import storage
 from ..geo.tilegrid import Tile
 from ..raster.geotiff import (decode_geotiff_info, read_geotiff,
                               write_geotiff)
@@ -99,23 +98,18 @@ def stitch_folder(chip_dir: str, out_path: str,
     the same folder) are skipped. Chips are read and pasted one at a
     time -- peak memory is one mosaic plus one chip, not two mosaics.
     Returns (n_tiles, (height, width))."""
-    if "://" in chip_dir:
-        raise NotImplementedError(
-            f"cannot list {chip_dir!r}: object storage (gs://, s3://, "
-            "https://) comes with the storage slice of the port")
-    files = sorted(glob.glob(os.path.join(chip_dir, "*.tif")))
+    files = storage.glob(storage.join(chip_dir, "*.tif"))
     entries = []
     for f in files:
         try:
-            entries.append((Tile.from_filename(os.path.basename(f)), f))
+            entries.append((Tile.from_filename(storage.basename(f)), f))
         except ValueError:
             continue  # stray non-chip .tif, e.g. an earlier mosaic
     if not entries:
         raise FileNotFoundError(f"no tile-key .tif chips in {chip_dir}")
     tiles = [t for t, _ in entries]
     t0, ti_min, tj_max, width, height, gt, epsg = _grid_frame(tiles)
-    with open(entries[0][1], "rb") as f:
-        info0 = decode_geotiff_info(f.read())
+    info0 = decode_geotiff_info(storage.read_bytes(entries[0][1]))
     nodata: Optional[float] = info0.nodata
     mosaic = np.full((height, width, info0.count),
                      fill_value, dtype=np.dtype(info0.dtype))

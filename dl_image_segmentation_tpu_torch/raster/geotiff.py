@@ -372,13 +372,10 @@ def _undo_hpredictor(arr: np.ndarray) -> np.ndarray:
 
 
 def read_geotiff(path: str) -> GeoTIFF:
-    """Decode a GeoTIFF from a local path."""
-    if "://" in path:
-        raise NotImplementedError(
-            f"cannot read {path!r}: object storage (gs://, s3://, "
-            "https://) comes with the storage slice of the port")
-    with open(path, "rb") as f:
-        return decode_geotiff(f.read())
+    """Decode a GeoTIFF from a local path or a gs://, s3:// or
+    http(s):// object."""
+    from .. import storage
+    return decode_geotiff(storage.read_bytes(path))
 
 
 # ---------------------------------------------------------------------------
@@ -586,13 +583,20 @@ def encode_geotiff(
 
 
 def write_geotiff(path: str, array: np.ndarray, **kwargs) -> None:
-    """Atomic local write: existence == complete, so the chip pipeline's
-    is_done resume never accepts a torn file from a crashed run (tmp +
-    rename)."""
-    if "://" in path:
-        raise NotImplementedError(
-            f"cannot write {path!r}: object storage (gs://, s3://, "
-            "https://) comes with the storage slice of the port")
+    """Atomic write: existence == complete, so the chip pipeline's
+    is_done resume never accepts a torn file from a crashed run. Local:
+    tmp + rename; gs:// and s3://: spooled, then one streamed upload
+    (GCS resumable / S3 multipart), an atomic object creation."""
+    from .. import storage
+    if storage.is_remote(path):
+        w = storage.SpooledWriter(path)
+        try:
+            w.write(encode_geotiff(array, **kwargs))
+        except BaseException:
+            w.abort()
+            raise
+        w.close()
+        return
     tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "wb") as f:
         f.write(encode_geotiff(array, **kwargs))

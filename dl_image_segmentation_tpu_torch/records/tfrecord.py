@@ -1,7 +1,8 @@
 """TFRecord framing: length-prefixed records with masked CRC32Cs.
 
-A copy of the JAX package's ``records/tfrecord.py`` for local paths,
-byte for byte TF's RecordWriter / RecordReader. One frame:
+A copy of the JAX package's ``records/tfrecord.py``, byte for byte TF's
+RecordWriter / RecordReader, on local paths and (through the storage
+layer) gs://, s3:// and, for reads, http(s)://. One frame:
 
     uint64  length         (little-endian)
     uint32  masked_crc32c(length bytes)
@@ -13,26 +14,14 @@ CRCs come from the native CRC32C (``records/crc32c.py``).
 
 from __future__ import annotations
 
-import glob
-import os
 import struct
 from typing import Iterator, List, Union
 
+from .. import storage
 from .crc32c import masked_crc32c_native
 
-__all__ = ["TFRecordWriter", "check_local", "frame_header", "list_shards",
+__all__ = ["TFRecordWriter", "frame_header", "list_shards",
            "read_records", "shard_filename", "writeall"]
-
-_REMOTE = ("gs://", "s3://", "http://", "https://")
-_NOT_PORTED = ("remote storage is not ported yet: ROADMAP queue 1 item 3 "
-               "(storage schemes)")
-
-
-def check_local(path: str) -> str:
-    """``path`` unchanged if it is local; remote schemes raise."""
-    if str(path).startswith(_REMOTE):
-        raise NotImplementedError(f"{path}: {_NOT_PORTED}")
-    return path
 
 
 def writeall(fileobj, data) -> int:
@@ -60,13 +49,14 @@ def frame_header(length: int) -> bytes:
 
 class TFRecordWriter:
     """Streaming TFRecord writer. Data goes to ``<path>.tmp``, renamed
-    into place on close(), so an existing shard is always a complete one
-    (what makes the writers' ``resume`` sound)."""
+    into place on close(); a gs:// or s3:// shard spools to a local temp
+    file and is uploaded on close(), one atomic object creation. So an
+    existing shard is always a complete one (what makes the writers'
+    ``resume`` sound)."""
 
     def __init__(self, path: str, buffering: int = -1):
-        self._path = check_local(path)
-        self._tmp = path + ".tmp"
-        self._f = open(self._tmp, "wb", buffering=buffering)
+        self._spool = storage.SpooledWriter(path, buffering=buffering)
+        self._f = self._spool.fileobj
 
     @property
     def fileobj(self):
@@ -84,15 +74,13 @@ class TFRecordWriter:
         self._f.flush()
 
     def close(self) -> None:
-        if not self._f.closed:
-            self._f.close()
-            os.replace(self._tmp, self._path)
+        self._spool.close()
 
     def abort(self) -> None:
-        """Close without renaming into place: the shard stays a ``.tmp``,
-        which readers and ``resume`` ignore."""
-        if not self._f.closed:
-            self._f.close()
+        """Close without publishing: a local shard stays a ``.tmp``,
+        which readers and ``resume`` ignore; a remote one is never
+        uploaded."""
+        self._spool.abort()
 
     def __enter__(self):
         return self
@@ -105,8 +93,9 @@ class TFRecordWriter:
 
 
 def read_records(path: str, verify_crc: bool = True) -> Iterator[bytes]:
-    """Raw record payloads of one local TFRecord file."""
-    with open(check_local(path), "rb") as f:
+    """Raw record payloads of one TFRecord file (local path or
+    gs://, s3://, http(s):// object, fetched whole)."""
+    with storage.open_read(path) as f:
         while True:
             header = f.read(8)
             if not header:
@@ -138,7 +127,6 @@ def shard_filename(name: str, shard: int, num_shards: int) -> str:
 
 
 def list_shards(directory: str, name: str) -> List[str]:
-    """The final shards of a named dataset in a local directory (never
-    the ``.tmp`` files of aborted writers)."""
-    return sorted(glob.glob(os.path.join(check_local(directory),
-                                         f"{name}-?????-of-?????")))
+    """The final shards of a named dataset in a directory, local or
+    remote (never the ``.tmp`` files of aborted writers)."""
+    return storage.glob(storage.join(directory, f"{name}-?????-of-?????"))

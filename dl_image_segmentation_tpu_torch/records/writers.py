@@ -1,8 +1,10 @@
 """GeoTIFF chip folders -> sharded TFRecords (the MP engine).
 
 A copy of the JAX package's ``records/writers.py``, trimmed to
-``process_dataset_mp`` over local GeoTIFF chip folders; its shards are
-byte for byte the JAX package's. Contracts kept:
+``process_dataset_mp`` over GeoTIFF chip folders; its shards are byte
+for byte the JAX package's. Chip folders may be local, gs://, s3:// or
+http(s)://, and the output directory local, gs:// or s3://, through the
+storage layer. Contracts kept:
 
 * shard files named '%s-%.5d-of-%.5d';
 * images and labels paired by file name, then shuffled with
@@ -12,8 +14,8 @@ byte for byte the JAX package's. Contracts kept:
 * identifier = the file name with '#' -> ':' (the DLTile key), or
   '{filename}|{geotransform}|{crs}';
 * a pair that fails to load is skipped with a message;
-* ``resume`` skips shards that exist (the writer renames a shard into
-  place only once it is complete).
+* ``resume`` skips shards that exist (the writer renames or uploads a
+  shard into place only once it is complete).
 
 ``store_as_array=True`` stores decoded arrays (FloatList, the tifarr
 mode, or BytesList for uint8 pairs: rgbarr), ``False`` the GeoTIFF bytes
@@ -31,17 +33,18 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import storage
 from ..raster.image import (CorruptRasterError, UnsupportedFormatError,
                             decode_image_bytes, sniff_image_info)
 from .example import write_example_framed
 from .parsers import RGBRAW_NOT_PORTED
-from .tfrecord import TFRecordWriter, check_local, shard_filename
+from .tfrecord import TFRecordWriter, shard_filename
 
 __all__ = ["process_dataset_mp", "process_dataset_multithreaded"]
 
 
 def _tile_key_from_filename(path: str) -> str:
-    base = os.path.basename(path)
+    base = storage.basename(path)
     stem = ".".join(base.split(os.extsep)[:-1])
     return stem.replace("#", ":")
 
@@ -49,30 +52,35 @@ def _tile_key_from_filename(path: str) -> str:
 def _find_image_files(data_dir: str, file_ext: Sequence[str]
                       ) -> Tuple[List[str], List[str]]:
     """Image and label files paired by name, in the seed-12345 shuffled
-    order."""
-    img_dir = os.path.join(check_local(data_dir), "images")
-    lbl_dir = os.path.join(data_dir, "labels")
+    order. A remote folder is listed with one prefix list per folder."""
+    img_dir = storage.join(data_dir, "images")
+    lbl_dir = storage.join(data_dir, "labels")
     suffixes = tuple(f".{e}" for e in file_ext)
+    if storage.is_remote(data_dir):
+        def names(d):
+            return storage.listdir(d)
+    else:
+        def names(d):
+            return [e.name for e in os.scandir(d)]
     try:
-        img_names = sorted(e.name for e in os.scandir(img_dir)
-                           if not e.name.startswith(".")
-                           and e.name.endswith(suffixes))
+        img_names = sorted(n for n in names(img_dir)
+                           if not n.startswith(".") and n.endswith(suffixes))
     except FileNotFoundError:
         img_names = []
     try:
-        lbl_names = {e.name for e in os.scandir(lbl_dir)}
+        lbl_names = set(names(lbl_dir))
     except FileNotFoundError:
         lbl_names = set()
     missing = [n for n in img_names if n not in lbl_names]
     if missing:
         raise FileNotFoundError(
             f"{len(missing)} images have no matching label file, e.g. "
-            f"{os.path.join(img_dir, missing[0])!r} (images and labels "
+            f"{storage.join(img_dir, missing[0])!r} (images and labels "
             "must be identically named)")
     order = list(range(len(img_names)))
     random.Random(12345).shuffle(order)  # random.seed(12345)'s sequence
-    filenames = [os.path.join(img_dir, img_names[i]) for i in order]
-    labels = [os.path.join(lbl_dir, img_names[i]) for i in order]
+    filenames = [storage.join(img_dir, img_names[i]) for i in order]
+    labels = [storage.join(lbl_dir, img_names[i]) for i in order]
     print(f"Found {len(filenames)} image files and {len(labels)} label "
           f"files inside {data_dir}.")
     return filenames, labels
@@ -81,8 +89,7 @@ def _find_image_files(data_dir: str, file_ext: Sequence[str]
 def _load_any(path: str, dltile_from_filename: bool, decode: bool):
     """(array or file bytes, h, w, bands, identifier) of one GeoTIFF;
     without ``decode`` only the header is read."""
-    with open(path, "rb") as f:
-        data = f.read()
+    data = storage.read_bytes(path)
     if decode:
         g = decode_image_bytes(data)
         info = g.info
@@ -92,10 +99,10 @@ def _load_any(path: str, dltile_from_filename: bool, decode: bool):
     if dltile_from_filename:
         key = _tile_key_from_filename(path)
     elif info.geotransform is not None and info.crs is not None:
-        key = "|".join((os.path.basename(path), str(list(info.geotransform)),
+        key = "|".join((storage.basename(path), str(list(info.geotransform)),
                         info.crs))
     else:
-        key = os.path.basename(path)
+        key = storage.basename(path)
     if decode:
         if g.array.shape != (h, w, bands):
             raise ValueError(f"{path}: decoded {g.array.shape}, header "
@@ -162,9 +169,9 @@ def _worker(worker_index: int, ranges, name: str, img_files, lbl_files,
     skipped: dict = {}
     for s in range(shards_per_worker):
         shard = worker_index * shards_per_worker + s
-        output_file = os.path.join(out_dir,
+        output_file = storage.join(out_dir,
                                    shard_filename(name, shard, num_shards))
-        if resume and os.path.exists(output_file):
+        if resume and storage.exists(output_file):
             print(f"{datetime.now()} [worker {worker_index}]: shard "
                   f"{output_file} exists, skipping (resume)")
             continue
@@ -176,7 +183,7 @@ def _worker(worker_index: int, ranges, name: str, img_files, lbl_files,
                 dltile_from_filename, store_as_array, progress_every,
                 counter, hi - lo)
         except BaseException:
-            writer.abort()  # the .tmp is never renamed into place
+            writer.abort()  # never renamed or uploaded into place
             raise
         writer.close()
         counter += n
@@ -202,7 +209,7 @@ def process_dataset_mp(name: str, directory: str, out_directory: str,
         raise ValueError("Num shards must be a multiple of num workers "
                          "(incl 1*)")
     img_files, lbl_files = _find_image_files(directory, [file_ext])
-    os.makedirs(check_local(out_directory), exist_ok=True)
+    storage.makedirs(out_directory, exist_ok=True)
     spacing = np.linspace(0, len(img_files), num_workers + 1).astype(int)
     ranges = [[spacing[i], spacing[i + 1]] for i in range(num_workers)]
     print(f"Launching {num_workers} workers for spacings: {ranges}")

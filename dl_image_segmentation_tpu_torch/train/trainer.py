@@ -14,7 +14,8 @@ the same steps end with the same parameters, as in the JAX package.
 Inference runs in batch_size chunks padded as the server pads, so
 ``predict`` gives each image the server's class map.
 Checkpoints are ``torch.save`` files of ``{"params", "opt_state",
-"step", "model"}`` (orbax checkpoints of the JAX package are not read).
+"step", "model"}``, local or on gs:// / s3:// (orbax checkpoints of the
+JAX package are not read).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import storage
 from ..device import resolve_device
 from ..models.convert import (_walk, adamw_state_from_optax,
                               params_from_flax, quant_from_flax)
@@ -39,7 +41,6 @@ from ..models.quant import Int8Conv
 from ..models.segformer import SegFormerLite
 from ..models.unet import UNet, share_parameters
 from ..ops.augment import apply_augment, draw_augment
-from ..records.tfrecord import check_local
 from .optim import (AdamWState, adamw_init, adamw_update_,
                     clip_by_global_norm_, make_schedule)
 from .pool import sample_batch
@@ -208,13 +209,33 @@ _NOT_PORTED = {
 
 
 class CheckpointManager:
-    """Rotating checkpoints in a local directory, one ``<step>.pt`` file
-    per saved step; the newest ``keep`` are kept."""
+    """Rotating checkpoints in a directory, one ``<step>.pt`` file per
+    saved step; the newest ``keep`` are kept.
+
+    A gs:// or s3:// directory is mirrored through a local staging
+    directory keyed by the URI's hash, as the JAX package mirrors its
+    orbax trees: the remote steps are downloaded before the manager
+    opens, as an exact mirror (a stale staging directory left by an
+    earlier run at the same URI must not fabricate a resume point);
+    ``sync`` uploads every new step file and deletes remotely the steps
+    pruned here."""
 
     def __init__(self, directory: str, keep: int = 3):
-        self.directory = os.path.abspath(check_local(directory))
         self.keep = keep
-        os.makedirs(self.directory, exist_ok=True)
+        self.remote: Optional[str] = None
+        if storage.is_remote(directory):
+            import hashlib
+            import tempfile
+            self.remote = directory.rstrip("/")
+            self.directory = os.path.join(
+                tempfile.gettempdir(), "dlseg-torch-ckpt-mirror",
+                hashlib.sha1(self.remote.encode()).hexdigest()[:16])
+            os.makedirs(self.directory, exist_ok=True)
+            storage.download_dir(self.remote, self.directory,
+                                 delete_extras=True)
+        else:
+            self.directory = os.path.abspath(directory)
+            os.makedirs(self.directory, exist_ok=True)
 
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"{step}.pt")
@@ -231,6 +252,22 @@ class CheckpointManager:
     def prune(self) -> None:
         for step in self.all_steps()[:-self.keep]:
             os.unlink(self.path(step))
+
+    def sync(self) -> None:
+        """Make the remote directory hold this directory's step files:
+        upload the new ones, delete the pruned ones (a no-op for a
+        local directory). Step files are write-once, so presence is
+        enough of a freshness check."""
+        if self.remote is None:
+            return
+        remote = set(storage.listdir(self.remote))
+        local = {f"{s}.pt" for s in self.all_steps()}
+        for name in sorted(local - remote):
+            storage.upload_file(os.path.join(self.directory, name),
+                                storage.join(self.remote, name))
+        for name in sorted(remote - local):
+            if re.fullmatch(r"\d+\.pt", name):
+                storage.unlink(storage.join(self.remote, name))
 
 
 class Trainer:
@@ -739,9 +776,19 @@ class Trainer:
 
     def save_checkpoint(self, path: str) -> None:
         """``torch.save`` of {"params", "opt_state", "step", "model"} (the
-        family) to ``path``,
-        written to ``path.tmp`` and renamed into place."""
-        path = os.path.abspath(check_local(path))
+        family) to ``path``: written to ``path.tmp`` and renamed into
+        place. A gs:// / s3:// path is saved to a local file of the same
+        name (torch names the archive's records after the file, so the
+        object's bytes equal a local save's), then uploaded: one atomic
+        object creation."""
+        if storage.is_remote(path):
+            import tempfile
+            with tempfile.TemporaryDirectory() as d:
+                local = os.path.join(d, storage.basename(path))
+                self.save_checkpoint(local)
+                storage.upload_file(local, path)
+            return
+        path = os.path.abspath(path)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = f"{path}.tmp"
         torch.save(self._payload(), tmp)
@@ -751,12 +798,13 @@ class Trainer:
         """Load a checkpoint of :meth:`save_checkpoint`; under s2d AUTO a
         checkpoint of another reachable tree rebuilds this trainer as
         that tree (``_try_other_s2d_variant``). A directory (an orbax
-        checkpoint of the JAX package) raises NotImplementedError."""
-        if os.path.isdir(check_local(path)):
+        checkpoint of the JAX package) raises NotImplementedError.
+        ``path`` may be a gs://, s3:// or http(s):// object."""
+        if not storage.is_remote(path) and os.path.isdir(path):
             raise NotImplementedError(f"{path} is a directory: "
                                       + _NOT_PORTED["orbax"])
-        payload = torch.load(check_local(path), map_location="cpu",
-                             weights_only=True)
+        with storage.open_read(path) as f:
+            payload = torch.load(f, map_location="cpu", weights_only=True)
         family = payload.get("model", "unet")
         if family != self.config.model:
             raise ValueError(f"checkpoint does not match the model's "
@@ -779,6 +827,7 @@ class Trainer:
         step = int(self.state.step)
         self.save_checkpoint(manager.path(step))
         manager.prune()
+        manager.sync()
         return step
 
     def restore_latest(self, manager: CheckpointManager) -> Optional[int]:

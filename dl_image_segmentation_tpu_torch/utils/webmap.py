@@ -106,7 +106,8 @@ def write_html_map(out_path: str, tiles: Sequence = (),
     """Write a self-contained interactive map. ``tiles``: Tile objects
     (footprints drawn in blue with key popups); ``labels_layer``:
     optional geo.vector.VectorLayer in WGS84 (red overlay with
-    property popups). Returns out_path."""
+    property popups). ``out_path`` may be local, gs:// or s3://.
+    Returns out_path."""
     tiles = list(tiles)
     if not tiles and labels_layer is None:
         raise ValueError(
@@ -130,27 +131,24 @@ def write_html_map(out_path: str, tiles: Sequence = (),
     html = _TEMPLATE.format(title=title, css=_LEAFLET_CSS, js=_LEAFLET_JS,
                             tiles_geojson=_safe(tiles_gj),
                             labels_geojson=_safe(labels_gj))
-    with open(out_path, "w", encoding="utf-8") as f:
-        f.write(html)
+    from .. import storage
+    storage.write_bytes(out_path, html.encode("utf-8"))
     return out_path
 
 
 def write_html_map_for_folder(out_path: str, chip_dir: str,
                               labels: Optional[str] = None) -> str:
     """Map every chip in a folder (tile-key filenames) plus an optional
-    vector label dataset -- the `map` CLI command's backend. Local
-    folders only."""
-    import glob
-    import os
-
+    vector label dataset -- the `map` CLI command's backend. The folder
+    may be local, gs://, s3:// or http(s)://."""
+    from .. import storage
     from ..geo.tilegrid import Tile
-    from ..records.tfrecord import check_local
 
     tiles = []
-    for f in (sorted(glob.glob(os.path.join(check_local(chip_dir), "*.tif")))
-              + sorted(glob.glob(os.path.join(chip_dir, "*.png")))):
+    for f in (storage.glob(storage.join(chip_dir, "*.tif"))
+              + storage.glob(storage.join(chip_dir, "*.png"))):
         try:
-            tiles.append(Tile.from_filename(os.path.basename(f)))
+            tiles.append(Tile.from_filename(storage.basename(f)))
         except ValueError:
             continue
     layer = None

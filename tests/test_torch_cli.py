@@ -412,8 +412,6 @@ NOT_PORTED = [
      "item 6"),
     (["ingest-safe", "--catalog", "c", "--safe", "s"], NotImplementedError,
      "item 6"),
-    (["push", "--records", "r", "--dest", "d"], NotImplementedError,
-     "item 3"),
     (["to-tfrecords", "--name", "n", "--directory", "d", "--out", "o",
       "--engine", "mt"], NotImplementedError, "item 6"),
 ]
@@ -499,17 +497,11 @@ def test_unet_only_options_raise_for_other_models(argv):
 
 
 def test_unported_inputs_raise_their_item(seq, tmp_path, monkeypatch):
-    """The default train --mode rgbraw (item 6), remote catalogs and
-    roots (item 3), inspect --preview (item 6) and an orbax checkpoint
-    directory (item 1)."""
+    """The default train --mode rgbraw (item 6), inspect --preview (item
+    6) and an orbax checkpoint directory (item 1)."""
     work, _ = seq
     recs = os.path.join(work, "port-recs", "mumbai-*")
     monkeypatch.chdir(work)
-    for cat in ("https://example.invalid/cat", "stac+https://x.invalid",
-                "gs://bucket/cat"):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            tcli.main(chips_argv(str(tmp_path / "c"), cat,
-                                 ["--device", "cpu"]))
     with pytest.raises(NotImplementedError, match="item 6"):
         tcli.main(["train", "--records", recs, *MODEL, "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 6"):
