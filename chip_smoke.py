@@ -126,7 +126,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    in the bucket), ``predict`` and ``eval --json`` from the gs://
    checkpoint equal to a local copy's, ``stitch`` gs:// -> gs:// equal to
    phase 7's mosaic, and ``push`` from s3:// to a directory and to
-   presigned URLs on a loopback PUT server (every shard's bytes).
+   presigned URLs on a loopback PUT server (every shard's bytes);
+9. the PNG/JPEG chip path, through ``cli.main`` on phase 7's RGB chip
+   folder (32 pairs of 256 px chips): ``convert --to png --rescale LO
+   HI`` (LO, HI: the chips' range; each PNG decodes to the rescaled
+   GeoTIFF, labels unchanged), ``to-tfrecords --engine mt`` into rgbraw
+   (payloads == the files, CRCs checked), rgbarr (``--store-as-array``)
+   and ``--png-to-jpg`` shards (each JPEG payload is the port's encode of
+   its PNG's pixels), ``train`` with no ``--mode`` (rgbraw) and with
+   ``--mode rgbarr`` at the TrainConfig defaults with 10 classes, 20 steps
+   on one parse thread each (falling loss, equal losses, bitwise equal
+   parameters), 3 fp32 steps card against CPU on a rgbraw batch (within
+   1e-4), ``train`` from the JPEG shards with 256 classes (JPEG moves
+   label values at class edges; falling loss), a PredictServer over HTTP
+   answering 8 PNG chips and the port's JPEG encodes of them (class maps
+   == predict of the port's decode; a corrupt PNG gets 400), and
+   ``inspect --preview`` (the sheet == render_pair_sheet of the first 4
+   records). Times, on the host: PNG decode MB/s and MP/s, JPEG decode
+   and encode MP/s at 256 px RGB, convert and MT to-tfrecords seconds,
+   the rgbraw, rgbarr and tifarr feeds' records/s; on the card: a train
+   step fed from rgbraw and from rgbarr shards (ms, images/s). No
+   hand-written kernel is on this path.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script
@@ -1714,11 +1734,11 @@ def objects_under(fake, bucket, prefix):
             if k[0] == bucket and k[1].startswith(prefix)}
 
 
-def feed_rate(pattern, batch_size, image_size, batches=4):
-    """tifarr records/s through the feed's read, parse and batching, after
-    one warm batch (host only)."""
+def feed_rate(pattern, batch_size, image_size, mode="tifarr", batches=4):
+    """Records/s of ``mode`` through the feed's read, parse (4 threads)
+    and batching, after one warm batch (host only)."""
     from dl_image_segmentation_tpu_torch.pipeline.input import TFRecordFeed
-    it = iter(TFRecordFeed(pattern, "tifarr", batch_size,
+    it = iter(TFRecordFeed(pattern, mode, batch_size,
                            image_size=image_size, scale="raw", seed=3))
     next(it)
     t0 = time.perf_counter()
@@ -1969,6 +1989,317 @@ def remote_phase(smi, share):
     return out
 
 
+def tree_files(folder, sub, ext):
+    """{stem: path} of ``folder/sub/*.ext``."""
+    import glob
+    return {os.path.basename(p)[:-len(ext) - 1]: p for p in sorted(
+        glob.glob(os.path.join(folder, sub, f"*.{ext}")))}
+
+
+def rate(fn, items, min_s=0.5):
+    """Calls of ``fn`` on each of ``items`` in turn for at least min_s
+    seconds; (calls, seconds)."""
+    n, t0 = 0, time.perf_counter()
+    while True:
+        for x in items:
+            fn(x)
+        n += len(items)
+        dt_ = time.perf_counter() - t0
+        if dt_ >= min_s:
+            return n, dt_
+
+
+def fed_step_ms(pattern, mode, size, steps=20):
+    """Wall ms a step of ``Trainer.train_step`` at the TrainConfig
+    defaults (10 classes, batch 32, bf16) fed by TFRecordFeed(mode) ->
+    DevicePrefetcher, after 3 warm steps, synchronised at both ends."""
+    import torch
+    from dl_image_segmentation_tpu_torch.pipeline.input import (
+        DevicePrefetcher, TFRecordFeed)
+    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+    t = Trainer(TrainConfig(num_classes=10))
+    feed = TFRecordFeed(pattern, mode, 32, image_size=size, scale="raw",
+                        seed=4)
+    with DevicePrefetcher(iter(feed), t.place_batch) as pf:
+        for _ in range(3):
+            t.train_step_async(*next(pf))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            t.train_step_async(*next(pf))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+    del t
+    torch.cuda.empty_cache()
+    return ms
+
+
+def codec_phase(smi, tmp, share):
+    """Phase 9: the PNG/JPEG chip path on the card, on phase 7's RGB
+    chip folder (32 pairs of 256 px uint16 chips), through ``cli.main``:
+    ``convert --to png --rescale`` (each PNG decodes to the rescaled
+    GeoTIFF, labels pass through), ``to-tfrecords --engine mt`` (rgbraw:
+    payloads == the files, CRCs checked; ``--store-as-array``: rgbarr;
+    ``--png-to-jpg``: every JPEG payload decodes to its chip's shape and
+    is the port's encode of its PNG's pixels), ``train`` with no
+    ``--mode`` (rgbraw) and ``--mode rgbarr``, 20 steps each on one parse
+    thread (falling loss; equal losses and bitwise equal parameters),
+    3 fp32 steps card against CPU on a rgbraw batch, ``train`` from the
+    JPEG shards (256 classes: JPEG's rounding moves label values at class
+    edges; falling loss), a PredictServer answering the PNG chips and
+    the port's JPEG encodes of them over HTTP (class maps == predict of
+    the port's decode of each body; a corrupt PNG gets 400), and
+    ``inspect --preview`` (the sheet decodes to render_pair_sheet of the
+    first records). Times: PNG decode, JPEG decode and encode, convert,
+    the MT writer, the rgbraw / rgbarr / tifarr feeds' records/s, and a
+    fed train step from rgbraw and rgbarr shards."""
+    import glob
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+    import torch
+    from dl_image_segmentation_tpu_torch.pipeline.convert import _to_uint8
+    from dl_image_segmentation_tpu_torch.pipeline.input import (
+        PARSE_FNS, TFRecordFeed)
+    from dl_image_segmentation_tpu_torch.raster import read_geotiff
+    from dl_image_segmentation_tpu_torch.raster.image import (
+        decode_image, decode_png, encode_jpeg)
+    from dl_image_segmentation_tpu_torch.records.proto import decode_example
+    from dl_image_segmentation_tpu_torch.records.tfrecord import read_records
+    from dl_image_segmentation_tpu_torch.serve import (
+        PredictServer, make_http_server, scale_image)
+    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+    from dl_image_segmentation_tpu_torch.utils.preview import (
+        render_pair_sheet)
+
+    log(f"phase 9: PNG/JPEG chip path on the card ({smi})")
+    os.makedirs(tmp, exist_ok=True)
+    out = {"seconds": {}}
+    secs = out["seconds"]
+    folder = share["rgb_folder"]
+    tifs = {sub: tree_files(folder, sub, "tif")
+            for sub in ("images", "labels")}
+    arrays = {k: read_geotiff(p).array for k, p in tifs["images"].items()}
+    size = next(iter(arrays.values())).shape[0]
+    lo = int(min(a.min() for a in arrays.values()))
+    hi = int(max(a.max() for a in arrays.values()))
+    # 1. convert --to png, rescaled to the scenes' range
+    png = os.path.join(tmp, "png")
+    cli_run(["convert", "--directory", folder, "--out", png, "--to", "png",
+             "--rescale", str(lo), str(hi)], secs, "convert")
+    pngs = {sub: tree_files(png, sub, "png") for sub in ("images", "labels")}
+    if sorted(pngs["images"]) != sorted(arrays) or len(arrays) != 32:
+        raise AssertionError(f"convert wrote {len(pngs['images'])} images")
+    for k, a in arrays.items():
+        with open(pngs["images"][k], "rb") as f:
+            got = decode_image(f.read())
+        if not np.array_equal(got, _to_uint8(a, (lo, hi))):
+            raise AssertionError(f"convert: {k}.png != the rescaled chip")
+        with open(pngs["labels"][k], "rb") as f:
+            got = decode_image(f.read())
+        if not np.array_equal(got, read_geotiff(tifs["labels"][k]).array):
+            raise AssertionError(f"convert: label {k}.png != its GeoTIFF")
+    log(f"  convert --rescale {lo} {hi}: 64 PNGs, each == _to_uint8 of its "
+        "GeoTIFF (labels unchanged)")
+    # 2. the MT engine: rgbraw, rgbarr, --png-to-jpg
+    shards = {}
+    for kind, extra in (("rgbraw", []), ("rgbarr", ["--store-as-array"]),
+                        ("jpg", ["--png-to-jpg"])):
+        shards[kind] = os.path.join(tmp, f"mt-{kind}")
+        cli_run(["to-tfrecords", "--name", "rgb", "--directory", png,
+                 "--out", shards[kind], "--shards", "4", "--workers", "4",
+                 "--engine", "mt", *extra], secs, f"to-tfrecords mt {kind}")
+    recs = {}
+    for kind, d in shards.items():
+        recs[kind] = [decode_example(r) for f in sorted(glob.glob(
+            os.path.join(d, "rgb-*"))) for r in read_records(f,
+                                                             verify_crc=True)]
+        if len(recs[kind]) != 32:
+            raise AssertionError(f"{kind}: {len(recs[kind])} records")
+    for d in recs["rgbraw"]:
+        key = d["identifier"].bytes_list[0].decode().replace(":", "#")
+        for sub, feat in (("images", "image/image_data"),
+                          ("labels", "target/target_data")):
+            with open(pngs[sub][key], "rb") as f:
+                if d[feat].bytes_list[0] != f.read():
+                    raise AssertionError(f"rgbraw {key}: {feat} != file")
+    for d in recs["jpg"]:
+        key = d["identifier"].bytes_list[0].decode().replace(":", "#")
+        for sub, feat, bands in (("images", "image/image_data", 3),
+                                 ("labels", "target/target_data", 1)):
+            payload = d[feat].bytes_list[0]
+            if decode_image(payload).shape != (size, size, bands):
+                raise AssertionError(f"jpg {key}: {feat} shape")
+            with open(pngs[sub][key], "rb") as f:
+                if payload != encode_jpeg(decode_png(f.read()), 100):
+                    raise AssertionError(f"jpg {key}: {feat} != the port's "
+                                         "encode of its PNG")
+    log("  to-tfrecords --engine mt: rgbraw payloads == the PNG files, "
+        "CRCs checked; rgbarr; --png-to-jpg payloads == encode_jpeg(PNG "
+        "pixels, 100), 32 records each")
+    # 3. train with no --mode (rgbraw) and from rgbarr: the same arrays
+    losses, params = {}, {}
+    for kind, mode in (("rgbraw", []), ("rgbarr", ["--mode", "rgbarr"])):
+        mlog = os.path.join(tmp, f"{kind}.jsonl")
+        ckpt = os.path.join(tmp, f"{kind}.pt")
+        cli_run(["train", "--records", os.path.join(shards[kind], "rgb-*"),
+                 *mode, "--classes", "10", "--steps", "20", "--log-every",
+                 "1", "--workers", "1", "--metrics-log", mlog,
+                 "--checkpoint", ckpt], secs, f"train {kind}")
+        losses[kind] = [json.loads(ln)["loss"] for ln in open(mlog)]
+        params[kind] = torch.load(ckpt, weights_only=False)
+    ls = losses["rgbraw"]
+    if len(ls) != 20 or not np.mean(ls[-5:]) < ls[0]:
+        raise AssertionError(f"train rgbraw: losses {ls}")
+    if ls != losses["rgbarr"]:
+        raise AssertionError(f"rgbraw losses {ls} != rgbarr "
+                             f"{losses['rgbarr']}")
+    pa, pb = (params[k]["params"] for k in ("rgbraw", "rgbarr"))
+    if not all(torch.equal(pa[n], pb[n]) for n in pa):
+        raise AssertionError("rgbraw and rgbarr runs end in other parameters")
+    out["losses"] = ls
+    log(f"  train (rgbraw, the default): loss {ls[0]:.4f} -> "
+        f"{np.mean(ls[-5:]):.4f}; == the rgbarr run's losses, parameters "
+        "bitwise equal")
+    x, y = next(iter(TFRecordFeed(
+        os.path.join(shards["rgbraw"], "rgb-*"), "rgbraw", 2,
+        image_size=size, scale="raw", seed=5, num_workers=1)))
+    cmp = card_vs_cpu_steps(TrainConfig(num_classes=10, batch_size=2,
+                                        precision="fp32"), x, y)
+    out["card_vs_cpu"] = cmp
+    log(f"  card vs CPU, 3 fp32 steps on 2 rgbraw images: loss relative "
+        f"differences {', '.join(f'{v:.3g}' for v in cmp['loss_rel_diff'])}"
+        f"; largest parameter difference {cmp['max_param_diff']:.3g}")
+    # 4. train from the JPEG shards
+    mlog = os.path.join(tmp, "jpg.jsonl")
+    cli_run(["train", "--records", os.path.join(shards["jpg"], "rgb-*"),
+             "--classes", "256", "--steps", "20", "--log-every", "1",
+             "--metrics-log", mlog], secs, "train jpg")
+    lj = [json.loads(ln)["loss"] for ln in open(mlog)]
+    if len(lj) != 20 or not np.mean(lj[-5:]) < lj[0]:
+        raise AssertionError(f"train jpg: losses {lj}")
+    moved = sum(int((decode_image(d["target/target_data"].bytes_list[0])
+                     != decode_image(r["target/target_data"].bytes_list[0])
+                     ).sum()) for d, r in zip(
+        sorted(recs["jpg"], key=lambda d: d["identifier"].bytes_list[0]),
+        sorted(recs["rgbraw"], key=lambda d: d["identifier"].bytes_list[0])))
+    out["jpg_losses"], out["jpg_label_pixels_moved"] = lj, moved
+    log(f"  train from --png-to-jpg shards (256 classes): loss {lj[0]:.4f} "
+        f"-> {np.mean(lj[-5:]):.4f}; JPEG moved {moved} of "
+        f"{32 * size * size} label pixels")
+    # 5. serve PNG and JPEG bodies
+    trainer = Trainer(TrainConfig(num_classes=10, batch_size=8))
+    trainer.restore_checkpoint(os.path.join(tmp, "rgbraw.pt"))
+    ps = PredictServer(trainer)
+    httpd = make_http_server("127.0.0.1", 0, ps)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    keys = sorted(pngs["images"])[:8]
+    bodies = []
+    for k in keys:
+        with open(pngs["images"][k], "rb") as f:
+            body = f.read()
+        bodies += [body, encode_jpeg(decode_png(body), 90)]
+    served = [None] * len(bodies)
+
+    def post(i):
+        req = urllib.request.Request(base + "/predict", data=bodies[i],
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            served[i] = np.load(io.BytesIO(r.read()))
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(bodies))]
+        for t_ in threads:
+            t_.start()
+        for t_ in threads:
+            t_.join(timeout=300)
+        secs["serve 16 bodies"] = time.perf_counter() - t0
+        want = trainer.predict(np.stack([scale_image(decode_image(b), "auto")
+                                         for b in bodies]))
+        for i, got in enumerate(served):
+            if got is None or not np.array_equal(got, want[i]):
+                kind = "JPEG" if i % 2 else "PNG"
+                raise AssertionError(f"served body {i} ({kind}) differs "
+                                     "from predict")
+        req = urllib.request.Request(base + "/predict",
+                                     data=bodies[0][:-40], method="POST")
+        try:
+            urllib.request.urlopen(req, timeout=60)
+            raise AssertionError("a corrupt PNG body was answered 200")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                raise AssertionError(f"corrupt PNG: HTTP {e.code}")
+    finally:
+        httpd.shutdown()
+        thread.join(timeout=30)
+        ps.close()
+    del trainer, ps
+    torch.cuda.empty_cache()
+    log(f"  serve: 8 PNG + 8 JPEG bodies in {secs['serve 16 bodies']:.3f} "
+        "s, class maps == predict of the port's decode; corrupt PNG -> 400")
+    # 6. inspect --preview
+    sheet_path = os.path.join(tmp, "preview.png")
+    pattern = os.path.join(shards["rgbraw"], "rgb-*")
+    cli_run(["inspect", "--records", pattern, "--mode", "rgbraw",
+             "--preview", sheet_path, "--preview-count", "4"], secs,
+            "inspect --preview")
+    first = [PARSE_FNS["rgbraw"](r) for r in read_records(sorted(
+        glob.glob(pattern))[0])][:4]
+    with open(sheet_path, "rb") as f:
+        sheet = decode_image(f.read())
+    if not np.array_equal(sheet, render_pair_sheet([(a, b)
+                                                    for a, b, _ in first])):
+        raise AssertionError("inspect --preview sheet != render_pair_sheet")
+    log(f"  inspect --preview: {sheet.shape} sheet == render_pair_sheet of "
+        "the first 4 records")
+    # 7. times on the host and the fed step on the card
+    blobs = []
+    for k in sorted(pngs["images"]):
+        with open(pngs["images"][k], "rb") as f:
+            blobs.append(f.read())
+    n, dt_ = rate(decode_png, blobs)
+    mb = sum(map(len, blobs)) * n / len(blobs) / 1e6
+    out["png_decode_mb_per_s"] = mb / dt_
+    out["png_decode_mp_per_s"] = n * size * size / 1e6 / dt_
+    jpgs = [encode_jpeg(decode_png(b), 100) for b in blobs]
+    n, dt_ = rate(decode_image, jpgs)
+    out["jpeg_decode_mp_per_s"] = n * size * size / 1e6 / dt_
+    pix = [decode_png(b) for b in blobs]
+    n, dt_ = rate(lambda a: encode_jpeg(a, 100), pix)
+    out["jpeg_encode_mp_per_s"] = n * size * size / 1e6 / dt_
+    out["feed_records_per_s"] = {
+        "rgbraw": feed_rate(pattern, 8, size, "rgbraw"),
+        "rgbarr": feed_rate(os.path.join(shards["rgbarr"], "rgb-*"), 8,
+                            size, "rgbarr"),
+        "tifarr": feed_rate(os.path.join(share["shards"], "smoke-*"), 8,
+                            size)}
+    out["fed_step_ms"] = {m: fed_step_ms(os.path.join(shards[m], "rgb-*"), m,
+                                         size) for m in ("rgbraw", "rgbarr")}
+    out["fed_images_per_s"] = {m: 32 / (v / 1e3)
+                               for m, v in out["fed_step_ms"].items()}
+    out["card"] = smi
+    log(f"  PNG decode {out['png_decode_mb_per_s']:.1f} MB/s = "
+        f"{out['png_decode_mp_per_s']:.2f} MP/s; JPEG ({size} px RGB, q100) "
+        f"decode {out['jpeg_decode_mp_per_s']:.2f} MP/s, encode "
+        f"{out['jpeg_encode_mp_per_s']:.2f} MP/s (one host thread of the "
+        f"machine of {smi})")
+    log(f"  convert {secs['convert']:.3f} s; MT to-tfrecords "
+        f"{secs['to-tfrecords mt rgbraw']:.3f} s (rgbraw), "
+        f"{secs['to-tfrecords mt rgbarr']:.3f} s (rgbarr), "
+        f"{secs['to-tfrecords mt jpg']:.3f} s (--png-to-jpg); {smi}")
+    log("  feed records/s (4 parse threads): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["feed_records_per_s"].items())
+        + f"; {smi}")
+    log("  fed train step (batch 32, bf16): " + ", ".join(
+        f"{k} {v:.4f} ms = {out['fed_images_per_s'][k]:.1f} images/s"
+        for k, v in out["fed_step_ms"].items()) + f"; {smi}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2021,6 +2352,9 @@ def main() -> int:
         t0 = time.perf_counter()
         remote = remote_phase(smi, share)
         log(f"  remote_phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        codecs = codec_phase(smi, os.path.join(work, "codecs"), share)
+        log(f"  codec_phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2043,6 +2377,7 @@ def main() -> int:
     log(json.dumps({"training": training}))
     log(json.dumps({"cli": cli}))
     log(json.dumps({"remote": remote}))
+    log(json.dumps({"codecs": codecs}))
     log(f"seconds {time.perf_counter() - t_start:.1f}; runs "
         f"{json.dumps(runs)}")
     log(f"{smi}")

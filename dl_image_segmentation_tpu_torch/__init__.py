@@ -12,7 +12,9 @@ from a device pool, evaluation and checkpoints) and serving (the models
 with their flax weight converter, predict, sliding-window inference, the
 micro-batching HTTP server and stitch) of the U-Net, DeepLab-lite and
 SegFormer-lite, and the U-Net's int8 inference (dynamic and calibrated
-static scales). The three Pallas kernels of chip creation are
+static scales), with its own PNG, JPEG, GIF and BMP codecs for PNG/JPEG
+chips (``convert``, the MT shard engine, rgbraw records, image request
+bodies). The three Pallas kernels of chip creation are
 hand-written CUDA kernels for Hopper (csrc/), built with nvcc into the
 checkout's ``build/`` at first use; the models' convs, norms, matmuls and
 attention are cuDNN/cuBLAS calls through torch, their int8 convs

@@ -347,9 +347,9 @@ class LocalCatalog(Catalog):
     def _load_band_raster(self, path: str):
         """One SAFE band file through the scene LRU. ``path`` is stored
         as written by ingest_safe -- a full path or URL, independent of
-        the catalog root. GeoTIFF band files decode; other containers raise
-        UnsupportedFormatError naming the ROADMAP item of their
-        decoder."""
+        the catalog root. GeoTIFF, PNG, JPEG, GIF and BMP band files
+        decode; other containers raise UnsupportedFormatError naming the
+        ROADMAP item of their decoder."""
         with self._lock:
             if path in self._cache:
                 return self._cache[path]

@@ -10,14 +10,17 @@ defaults and output lines. Commands:
                    GeoTIFF chip pairs (catalog: 'synthetic', a
                    LocalCatalog root, an http(s):// scene server or a
                    stac+http(s):// STAC endpoint)
-    to-tfrecords   chip folders -> sharded TFRecords (--engine mp)
+    to-tfrecords   chip folders -> sharded TFRecords (--engine mp for
+                   GeoTIFF chips, mt for PNG/JPEG chips)
+    convert        GeoTIFF chip folder -> PNG/JPG chip folder
     train          TFRecords -> training on the card (--model unet,
                    deeplab or segformer)
     eval           dataset mIoU / accuracy / loss of a checkpoint
     predict        chips, shards or one large GeoTIFF -> class maps
     serve          micro-batching HTTP inference endpoint
     stitch         tile-key chips -> one GeoTIFF mosaic
-    inspect        summarize shards, verify CRCs, label statistics
+    inspect        summarize shards, verify CRCs, label statistics,
+                   --preview PNG contact sheet
     push           shards -> records sink (directory or signed URLs)
     doctor         environment self-check (card, nvcc, kernels, codecs)
     map            chips -> interactive HTML map
@@ -31,12 +34,12 @@ storage layer (``storage/``): ``STORAGE_EMULATOR_HOST`` and
 The device commands (create-chips, train, eval, predict, serve) take
 ``--device {cuda,cpu}``, default ``cuda``: without a card they raise
 unless ``--device cpu`` is given. Checkpoints are the port's
-``torch.save`` files. What is not ported raises NotImplementedError
-naming its ROADMAP queue 1 item: ``convert``, ``ingest-safe``, PNG/JPEG
-records (the default ``train --mode rgbraw``; pass ``--mode tifarr``),
-``--engine mt`` and ``inspect --preview`` (item 6); ``--n-model``,
-``--spatial`` and ``--fsdp`` (item 8); ``--remat`` and orbax checkpoints
-(item 1). predict, eval and
+``torch.save`` files. PNG, JPEG, GIF and BMP decode and PNG/JPEG encode
+through the port's own codecs (``raster/``), so the default ``train
+--mode rgbraw`` reads PNG/JPEG records. What is not ported raises
+NotImplementedError naming its ROADMAP queue 1 item: ``ingest-safe``
+(JPEG 2000, item 6); ``--n-model``, ``--spatial`` and ``--fsdp`` (item
+8); ``--remat`` and orbax checkpoints (item 1). predict, eval and
 serve take ``--quantize int8|int8-static`` (the U-Net only); int8-static
 calibrates on ``--calibrate-records`` (``--calibrate-batches`` batches)
 or else on the first batch it infers.
@@ -51,12 +54,8 @@ import os
 import sys
 
 _NOT_PORTED = {
-    "convert": "convert writes PNG/JPEG chips, which is not ported yet: "
-               "ROADMAP queue 1 item 6",
     "ingest-safe": "ingest-safe reads Sentinel-2 JP2 band files, which is "
                    "not ported yet: ROADMAP queue 1 item 6",
-    "preview": "inspect --preview encodes a PNG contact sheet, which is not "
-               "ported yet: ROADMAP queue 1 item 6",
 }
 
 
@@ -133,7 +132,12 @@ def cmd_to_tfrecords(args) -> int:
 
 
 def cmd_convert(args) -> int:
-    raise NotImplementedError(_NOT_PORTED["convert"])
+    from .pipeline.convert import convert_chip_folder
+    convert_chip_folder(
+        args.directory, args.out, file_ext=args.file_ext, to=args.to,
+        num_workers=args.workers, quality=args.quality,
+        rescale=args.rescale, rescale_labels=args.rescale_labels)
+    return 0
 
 
 def cmd_train(args) -> int:
@@ -608,10 +612,14 @@ def cmd_doctor(args) -> int:
 
     def _codec_check():
         from .raster.geotiff import decode_geotiff, encode_geotiff
+        from .raster.image import decode_png, encode_png
         a = (np.arange(96, dtype=np.uint16) % 7).reshape(4, 8, 3)
         if not (decode_geotiff(encode_geotiff(a)).array == a).all():
             raise AssertionError("GeoTIFF round trip failed")
-        return "GeoTIFF codec roundtrip"
+        p = (a % 5).astype(np.uint8)
+        if not (decode_png(encode_png(p)) == p).all():
+            raise AssertionError("PNG round trip failed")
+        return "GeoTIFF + PNG codecs roundtrip"
 
     def _records_check():
         from .records.example import encode_example_features
@@ -785,7 +793,27 @@ def cmd_inspect(args) -> int:
         except (KeyError, IndexError, TypeError, AttributeError):
             pass  # foreign TFRecords without our schema
     if args.preview:
-        raise NotImplementedError(_NOT_PORTED["preview"])
+        # image | label side by side for the first records, as a PNG
+        from .pipeline.input import PARSE_FNS
+        from .raster.image import encode_png
+        from .utils.preview import render_pair_sheet
+        parse = PARSE_FNS[args.mode]
+        pairs = []
+        for f in files:
+            for rec in read_records(f, verify_crc=args.verify_crc):
+                out = parse(rec)
+                pairs.append((out[0], out[1]))
+                if len(pairs) >= args.preview_count:
+                    break
+            if len(pairs) >= args.preview_count:
+                break
+        bands = (tuple(int(b) for b in args.rgb_bands.split(","))
+                 if args.rgb_bands else None)
+        sheet = render_pair_sheet(pairs, rgb_bands=bands,
+                                  nodata=args.nodata)
+        storage.write_bytes(args.preview, encode_png(sheet))
+        print(f"wrote {len(pairs)}-pair preview sheet to {args.preview} "
+              f"({sheet.shape[0]}x{sheet.shape[1]})")
     if args.class_stats:
         # label-pixel histogram over the whole dataset + suggested
         # inverse-frequency --class-weights (normalized so the most
@@ -921,8 +949,8 @@ def main(argv=None) -> int:
     t.add_argument("--shards", type=int, default=12)
     t.add_argument("--workers", type=int, default=None)
     t.add_argument("--engine", choices=["mt", "mp"], default="mp",
-                   help="mp: GeoTIFF chips; mt (PNG/JPEG chips) raises "
-                        "(ROADMAP queue 1 item 6)")
+                   help="mp: GeoTIFF chips (--file-ext); mt: PNG/JPEG "
+                        "chips")
     t.add_argument("--file-ext", default="tif")
     t.add_argument("--store-as-array", action="store_true")
     t.add_argument("--png-to-jpg", action="store_true")
@@ -933,8 +961,7 @@ def main(argv=None) -> int:
     t.set_defaults(fn=cmd_to_tfrecords)
 
     cv = sub.add_parser(
-        "convert", help="GeoTIFF chip folder -> PNG/JPG chip folder "
-                        "(raises: ROADMAP queue 1 item 6)")
+        "convert", help="GeoTIFF chip folder -> PNG/JPG chip folder")
     cv.add_argument("--directory", required=True)
     cv.add_argument("--out", required=True)
     cv.add_argument("--file-ext", default="tif")
@@ -950,10 +977,11 @@ def main(argv=None) -> int:
     tr.add_argument("--records", required=True, help="shard glob")
     tr.add_argument("--mode", default="rgbraw",
                     choices=["rgbraw", "rgbarr", "tifraw", "tifarr"],
-                    help="record storage mode. The default rgbraw (PNG/"
-                         "JPEG records) raises (ROADMAP queue 1 item 6): "
-                         "pass --mode tifarr for to-tfrecords "
-                         "--store-as-array shards")
+                    help="record storage mode: rgbraw (PNG/JPEG bytes, "
+                         "to-tfrecords --engine mt), rgbarr (uint8 arrays, "
+                         "--store-as-array of PNG/JPEG chips), tifraw "
+                         "(GeoTIFF bytes), tifarr (float arrays, "
+                         "--store-as-array of GeoTIFF chips)")
     tr.add_argument("--model", default="unet",
                     choices=["unet", "deeplab", "segformer"],
                     help="model family")
@@ -1110,8 +1138,8 @@ def main(argv=None) -> int:
     _inference_args(sv)
     sv.add_argument("--scale", default="auto",
                     help="scaling applied to ENCODED request bodies "
-                         "(GeoTIFF), same rules as predict --scale; .npy "
-                         "bodies are taken as-is")
+                         "(GeoTIFF, PNG, JPEG, GIF, BMP), same rules as "
+                         "predict --scale; .npy bodies are taken as-is")
     sv.set_defaults(fn=cmd_serve)
 
     ev = sub.add_parser("eval", help="evaluate a checkpoint on shards")
@@ -1182,8 +1210,9 @@ def main(argv=None) -> int:
     i.add_argument("--nodata", type=int, default=255,
                    help="label value excluded from --class-stats")
     i.add_argument("--preview", default=None,
-                   help="PNG contact sheet of the first records; raises "
-                        "(ROADMAP queue 1 item 6)")
+                   help="write a PNG contact sheet (image | label) of the "
+                        "first --preview-count records, parsed with "
+                        "--mode")
     i.add_argument("--preview-count", type=int, default=4)
     i.add_argument("--rgb-bands", default=None)
     i.set_defaults(fn=cmd_inspect)

@@ -8,6 +8,11 @@
 //
 // MSB-first bit packing, 9->12 bit codes, ClearCode=256, EOI=257, code
 // width bumps one code early ("early change"), table reset at 4094.
+//
+// fc_gif_lzw_decode is GIF's variant, for the first frame of a GIF
+// (raster/gif.py): LSB-first packing, codes from min_size + 1 bits,
+// the width bumps when the next code reaches 1 << bits (no early
+// change), and a full table stays full until the next clear code.
 
 #include <cstdint>
 #include <cstdlib>
@@ -195,6 +200,64 @@ uint64_t fc_lzw_decode(const uint8_t* src, uint64_t n,
         if (stop_at && out >= stop_at) break;
     }
     return stop_at && out > stop_at ? stop_at : out;
+}
+
+// GIF LZW: in (n bytes, the image's sub-blocks joined) -> at most npix
+// indices in out. Returns the indices written; *ended is 1 when an end
+// code was read. Returns -1 for a code past the table (corrupt data) or
+// a bad min_size.
+int64_t fc_gif_lzw_decode(const uint8_t* in, uint64_t n, int min_size,
+                          uint8_t* out, uint64_t npix, int* ended) {
+    *ended = 0;
+    if (min_size < 1 || min_size > 11) return -1;
+    static thread_local uint16_t prefix[4096];
+    static thread_local uint8_t suffix[4096];
+    static thread_local uint8_t first[4096];
+    static thread_local uint8_t stack[4097];
+    const int clear = 1 << min_size, eoi = clear + 1;
+    for (int i = 0; i < clear; ++i) { suffix[i] = uint8_t(i); first[i] = uint8_t(i); }
+    int bits = min_size + 1, next = clear + 2, prev = -1;
+    uint64_t pos = 0, o = 0;
+    uint32_t buf = 0;
+    int nbuf = 0;
+    while (o < npix) {
+        while (nbuf < bits && pos < n) { buf |= uint32_t(in[pos++]) << nbuf; nbuf += 8; }
+        if (nbuf < bits) break;
+        int code = int(buf & ((1u << bits) - 1));
+        buf >>= bits;
+        nbuf -= bits;
+        if (code == clear) { bits = min_size + 1; next = clear + 2; prev = -1; continue; }
+        if (code == eoi) { *ended = 1; break; }
+        if (prev < 0) {
+            if (code > clear) return -1;
+            out[o++] = uint8_t(code);
+            prev = code;
+            continue;
+        }
+        int cur = code, sp = 0;
+        uint8_t lead;
+        if (code < next) {
+            lead = first[code];
+        } else if (code == next && next < 4096) {
+            lead = first[prev];
+            stack[sp++] = lead;
+            cur = prev;
+        } else {
+            return -1;
+        }
+        while (cur >= clear) { stack[sp++] = suffix[cur]; cur = prefix[cur]; }
+        stack[sp++] = uint8_t(cur);
+        while (sp && o < npix) out[o++] = stack[--sp];
+        if (next < 4096) {
+            prefix[next] = uint16_t(prev);
+            suffix[next] = lead;
+            first[next] = first[prev];
+            ++next;
+            if (next == (1 << bits) && bits < 12) ++bits;
+        }
+        prev = code;
+    }
+    return int64_t(o);
 }
 
 }  // extern "C"

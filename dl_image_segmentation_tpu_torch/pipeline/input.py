@@ -45,7 +45,7 @@ def host_shard_files(files: Sequence[str]) -> List[str]:
 class TFRecordFeed:
     """Iterable over (images, labels) batches from sharded TFRecords.
 
-    parse_mode: rgbarr | tifraw | tifraw_eager | tifarr (rgbraw raises).
+    parse_mode: rgbraw | rgbarr | tifraw | tifraw_eager | tifarr.
     Labels are int32, nodata kept for the loss mask. ``scale``: None =
     uint8 / 255 and uint16 / 65535 (float32 out), a float = an explicit
     multiplier, ``"raw"`` = the parsed dtype untouched (for device pools;
@@ -73,8 +73,6 @@ class TFRecordFeed:
         if not files:
             raise FileNotFoundError(f"no shards match {shard_pattern!r}")
         self.files = host_shard_files(files) if per_host else list(files)
-        if parse_mode == "rgbraw":
-            raise NotImplementedError(parsers.RGBRAW_NOT_PORTED)
         self.parse = PARSE_FNS[parse_mode]
         self.parse_mode = parse_mode
         self.batch_size = batch_size

@@ -1,20 +1,40 @@
-"""Decode-from-bytes dispatch for the server's request bodies.
+"""Image codecs and the decode-from-bytes dispatch.
 
-The JAX package's ``raster/image.py`` sniffs a container from its magic
-bytes and decodes any supported raster. The port decodes TIFF/GeoTIFF
-(classic and BigTIFF) with its own reader (``raster/geotiff.py``).
-Other containers raise :class:`UnsupportedFormatError` naming the
-detected format: PNG, JPEG, BMP and GIF are decoded with PIL in the JAX
-package, and the port does not depend on PIL; the scientific formats
-come with later slices.
+A copy of the JAX package's ``raster/image.py`` for the containers the
+port decodes: TIFF/GeoTIFF (classic and BigTIFF) through its own reader
+(``raster/geotiff.py``), and PNG, JPEG, GIF (first frame) and BMP
+through its own codecs (``raster/png.py``, ``jpeg.py``, ``gif.py``,
+``bmp.py``), where the JAX package uses PIL. Decoded arrays equal the
+JAX package's, PIL's mode mapping included; the JPEG encoder's bytes
+equal PIL's. ``decode_image_bytes`` sniffs the container from its magic
+bytes. JPEG 2000 and the JPEG variants the decoder lacks raise
+:class:`UnsupportedFormatError` naming ROADMAP queue 1 item 6, the
+scientific containers item 10.
+
+``sniff_image_info`` reads shape and dtype from headers without decoding
+pixels. Its JPEG sniffer is a copy of the JAX package's; for PNG, GIF
+and BMP it reports what the port's decoder returns, where the JAX
+package's sniffer does not in places (16-bit RGB(A) PNG: uint8, not
+uint16; 16-bit grey+alpha PNG: 4 bands, not 2; 1-bit grey PNG and
+black/white BMP: bool; BMP palettes that are grey but not the identity
+ramp: 3 bands; 32-bit BMP without an alpha mask: 3 bands).
 """
 
 from __future__ import annotations
 
-from .geotiff import GeoTIFF, RasterInfo, decode_geotiff, decode_geotiff_info
+import struct
 
-__all__ = ["CorruptRasterError", "UnsupportedFormatError",
-           "decode_image_bytes", "sniff_image_info"]
+import numpy as np
+
+from .bmp import BMPUnsupported, bmp_layout, decode_bmp_array
+from .geotiff import GeoTIFF, RasterInfo, decode_geotiff, decode_geotiff_info
+from .gif import decode_gif_array, gif_layout
+from .jpeg import JPEGUnsupported, decode_jpeg_array, encode_jpeg_array
+from .png import decode_png_array, decoded_layout, encode_png_array, png_header
+
+__all__ = ["CorruptRasterError", "UnsupportedFormatError", "decode_image",
+           "decode_image_bytes", "decode_jpeg", "decode_png", "encode_jpeg",
+           "encode_png", "png_to_jpeg", "sniff_image_info"]
 
 
 class UnsupportedFormatError(ValueError):
@@ -34,6 +54,8 @@ def _named(fmt: str, fn, *args, **kwargs):
         return fn(*args, **kwargs)
     except (CorruptRasterError, UnsupportedFormatError):
         raise
+    except (JPEGUnsupported, BMPUnsupported) as e:
+        raise UnsupportedFormatError(str(e)) from e
     except Exception as e:
         raise CorruptRasterError(
             f"corrupt or unreadable {fmt} container; "
@@ -41,13 +63,9 @@ def _named(fmt: str, fn, *args, **kwargs):
 
 
 # (magic, name, ROADMAP queue 1 item that ports its decoder): item 6 is
-# what the JAX package decodes through PIL or OpenJPEG, item 10 the
-# scientific containers of its universal decode
+# JPEG 2000 (OpenJPEG in the JAX package), item 10 the scientific
+# containers of its universal decode
 _KNOWN_MAGICS = (
-    (b"\x89PNG\r\n\x1a\n", "PNG", 6),
-    (b"\xff\xd8\xff", "JPEG", 6),
-    (b"GIF8", "GIF", 6),
-    (b"BM", "BMP", 6),
     (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000 (JP2)", 6),
     (b"\xffO\xffQ", "JPEG 2000 codestream (J2K)", 6),
     (b"CDF\x01", "NetCDF classic", 10),
@@ -61,9 +79,25 @@ _KNOWN_MAGICS = (
 )
 
 
+def _is_png(data: bytes) -> bool:
+    return data[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def _is_jpeg(data: bytes) -> bool:
+    return data[:3] == b"\xff\xd8\xff"
+
+
 def _is_tiff(data: bytes) -> bool:
     # classic TIFF (version 42) or BigTIFF (version 43)
     return data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
+
+
+def _is_bmp(data: bytes) -> bool:
+    return data[:2] == b"BM"
+
+
+def _is_gif(data: bytes) -> bool:
+    return data[:4] == b"GIF8"
 
 
 def _unsupported(data: bytes) -> UnsupportedFormatError:
@@ -72,23 +106,138 @@ def _unsupported(data: bytes) -> UnsupportedFormatError:
                       (f"unknown container (magic bytes {data[:4]!r})", 10))
     return UnsupportedFormatError(
         f"unsupported raster format: {name}. The port decodes GeoTIFF "
-        "(classic and BigTIFF) and .npy bodies; convert other "
-        "containers (e.g. with gdal_translate) first. Decoding this one "
-        f"is ROADMAP queue 1 item {item}.")
+        "(classic and BigTIFF), PNG, JPEG, GIF, BMP and .npy bodies; "
+        "convert other containers (e.g. with gdal_translate) first. "
+        f"Decoding this one is ROADMAP queue 1 item {item}.")
+
+
+def _three_d(arr: np.ndarray, what: str) -> np.ndarray:
+    # the JAX package asserts a 3-D result of at most 3 bands here
+    if arr.ndim != 3 or arr.shape[2] > 3:
+        raise ValueError(f"{what} decoded to shape {arr.shape}: the chip "
+                         "codecs take at most 3 bands")
+    return arr
+
+
+def _decode_any(data: bytes, what: str) -> np.ndarray:
+    # the JAX package's decode_png and decode_jpeg open the bytes with
+    # PIL, which takes any image container it knows, whatever the name
+    codec = _decode_pixels(data)
+    if codec is None:
+        raise _unsupported(data)
+    return _three_d(_named(codec[0], codec[1], data), what)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes (or JPEG, GIF, BMP) -> (H, W, B), at most 3 bands."""
+    return _decode_any(data, "PNG")
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes (or PNG, GIF, BMP) -> (H, W, B), at most 3 bands."""
+    return _decode_any(data, "JPEG")
+
+
+def encode_png(array: np.ndarray) -> bytes:
+    """uint8 with 1-3 bands, or uint16 with 1 band -> PNG bytes."""
+    return encode_png_array(array)
+
+
+def encode_jpeg(array: np.ndarray, quality: int = 100) -> bytes:
+    """uint8 with 1 or 3 bands -> the JPEG bytes PIL writes at this
+    quality."""
+    return encode_jpeg_array(array, quality)
+
+
+def png_to_jpeg(data: bytes, quality: int = 100) -> bytes:
+    """PNG -> JPEG transcode."""
+    return encode_jpeg(decode_png(data), quality=quality)
+
+
+def _decode_pixels(data: bytes):
+    """(format name, array) of a PNG, JPEG, GIF or BMP; None otherwise."""
+    if _is_png(data):
+        return "PNG", decode_png_array
+    if _is_jpeg(data):
+        return "image", decode_jpeg_array
+    if _is_gif(data):
+        return "image", decode_gif_array
+    if _is_bmp(data):
+        return "image", decode_bmp_array
+    return None
 
 
 def decode_image_bytes(data: bytes) -> GeoTIFF:
-    """Decode a TIFF/GeoTIFF from bytes, with its georeferencing;
-    bands-last. Other containers raise UnsupportedFormatError."""
+    """Decode a supported raster from bytes, with its georeferencing when
+    the container carries it; bands-last. Other containers raise
+    UnsupportedFormatError."""
     if _is_tiff(data):
         return _named("GeoTIFF", decode_geotiff, data)
-    raise _unsupported(data)
+    codec = _decode_pixels(data)
+    if codec is None:
+        raise _unsupported(data)
+    arr = _named(codec[0], codec[1], data)
+    info = RasterInfo(width=arr.shape[1], height=arr.shape[0],
+                      count=arr.shape[2], dtype=arr.dtype.name)
+    return GeoTIFF(arr, info)
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """bytes -> (H, W, B) array (tf.io.decode_image's role)."""
+    return decode_image_bytes(data).array
+
+
+def _sniff_png(data: bytes) -> RasterInfo:
+    w, h, depth, ct, _ = png_header(data)
+    bands, dtype = decoded_layout(depth, ct)
+    return RasterInfo(width=w, height=h, count=bands, dtype=dtype)
+
+
+def _sniff_jpeg(data: bytes) -> RasterInfo:
+    i = 2
+    n = len(data)
+    while i + 9 < n:
+        if data[i] != 0xFF:
+            i += 1
+            continue
+        marker = data[i + 1]
+        if marker == 0xFF:  # fill byte before a marker (spec-legal)
+            i += 1
+            continue
+        if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
+            i += 2
+            continue
+        (seglen,) = struct.unpack(">H", data[i + 2:i + 4])
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            h, w = struct.unpack(">HH", data[i + 5:i + 9])
+            return RasterInfo(width=w, height=h, count=data[i + 9],
+                              dtype="uint8")
+        i += 2 + seglen
+    raise ValueError("no JPEG SOF marker found")
+
+
+def _sniff_gif(data: bytes) -> RasterInfo:
+    w, h, bands = gif_layout(data)
+    return RasterInfo(width=w, height=h, count=bands, dtype="uint8")
+
+
+def _sniff_bmp(data: bytes) -> RasterInfo:
+    w, h, bands, dtype = bmp_layout(data)
+    return RasterInfo(width=w, height=h, count=bands, dtype=dtype)
 
 
 def sniff_image_info(data: bytes) -> RasterInfo:
-    """Shape, dtype and georeferencing of a TIFF/GeoTIFF from its header,
+    """Shape and dtype (and a GeoTIFF's georeferencing) from headers,
     without decoding pixels. Other containers raise
     UnsupportedFormatError."""
+    if _is_png(data):
+        return _named("PNG", _sniff_png, data)
+    if _is_jpeg(data):
+        return _named("JPEG", _sniff_jpeg, data)
     if _is_tiff(data):
         return _named("GeoTIFF", decode_geotiff_info, data)
+    if _is_bmp(data):
+        return _named("BMP", _sniff_bmp, data)
+    if _is_gif(data):
+        return _named("GIF", _sniff_gif, data)
     raise _unsupported(data)

@@ -1,0 +1,117 @@
+"""Baseline JPEG decoder and encoder of the port (no PIL).
+
+The JAX package decodes and encodes JPEG through PIL, i.e. libjpeg-turbo
+at its defaults. The port's codec is ``csrc/host/jpeg.cc`` (built with
+g++ into ``build/`` at first use and called through ctypes), which
+follows libjpeg-turbo's default paths step for step: its decode is bit
+for bit PIL's (islow IDCT, fancy upsampling, integer YCbCr->RGB), its
+encode byte for byte ``Image.save(format="JPEG", quality=q)`` (JFIF
+1.01, 4:2:0 for RGB, standard Huffman tables, force_baseline).
+
+The decoder takes sequential Huffman frames (SOF0/SOF1) of 8-bit
+samples with 1 or 3 components, any sampling factors libjpeg-turbo
+accepts, restart intervals and fill bytes. Progressive, arithmetic-coded,
+lossless, hierarchical and 12-bit frames and CMYK/YCCK (4-component)
+files raise :class:`JPEGUnsupported`, which names ROADMAP queue 1 item 6;
+truncated and corrupt files raise :class:`JPEGError`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import numpy as np
+
+from .. import _build
+from .png import MAX_PIXELS
+
+__all__ = ["JPEGError", "JPEGUnsupported", "decode_jpeg_array",
+           "encode_jpeg_array", "jpeg_header"]
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "host", "jpeg.cc")
+_CMD = ("g++", "-O3", "-shared", "-fPIC")
+_SIGNATURES = {
+    "fc_jpeg_header": (ctypes.c_int, [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_char_p,
+        ctypes.c_int]),
+    "fc_jpeg_decode": (ctypes.c_int, [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_uint64,
+        ctypes.c_char_p, ctypes.c_int]),
+    "fc_jpeg_encode": (ctypes.c_int64, [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_uint64]),
+}
+_UNSUPPORTED = -3
+
+
+class JPEGError(ValueError):
+    """A JPEG that does not parse or decode (truncated or corrupt)."""
+
+
+class JPEGUnsupported(JPEGError):
+    """A JPEG variant the port does not decode."""
+
+
+def _lib():
+    return _build.load(_CMD, _SRC, _SIGNATURES)
+
+
+def _raise(rc: int, err: bytes):
+    msg = err.split(b"\0", 1)[0].decode("ascii", "replace")
+    if rc == _UNSUPPORTED:
+        raise JPEGUnsupported(
+            f"unsupported JPEG variant: {msg}. The port decodes baseline "
+            "and extended sequential Huffman JPEGs of 1 or 3 8-bit "
+            "components; the rest is ROADMAP queue 1 item 6")
+    raise JPEGError(msg or f"corrupt JPEG data ({rc})")
+
+
+def jpeg_header(data: bytes):
+    """(height, width, components) from the markers before the first
+    scan."""
+    dims = np.zeros(3, np.int32)
+    err = ctypes.create_string_buffer(256)
+    rc = _lib().fc_jpeg_header(data, len(data), dims.ctypes.data, err, 256)
+    if rc:
+        _raise(rc, err.raw)
+    return int(dims[0]), int(dims[1]), int(dims[2])
+
+
+def decode_jpeg_array(data: bytes) -> np.ndarray:
+    """JPEG bytes -> (H, W, 1 or 3) uint8, as PIL decodes them."""
+    h, w, c = jpeg_header(data)
+    if h * w > MAX_PIXELS:
+        raise JPEGError(f"image size ({h * w} pixels) exceeds the limit of "
+                        f"{MAX_PIXELS} pixels (decompression bomb)")
+    out = np.empty((h, w, c), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    rc = _lib().fc_jpeg_decode(data, len(data), out.ctypes.data, out.size,
+                               err, 256)
+    if rc:
+        _raise(rc, err.raw)
+    return out
+
+
+def encode_jpeg_array(array, quality: int = 100) -> bytes:
+    """(H, W[, 1 or 3]) uint8 -> JPEG bytes equal to PIL's
+    ``Image.fromarray(a).save(f, format="JPEG", quality=quality)``."""
+    arr = np.asarray(array)
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] not in (1, 3):
+        raise ValueError(f"JPEG encoding takes uint8 with 1 or 3 bands, not "
+                         f"{arr.dtype.name} of shape {arr.shape}")
+    h, w, c = arr.shape
+    if not (0 < h <= 65500 and 0 < w <= 65500):
+        raise ValueError(f"JPEG dimensions {w}x{h} out of range")
+    arr = np.ascontiguousarray(arr)
+    blocks = ((h + 15) // 16) * ((w + 15) // 16) * 6
+    cap = 4096 + blocks * 64 * 7  # each coefficient at most 26 bits, stuffed
+    out = np.empty(cap, np.uint8)
+    n = _lib().fc_jpeg_encode(arr.ctypes.data, h, w, c, int(quality),
+                              out.ctypes.data, cap)
+    if n < 0:
+        raise ValueError(f"JPEG encoding failed ({n})")
+    return out[:n].tobytes()

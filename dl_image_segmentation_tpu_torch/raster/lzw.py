@@ -35,6 +35,9 @@ _SIGNATURES = {
     "fc_lzw_decode": (ctypes.c_uint64, [
         ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p, ctypes.c_uint64,
         ctypes.c_uint64]),
+    "fc_gif_lzw_decode": (ctypes.c_int64, [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_uint64, ctypes.c_void_p]),
 }
 _scratch = threading.local()
 
@@ -137,6 +140,22 @@ def lzw_decode_native(data: bytes, max_size: Optional[int] = None) -> bytes:
         if n != (1 << 64) - 2:
             return buf.raw[:n]
         cap *= 2
+
+
+def gif_lzw_decode_native(data: bytes, min_size: int, npix: int):
+    """GIF's LZW variant (``csrc/host/lzw.cc:fc_gif_lzw_decode``): the
+    indices of one image from its joined sub-blocks; (``npix`` uint8
+    indices, 0 past the last decoded, the count decoded, whether an end
+    code was read). Raises ValueError on a corrupt stream."""
+    import numpy as np
+    lib = _build.load(_CMD, _SRC, _SIGNATURES)
+    out = np.zeros(npix, np.uint8)
+    ended = ctypes.c_int(0)
+    n = lib.fc_gif_lzw_decode(data, len(data), min_size, out.ctypes.data,
+                              npix, ctypes.byref(ended))
+    if n < 0:
+        raise ValueError("corrupt GIF LZW stream")
+    return out, n, bool(ended.value)
 
 
 def lzw_decode(data: bytes, max_size: int | None = None) -> bytes:

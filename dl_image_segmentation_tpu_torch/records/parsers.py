@@ -2,6 +2,7 @@
 
 A copy of the JAX package's ``records/parsers.py``:
 
+  'rgbraw'        encoded PNG/JPEG bytes   -> parse_encoded_rgb_img_proto
   'rgbarr'        uint8 array bytes        -> parse_8bit_array_proto
   'tifraw'        encoded GeoTIFF bytes    -> parse_encoded_gdal_proto_wrapped
                                               (float32 raw DNs)
@@ -10,8 +11,8 @@ A copy of the JAX package's ``records/parsers.py``:
   'tifarr'        float32 FloatList arrays -> parse_higher_dtype_array_proto
 
 GeoTIFF payloads decode through the port's own reader
-(``raster/geotiff.py``). 'rgbraw' (encoded PNG/JPEG) raises: the JAX
-package decodes it with PIL, which the GPU machine lacks.
+(``raster/geotiff.py``), PNG and JPEG payloads through its own codecs
+(``raster/png.py``, ``raster/jpeg.py``), where the JAX package uses PIL.
 """
 
 from __future__ import annotations
@@ -20,16 +21,12 @@ from typing import Tuple
 
 import numpy as np
 
-from ..raster.image import decode_image_bytes
+from ..raster.image import decode_image, decode_image_bytes
 from . import proto
 
 __all__ = ["parse_8bit_array_proto", "parse_encoded_gdal_proto_eager",
            "parse_encoded_gdal_proto_wrapped", "parse_encoded_rgb_img_proto",
            "parse_higher_dtype_array_proto"]
-
-RGBRAW_NOT_PORTED = ("PNG/JPEG decoding (rgbraw records, the MT engine) is "
-                     "not ported yet: ROADMAP queue 1 item 6")
-
 
 def _parse_byteslist_proto(example_proto: bytes):
     """(image bytes, (h, w, c), target bytes, (h, w), identifier)."""
@@ -44,9 +41,13 @@ def _parse_byteslist_proto(example_proto: bytes):
             d["identifier"].bytes_list[0])
 
 
-def parse_encoded_rgb_img_proto(example_proto: bytes):
-    """Encoded PNG/JPEG pairs: not ported (see RGBRAW_NOT_PORTED)."""
-    raise NotImplementedError(RGBRAW_NOT_PORTED)
+def parse_encoded_rgb_img_proto(example_proto: bytes
+                                ) -> Tuple[np.ndarray, np.ndarray, bytes]:
+    """Encoded PNG/JPEG image and label bytes -> decoded arrays
+    (image, target, identifier)."""
+    img_bytes, _, tgt_bytes, _, identifier = (
+        _parse_byteslist_proto(example_proto))
+    return decode_image(img_bytes), decode_image(tgt_bytes), identifier
 
 
 def parse_8bit_array_proto(example_proto: bytes

@@ -1,10 +1,12 @@
-"""GeoTIFF chip folders -> sharded TFRecords (the MP engine).
+"""Chip folders -> sharded TFRecords: the MP and MT engines.
 
-A copy of the JAX package's ``records/writers.py``, trimmed to
-``process_dataset_mp`` over GeoTIFF chip folders; its shards are byte
-for byte the JAX package's. Chip folders may be local, gs://, s3:// or
-http(s)://, and the output directory local, gs:// or s3://, through the
-storage layer. Contracts kept:
+A copy of the JAX package's ``records/writers.py``:
+``process_dataset_mp`` over GeoTIFF chip folders and
+``process_dataset_multithreaded`` (the MT engine) over PNG/JPEG chip
+folders; their shards are byte for byte the JAX package's (whichever of
+its paths, C++ or Python, wrote them). Chip folders may be local, gs://,
+s3:// or http(s)://, and the output directory local, gs:// or s3://,
+through the storage layer. Contracts kept:
 
 * shard files named '%s-%.5d-of-%.5d';
 * images and labels paired by file name, then shuffled with
@@ -18,26 +20,30 @@ storage layer. Contracts kept:
   shard into place only once it is complete).
 
 ``store_as_array=True`` stores decoded arrays (FloatList, the tifarr
-mode, or BytesList for uint8 pairs: rgbarr), ``False`` the GeoTIFF bytes
-(tifraw). The MT engine (PNG/JPEG pairs) raises: it needs PIL.
+mode, or BytesList for uint8 pairs: rgbarr), ``False`` the file bytes
+(tifraw for GeoTIFF, rgbraw for PNG/JPEG). The MT engine keeps the JAX
+package's quirks: a file is PNG when ``.png`` is anywhere in its path,
+and ``convert_png_to_jpg`` transcodes every PNG, labels included, to a
+quality-100 JPEG (the port's encoder, byte for byte PIL's).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import random
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .. import storage
 from ..raster.image import (CorruptRasterError, UnsupportedFormatError,
-                            decode_image_bytes, sniff_image_info)
+                            decode_image_bytes, decode_jpeg, decode_png,
+                            png_to_jpeg, sniff_image_info)
 from .example import write_example_framed
-from .parsers import RGBRAW_NOT_PORTED
 from .tfrecord import TFRecordWriter, shard_filename
 
 __all__ = ["process_dataset_mp", "process_dataset_multithreaded"]
@@ -86,6 +92,30 @@ def _find_image_files(data_dir: str, file_ext: Sequence[str]
     return filenames, labels
 
 
+def _load_mt(path: str, dltile_from_filename: bool, png_to_jpg: bool,
+             decode: bool):
+    """(array or file bytes, h, w, bands, identifier) of one PNG or JPEG
+    chip of at most 3 bands; without ``decode`` only the header is
+    read."""
+    data = storage.read_bytes(path)
+    is_png = ".png" in path  # a substring test, as in the JAX package
+    if is_png and png_to_jpg and not decode:
+        data = png_to_jpeg(data)
+        is_png = False
+    if decode:
+        image = decode_png(data) if is_png else decode_jpeg(data)
+        h, w, bands = image.shape
+    else:
+        info = sniff_image_info(data)
+        h, w, bands = info.height, info.width, info.count
+        if bands > 3:
+            raise ValueError(f"{path}: {bands} bands; the MT engine takes "
+                             "at most 3")
+    key = (_tile_key_from_filename(path) if dltile_from_filename
+           else storage.basename(path))
+    return (image if decode else data), h, w, bands, key
+
+
 def _load_any(path: str, dltile_from_filename: bool, decode: bool):
     """(array or file bytes, h, w, bands, identifier) of one GeoTIFF;
     without ``decode`` only the header is read."""
@@ -120,20 +150,19 @@ def _skip_reason(e: Exception) -> str:
 
 
 def _write_one_shard(writer, worker_index: int, img_files, lbl_files,
-                     indices, dltile_from_filename: bool,
-                     store_as_array: bool, progress_every: int,
-                     counter: int, files_in_worker: int
+                     indices, loader: Callable, store_as_array: bool,
+                     progress_every: int, counter: int, files_in_worker: int
                      ) -> Tuple[int, dict]:
-    """Write one shard's records; (count written, {skip reason: count})."""
+    """Write one shard's records; (count written, {skip reason: count}).
+    ``loader(path, decode)`` gives (payload, h, w, bands, identifier)."""
     written = 0
     skipped: dict = {}
     for i in indices:
         filename = img_files[i]
         try:
-            img_buf, ih, iw, ib, ikey = _load_any(
-                filename, dltile_from_filename, store_as_array)
-            lbl_buf, lh, lw, _, lkey = _load_any(
-                lbl_files[i], dltile_from_filename, store_as_array)
+            img_buf, ih, iw, ib, ikey = loader(filename, decode=store_as_array)
+            lbl_buf, lh, lw, _, lkey = loader(lbl_files[i],
+                                              decode=store_as_array)
             if ikey != lkey:
                 raise ValueError(f"identifiers differ: {ikey!r}, {lkey!r}")
         except Exception as e:  # noqa: BLE001 -- skip-and-continue contract
@@ -157,7 +186,7 @@ def _write_one_shard(writer, worker_index: int, img_files, lbl_files,
 
 
 def _worker(worker_index: int, ranges, name: str, img_files, lbl_files,
-            out_dir: str, num_shards: int, dltile_from_filename: bool,
+            out_dir: str, num_shards: int, loader: Callable,
             store_as_array: bool, progress_every: int, resume: bool
             ) -> Tuple[int, dict]:
     """Write this worker's contiguous range of shards; (examples written,
@@ -180,7 +209,7 @@ def _worker(worker_index: int, ranges, name: str, img_files, lbl_files,
             n, shard_skips = _write_one_shard(
                 writer, worker_index, img_files, lbl_files,
                 range(shard_ranges[s], shard_ranges[s + 1]),
-                dltile_from_filename, store_as_array, progress_every,
+                loader, store_as_array, progress_every,
                 counter, hi - lo)
         except BaseException:
             writer.abort()  # never renamed or uploaded into place
@@ -195,27 +224,21 @@ def _worker(worker_index: int, ranges, name: str, img_files, lbl_files,
     return counter, skipped
 
 
-def process_dataset_mp(name: str, directory: str, out_directory: str,
-                       num_shards: int, num_proc: Optional[int] = None,
-                       dltile_from_filename: bool = True,
-                       file_ext: str = "tif",
-                       store_as_array: bool = True,
-                       resume: bool = False) -> int:
-    """GeoTIFF chip folder (``images/`` and ``labels/``) -> ``num_shards``
-    TFRecord shards in ``out_directory``, written by ``num_proc`` worker
-    threads (default one a shard). Returns the examples written."""
-    num_workers = num_proc or num_shards
+def _process_dataset(name: str, directory: str, out_directory: str,
+                     num_shards: int, num_workers: int, loader: Callable,
+                     store_as_array: bool, file_ext: Sequence[str],
+                     progress_every: int, resume: bool) -> int:
     if num_shards % num_workers:
         raise ValueError("Num shards must be a multiple of num workers "
                          "(incl 1*)")
-    img_files, lbl_files = _find_image_files(directory, [file_ext])
+    img_files, lbl_files = _find_image_files(directory, file_ext)
     storage.makedirs(out_directory, exist_ok=True)
     spacing = np.linspace(0, len(img_files), num_workers + 1).astype(int)
     ranges = [[spacing[i], spacing[i + 1]] for i in range(num_workers)]
     print(f"Launching {num_workers} workers for spacings: {ranges}")
     sys.stdout.flush()
     args = (ranges, name, img_files, lbl_files, out_directory, num_shards,
-            dltile_from_filename, store_as_array, 100, resume)
+            loader, store_as_array, progress_every, resume)
     # the worker count fixes which records go to which shard; the pool is
     # capped at the host's cores
     with ThreadPoolExecutor(min(num_workers, os.cpu_count() or 1)) as ex:
@@ -233,6 +256,35 @@ def process_dataset_mp(name: str, directory: str, out_directory: str,
     return sum(r[0] for r in results)
 
 
-def process_dataset_multithreaded(*args, **kwargs) -> int:
-    """PNG/JPEG chip pairs: not ported (see RGBRAW_NOT_PORTED)."""
-    raise NotImplementedError(RGBRAW_NOT_PORTED)
+def process_dataset_mp(name: str, directory: str, out_directory: str,
+                       num_shards: int, num_proc: Optional[int] = None,
+                       dltile_from_filename: bool = True,
+                       file_ext: str = "tif",
+                       store_as_array: bool = True,
+                       resume: bool = False) -> int:
+    """GeoTIFF chip folder (``images/`` and ``labels/``) -> ``num_shards``
+    TFRecord shards in ``out_directory``, written by ``num_proc`` worker
+    threads (default one a shard). Returns the examples written."""
+    return _process_dataset(
+        name, directory, out_directory, num_shards, num_proc or num_shards,
+        functools.partial(_load_any,
+                          dltile_from_filename=dltile_from_filename),
+        store_as_array, [file_ext], 100, resume)
+
+
+def process_dataset_multithreaded(name: str, directory: str,
+                                  out_directory: str, num_shards: int,
+                                  num_threads: Optional[int] = None,
+                                  dltile_from_filename: bool = True,
+                                  convert_png_to_jpg: bool = False,
+                                  store_as_array: bool = False,
+                                  resume: bool = False) -> int:
+    """PNG/JPEG chip folder (``images/`` and ``labels/``, ``.png`` and
+    ``.jpg`` files) -> ``num_shards`` TFRecord shards, written by
+    ``num_threads`` worker threads (default one a shard). Returns the
+    examples written."""
+    return _process_dataset(
+        name, directory, out_directory, num_shards, num_threads or num_shards,
+        functools.partial(_load_mt, dltile_from_filename=dltile_from_filename,
+                          png_to_jpg=convert_png_to_jpg),
+        store_as_array, ["png", "jpg"], 1000, resume)

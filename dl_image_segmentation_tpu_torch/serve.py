@@ -10,9 +10,10 @@ Prometheus lines:
 - one forward pass serves BOTH output kinds: probability requests get
   the softmax map, class-map requests the logits' argmax (the same
   int32 map as ``Trainer.predict``);
-- request bodies are TIFF/GeoTIFF (scaled by the offline rules of
-  ``scale_image``) or ``.npy`` arrays taken as raw, already-scaled
-  float arrays; other containers answer 400;
+- request bodies are TIFF/GeoTIFF, PNG, JPEG, GIF or BMP (decoded by the
+  port's codecs and scaled by the offline rules of ``scale_image``) or
+  ``.npy`` arrays taken as raw, already-scaled float arrays; other
+  containers and corrupt bodies answer 400;
 - bounded admission: beyond ``max_queue`` waiting requests the server
   answers 503 at once, and shutdown fails queued requests instead of
   letting them time out. A batch that fails surfaces its error to every

@@ -1,1 +1,2 @@
-"""Host utilities: the HTML tile map (webmap)."""
+"""Host utilities: the HTML tile map (webmap) and contact-sheet previews
+of record pairs (preview)."""

@@ -20,6 +20,8 @@ from dl_image_segmentation_tpu.geo import Tile as JTile
 from dl_image_segmentation_tpu.pipeline import chips as jchips
 from dl_image_segmentation_tpu.pipeline.export import run_export as j_export
 from dl_image_segmentation_tpu.raster.cog import CogReader as JCogReader
+from dl_image_segmentation_tpu.raster.image import (
+    decode_image_bytes as j_decode_image_bytes)
 from dl_image_segmentation_tpu_torch import storage
 from dl_image_segmentation_tpu_torch.catalog import LocalCatalog
 from dl_image_segmentation_tpu_torch.catalog.httpserver import SceneServer
@@ -31,7 +33,7 @@ from dl_image_segmentation_tpu_torch.pipeline.export import (
 from dl_image_segmentation_tpu_torch.raster.cog import CogReader
 from dl_image_segmentation_tpu_torch.raster.geotiff import encode_geotiff
 from dl_image_segmentation_tpu_torch.raster.image import (
-    UnsupportedFormatError)
+    UnsupportedFormatError, decode_image_bytes, encode_png)
 from dl_image_segmentation_tpu_torch.storage.fake_gcs import FakeGCS
 from dl_image_segmentation_tpu_torch.storage.fake_s3 import FakeS3
 
@@ -342,8 +344,10 @@ class TestNotPorted:
 
     def test_per_band_scenes(self, tmp_path):
         """A scene of per-band files (as ingest_safe writes them): GeoTIFF
-        band files load as the JAX package loads them; a JP2 or PNG band
-        raises naming item 6, an HDF5 band item 10."""
+        band files load as the JAX package loads them; a JP2 band raises
+        naming item 6, an HDF5 band item 10. A PNG band decodes as the
+        JAX package decodes it and then fails as its load fails: a PNG
+        carries no geotransform."""
         root = str(tmp_path / "cat")
         LocalCatalog.create(root)
         jt, tt = JTile(*NORTH), TTile(*NORTH)
@@ -366,8 +370,19 @@ class TestNotPorted:
             want = j.load(j.search(jt, "s2"), jt, ["B05", "B02"], method)
             for a, b in zip(got, want):
                 np.testing.assert_array_equal(a, b)
+        png = encode_png(np.random.RandomState(31).randint(
+            1, 60000, (80, 80)).astype(np.uint16))
+        with open(paths["B02"], "wb") as f:
+            f.write(png)
+        np.testing.assert_array_equal(decode_image_bytes(png).array,
+                                      j_decode_image_bytes(png).array)
+        errors = []
+        for cat, tile in ((LocalCatalog(root), tt), (JLocalCatalog(root), jt)):
+            with pytest.raises(TypeError) as e:
+                cat.load(cat.search(tile, "s2"), tile, ["B02"])
+            errors.append(str(e.value))
+        assert errors[0] == errors[1]
         for magic, item in ((b"\x00\x00\x00\x0cjP  \r\n\x87\n", 6),
-                            (b"\x89PNG\r\n\x1a\n", 6),
                             (b"\x89HDF\r\n\x1a\n", 10)):
             with open(paths["B02"], "wb") as f:
                 f.write(magic + bytes(64))

@@ -3,8 +3,9 @@ cpu``): the verify sequence at tiny sizes -- chips from the synthetic
 catalog and from a LocalCatalog root, shards, inspect and stitch give
 the same bytes and lines -- the TrainConfig each command builds from
 the same argv, the train command's loss log against a direct loop,
-predict, eval and serve of a trained checkpoint, and the flags that
-reach unported parts."""
+predict, eval and serve of a trained checkpoint, the PNG/JPEG path
+(convert, to-tfrecords --engine mt, the default train --mode rgbraw,
+inspect --preview), and the flags that reach unported parts."""
 
 import contextlib
 import dataclasses
@@ -31,6 +32,7 @@ from dl_image_segmentation_tpu_torch.geo import crs
 from dl_image_segmentation_tpu_torch.pipeline.input import (PARSE_FNS,
                                                            TFRecordFeed)
 from dl_image_segmentation_tpu_torch.raster.geotiff import read_geotiff
+from dl_image_segmentation_tpu_torch.raster.image import decode_image
 from dl_image_segmentation_tpu_torch.records.tfrecord import read_records
 from dl_image_segmentation_tpu_torch.serve import scale_image
 from dl_image_segmentation_tpu_torch.train import trainer as ttrainer
@@ -408,12 +410,8 @@ NOT_PORTED = [
      NotImplementedError, "item 8"),
     (["train", "--records", "x", "--mode", "tifarr", "--remat"],
      NotImplementedError, "item 1"),
-    (["convert", "--directory", "d", "--out", "o"], NotImplementedError,
-     "item 6"),
     (["ingest-safe", "--catalog", "c", "--safe", "s"], NotImplementedError,
      "item 6"),
-    (["to-tfrecords", "--name", "n", "--directory", "d", "--out", "o",
-      "--engine", "mt"], NotImplementedError, "item 6"),
 ]
 
 
@@ -425,6 +423,128 @@ def test_unported_flags_raise_their_item(argv, exc, match):
         "train", "predict", "serve", "eval") else []
     with pytest.raises(exc, match=match):
         tcli.main(argv + dev)
+
+
+@pytest.fixture(scope="module")
+def png_seq(seq):
+    """The PNG/JPEG path through both CLIs, once, on the LocalCatalog
+    chips: convert --to png (rescaled) and --to jpg, then to-tfrecords
+    --engine mt of the PNG folders (rgbraw, --store-as-array,
+    --png-to-jpg). Returns the working directory."""
+    work, _ = seq
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        chips = f"port-cat/{FOLDER}"
+        for name, cli in (("jax", jcli), ("port", tcli)):
+            for to in ("png", "jpg"):
+                rc, lines = run(cli, [
+                    "convert", "--directory", chips, "--out",
+                    f"{name}-{to}", "--to", to, "--rescale", "0", "3000",
+                    "--workers", "2", "--quality", "90"])
+                assert rc == 0 and lines[-1].startswith("Converted 30 of 30")
+            for kind, extra in (("raw", []), ("arr", ["--store-as-array"]),
+                                ("jpg", ["--png-to-jpg"])):
+                rc, lines = run(cli, [
+                    "to-tfrecords", "--name", "rgb", "--directory",
+                    f"{name}-png", "--out", f"{name}-mt-{kind}", "--shards",
+                    "2", "--workers", "2", "--engine", "mt", *extra])
+                assert rc == 0 and lines[-1] == "wrote 15 examples"
+    finally:
+        os.chdir(cwd)
+    return work
+
+
+def test_convert_equals_jax(png_seq):
+    """Replaces the NOT_PORTED convert case: PNG chips decode to the JAX
+    package's pixels, JPG chips are its bytes; a second run skips every
+    file."""
+    work = png_seq
+    for sub in ("images", "labels"):
+        names = sorted(os.listdir(os.path.join(work, "jax-png", sub)))
+        assert len(names) == 15
+        assert sorted(os.listdir(os.path.join(work, "port-png", sub))) == \
+            names
+        for n in names:
+            got, want = (decode_image(open(os.path.join(
+                work, f"{who}-png", sub, n), "rb").read())
+                for who in ("port", "jax"))
+            assert got.dtype == want.dtype == np.uint8
+            np.testing.assert_array_equal(got, want)
+    assert read_all(os.path.join(work, "port-jpg")) == \
+        read_all(os.path.join(work, "jax-jpg"))
+    rc, lines = run(tcli, ["convert", "--directory",
+                           os.path.join(work, "port-cat", FOLDER), "--out",
+                           os.path.join(work, "port-png"), "--rescale", "0",
+                           "3000"])
+    assert rc == 0 and lines[-1].startswith("Converted 0 of 30")
+
+
+@pytest.mark.parametrize("kind", ["raw", "arr", "jpg"])
+def test_to_tfrecords_engine_mt_equals_jax(png_seq, kind):
+    """Replaces the NOT_PORTED --engine mt case: from the same PNG chip
+    folder (the JAX package's, so that the inputs are equal bytes too),
+    the port's MT shards are the JAX CLI's byte for byte."""
+    work = png_seq
+    out = os.path.join(work, f"port-mt-{kind}-from-jax")
+    extra = {"raw": [], "arr": ["--store-as-array"],
+             "jpg": ["--png-to-jpg"]}[kind]
+    rc, _ = run(tcli, ["to-tfrecords", "--name", "rgb", "--directory",
+                       os.path.join(work, "jax-png"), "--out", out,
+                       "--shards", "2", "--workers", "2", "--engine", "mt",
+                       *extra])
+    assert rc == 0
+    shards = [{n: open(os.path.join(d, n), "rb").read()
+               for n in sorted(os.listdir(d))}
+              for d in (out, os.path.join(work, f"jax-mt-{kind}"))]
+    assert sorted(shards[0]) == ["rgb-00000-of-00002", "rgb-00001-of-00002"]
+    assert shards[0] == shards[1]
+
+
+def test_train_default_rgbraw_equals_rgbarr(png_seq, tmp_path):
+    """Replaces test_unported_inputs_raise_their_item's rgbraw assert:
+    train without --mode reads the rgbraw shards; its losses equal the
+    same run's from the --store-as-array (rgbarr) shards, which hold the
+    same arrays."""
+    work = png_seq
+    logs = {}
+    for kind, mode in (("raw", []), ("arr", ["--mode", "rgbarr"])):
+        rc, lines = run(tcli, [
+            "train", "--records", os.path.join(work, f"port-mt-{kind}",
+                                               "rgb-*"), *mode, *MODEL,
+            "--steps", "3", "--log-every", "1", "--workers", "1",
+            "--device", "cpu"])
+        assert rc == 0
+        logs[kind] = [re.search(r"step \d+: loss=\S+ acc=\S+", ln).group(0)
+                      for ln in lines if ln.startswith("step ")]
+    assert len(logs["raw"]) == 3 and logs["raw"] == logs["arr"]
+    # --png-to-jpg transcodes the labels too, and JPEG's rounding moves
+    # label values at class edges: every uint8 value is a class here
+    wide = [v if MODEL[i - 1] != "--classes" else "256"
+            for i, v in enumerate(MODEL)]
+    rc, lines = run(tcli, [
+        "train", "--records", os.path.join(work, "port-mt-jpg", "rgb-*"),
+        *wide, "--steps", "2", "--log-every", "1", "--device", "cpu"])
+    assert rc == 0 and sum(ln.startswith("step ") for ln in lines) == 2
+
+
+def test_inspect_preview_equals_jax(png_seq, tmp_path):
+    """Replaces test_unported_inputs_raise_their_item's --preview assert:
+    the sheet decodes to the JAX CLI's sheet of the same records."""
+    work = png_seq
+    recs = os.path.join(work, "jax-mt-raw", "rgb-*")
+    sheets = {}
+    for name, cli in (("jax", jcli), ("port", tcli)):
+        path = str(tmp_path / f"{name}.png")
+        rc, lines = run(cli, ["inspect", "--records", recs, "--mode",
+                              "rgbraw", "--preview", path,
+                              "--preview-count", "3"])
+        assert rc == 0
+        sheets[name] = (decode_image(open(path, "rb").read()), lines[-1])
+    np.testing.assert_array_equal(sheets["port"][0], sheets["jax"][0])
+    assert sheets["port"][1] == sheets["jax"][1].replace(
+        str(tmp_path / "jax.png"), str(tmp_path / "port.png"))
+    assert sheets["port"][0].shape == (3 * 64 + 4 * 4, 2 * 64 + 3 * 4, 3)
 
 
 def test_model_families_and_int8_through_the_cli(seq, tmp_path):
@@ -497,15 +617,13 @@ def test_unet_only_options_raise_for_other_models(argv):
 
 
 def test_unported_inputs_raise_their_item(seq, tmp_path, monkeypatch):
-    """The default train --mode rgbraw (item 6), inspect --preview (item
-    6) and an orbax checkpoint directory (item 1)."""
+    """An orbax checkpoint directory (item 1). The default train --mode
+    rgbraw and inspect --preview work: see
+    test_train_default_rgbraw_equals_rgbarr and
+    test_inspect_preview_equals_jax."""
     work, _ = seq
     recs = os.path.join(work, "port-recs", "mumbai-*")
     monkeypatch.chdir(work)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tcli.main(["train", "--records", recs, *MODEL, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tcli.main(["inspect", "--records", recs, "--preview", "p.png"])
     orbax = tmp_path / "orbax_ckpt"
     orbax.mkdir()
     for argv in (["train", "--records", recs, "--mode", "tifarr",

@@ -303,6 +303,39 @@ class TestImportHygiene:
             bad = [n for n in _imported_names(path) if _blocked(n)]
             assert not bad, (path, bad)
 
+    def test_codecs_work_with_pil_blocked(self):
+        """PNG and JPEG decode and encode (and GIF, BMP decode) with PIL,
+        torchvision and the JAX package unimportable: the GPU machine has
+        none of them."""
+        files = glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)
+        for path in files + [os.path.join(ROOT, "chip_smoke.py")]:
+            bad = [n for n in _imported_names(path) if n.split(".")[0] in (
+                "PIL", "torchvision", "cv2", "imageio")]
+            assert not bad, (path, bad)
+        code = f"""
+import sys, importlib.abc
+BLOCKED = list({BLOCKED!r}) + ["PIL", "torchvision", "cv2", "imageio"]
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in BLOCKED or top == "dl_image_segmentation_tpu":
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Blocker())
+import numpy as np
+from dl_image_segmentation_tpu_torch.raster import image
+a = (np.arange(24 * 20 * 3) % 251).astype(np.uint8).reshape(24, 20, 3)
+assert (image.decode_png(image.encode_png(a)) == a).all()
+j = image.encode_jpeg(a, 95)
+assert image.decode_jpeg(j).shape == a.shape
+assert image.sniff_image_info(j).count == 3
+print("ok", "PIL" in sys.modules)
+"""
+        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.split() == ["ok", "False"]
+
     def test_every_module_imports_with_jax_blocked(self):
         mods = []
         for path in glob.glob(os.path.join(PORT, "**", "*.py"),
@@ -322,7 +355,9 @@ class TestImportHygiene:
             "storage", "storage.gcs", "storage.s3", "storage.httpread",
             "storage.fake_gcs", "storage.fake_s3", "catalog.http",
             "catalog.httpserver", "catalog.stac", "catalog.stacserver",
-            "records.sink")}
+            "records.sink", "raster.png", "raster.jpeg", "raster.gif",
+            "raster.bmp", "raster.image", "pipeline.convert",
+            "utils.preview")}
         assert training <= set(mods), sorted(training - set(mods))
         code = f"""
 import sys, importlib, importlib.abc

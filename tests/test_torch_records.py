@@ -1,8 +1,9 @@
 """The PyTorch port's TFRecord path against the JAX package, on the CPU:
 CRC32C (Python and the host C++), the Example codec, shards written by
-process_dataset_mp from a small GeoTIFF chip folder (byte for byte the
-JAX package's, in both storage modes), the parsers, TFRecordFeed's
-batches and the DevicePrefetcher on the CPU. Everything here is exact.
+process_dataset_mp from a small GeoTIFF chip folder and by the MT engine
+from a PNG/JPEG chip folder (byte for byte the JAX package's, in every
+storage mode), the parsers, TFRecordFeed's batches (rgbraw included) and
+the DevicePrefetcher on the CPU. Everything here is exact.
 """
 
 import os
@@ -17,6 +18,7 @@ from dl_image_segmentation_tpu.records import example as jexample
 from dl_image_segmentation_tpu.records import tfrecord as jtfrecord
 from dl_image_segmentation_tpu.records import writers as jwriters
 from dl_image_segmentation_tpu_torch.pipeline import input as tinput
+from dl_image_segmentation_tpu_torch.raster import image as timage
 from dl_image_segmentation_tpu_torch.raster import write_geotiff
 from dl_image_segmentation_tpu_torch.records import crc32c as tcrc
 from dl_image_segmentation_tpu_torch.records import example as texample
@@ -174,14 +176,124 @@ def test_parsers_equal_jax(shards, mode, dtype, arr):
     assert n == PAIRS
 
 
-def test_rgbraw_and_the_mt_engine_raise(shards):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tparsers.parse_encoded_rgb_img_proto(b"")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        twriters.process_dataset_multithreaded("a", "b", "c", 1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tinput.TFRecordFeed(os.path.join(shards[(np.uint8, False)][0], "*"),
-                            "rgbraw", 4)
+def png_chip_folder(root):
+    """PAIRS PNG/JPEG chip pairs named like DLTile keys, as ``convert``
+    writes them: uint8 RGB images (every third a quality-90 JPEG) and
+    uint8 labels with nodata 255."""
+    rng = np.random.RandomState(4)
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i in range(PAIRS):
+        stem = f"{SIZE}#2#10.0#43#{i - 5}#3512"
+        img = rng.randint(0, 256, (SIZE, SIZE, 3)).astype(np.uint8)
+        lbl = rng.randint(0, 4, (SIZE, SIZE)).astype(np.uint8)
+        lbl[rng.rand(SIZE, SIZE) < 0.1] = 255
+        ext = "jpg" if i % 3 == 0 else "png"
+        enc = ((lambda a: timage.encode_jpeg(a, 90)) if ext == "jpg"
+               else timage.encode_png)
+        for sub, arr in (("images", img), ("labels", lbl)):
+            with open(os.path.join(root, sub, f"{stem}.{ext}"), "wb") as f:
+                f.write(enc(arr))
+    return root
+
+
+@pytest.fixture(scope="module")
+def mt_shards(tmp_path_factory):
+    """{kind: (port shard dir, JAX shard dir)} of the MT engine over one
+    PNG/JPEG chip folder, for rgbraw, rgbarr (--store-as-array) and
+    --png-to-jpg."""
+    base = tmp_path_factory.mktemp("mt")
+    chips = png_chip_folder(str(base / "chips"))
+    out = {"chips": chips}
+    for kind, kw in (("rgbraw", {}), ("rgbarr", {"store_as_array": True}),
+                     ("jpg", {"convert_png_to_jpg": True})):
+        dirs = tuple(str(base / f"{who}-{kind}") for who in ("port", "jax"))
+        assert twriters.process_dataset_multithreaded(
+            "mt", chips, dirs[0], 4, num_threads=2, **kw) == PAIRS
+        assert jwriters.process_dataset_multithreaded(
+            "mt", chips, dirs[1], 4, num_threads=2, **kw) == PAIRS
+        out[kind] = dirs
+    return out
+
+
+@pytest.mark.parametrize("kind", ["rgbraw", "rgbarr", "jpg"])
+def test_mt_engine_shards_equal_jax(mt_shards, kind):
+    """Replaces test_rgbraw_and_the_mt_engine_raise's MT case: the MT
+    engine's shards are byte for byte the JAX engine's."""
+    port, ref = mt_shards[kind]
+    got = read_dir(port)
+    assert sorted(got) == [f"mt-0000{i}-of-00004" for i in range(4)]
+    assert got == read_dir(ref)
+
+
+def test_mt_engine_resume_and_default_workers(mt_shards, tmp_path, capsys):
+    port, _ = mt_shards["rgbraw"]
+    out = str(tmp_path / "resumed")
+    os.makedirs(out)
+    keep = "mt-00002-of-00004"
+    open(os.path.join(out, keep), "wb").write(b"complete")
+    assert twriters.process_dataset_multithreaded(
+        "mt", mt_shards["chips"], out, 4, resume=True) == PAIRS - 3
+    assert "skipping (resume)" in capsys.readouterr().out
+    got, want = read_dir(out), read_dir(port)
+    assert got.pop(keep) == b"complete"
+    assert got == {k: v for k, v in want.items() if k != keep}
+
+
+def test_mt_engine_png_substring_quirk(tmp_path):
+    """The JAX engine calls a file PNG when '.png' is anywhere in its
+    path: JPEGs under a '.png' folder go to the PNG decoder, which takes
+    any image container (PIL's open in the JAX package), and with
+    --png-to-jpg they are transcoded again, in both packages."""
+    chips = png_chip_folder(str(tmp_path / "x.png-chips"))
+    for writer in (twriters, jwriters):
+        for kw in ({"store_as_array": True}, {"convert_png_to_jpg": True}):
+            out = str(tmp_path / f"out-{writer.__name__}-{len(kw)}-{kw}")
+            assert writer.process_dataset_multithreaded(
+                "q", chips, out, 2, **kw) == PAIRS
+    for kw in ({"store_as_array": True}, {"convert_png_to_jpg": True}):
+        assert read_dir(str(tmp_path / f"out-{twriters.__name__}-1-{kw}")) \
+            == read_dir(str(tmp_path / f"out-{jwriters.__name__}-1-{kw}"))
+
+
+@pytest.mark.parametrize("kind,mode", [("rgbraw", "rgbraw"),
+                                       ("jpg", "rgbraw"),
+                                       ("rgbarr", "rgbarr")])
+def test_rgb_parsers_equal_jax(mt_shards, kind, mode):
+    """Replaces test_rgbraw_and_the_mt_engine_raise's parser case."""
+    port, _ = mt_shards[kind]
+    n = 0
+    for path in ttfrecord.list_shards(port, "mt"):
+        for rec in ttfrecord.read_records(path):
+            got = tinput.PARSE_FNS[mode](rec)
+            ref = jinput.PARSE_FNS[mode](rec)
+            for g, r in zip(got[:2], ref[:2]):
+                assert g.dtype == r.dtype
+                np.testing.assert_array_equal(g, r)
+            assert got[2] == ref[2]
+            n += 1
+    assert n == PAIRS
+    assert tparsers.parse_encoded_rgb_img_proto is \
+        tinput.PARSE_FNS["rgbraw"]
+
+
+@pytest.mark.parametrize("kind,mode,scale", [("rgbraw", "rgbraw", None),
+                                             ("rgbraw", "rgbraw", "raw"),
+                                             ("jpg", "rgbraw", 0.5)])
+def test_rgbraw_feed_batches_equal_jax(mt_shards, kind, mode, scale):
+    """Replaces test_rgbraw_and_the_mt_engine_raise's feed case: the
+    rgbraw feed's batches equal the JAX feed's (one parse worker)."""
+    port, _ = mt_shards[kind]
+    kw = dict(batch_size=4, image_size=SIZE, shuffle_buffer=5, seed=3,
+              num_workers=1, interleave=2, scale=scale, verify_crc=True)
+    pattern = os.path.join(port, "mt-*")
+    it_t = iter(tinput.TFRecordFeed(pattern, mode, **kw))
+    it_j = iter(jinput.TFRecordFeed(pattern, mode, **kw))
+    for _ in range(5):
+        (gi, gl), (ri, rl) = next(it_t), next(it_j)
+        assert gi.dtype == ri.dtype and gl.dtype == rl.dtype == np.int32
+        np.testing.assert_array_equal(gi, ri)
+        np.testing.assert_array_equal(gl, rl)
 
 
 @pytest.mark.parametrize("mode,dtype,arr,scale", [
@@ -234,7 +346,7 @@ def test_unreadable_pairs_are_skipped_with_their_reason(tmp_path, capsys):
     chips = chip_folder(str(tmp_path / "chips"), np.uint16)
     names = sorted(os.listdir(os.path.join(chips, "images")))
     with open(os.path.join(chips, "images", names[0]), "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + bytes(32))
+        f.write(b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(32))
     with open(os.path.join(chips, "labels", names[1]), "wb") as f:
         f.write(b"II*\x00" + bytes(4))
     for arr in (True, False):
@@ -243,7 +355,7 @@ def test_unreadable_pairs_are_skipped_with_their_reason(tmp_path, capsys):
                                            store_as_array=arr) == PAIRS - 2
         text = capsys.readouterr().out
         assert "WARNING: 1 file(s) skipped: unsupported raster format: " \
-            "PNG" in text
+            "JPEG 2000 (JP2)" in text
         assert "WARNING: 1 file(s) skipped: corrupt or unreadable GeoTIFF " \
             "container" in text
         assert sum(1 for p in ttfrecord.list_shards(out, "s")

@@ -309,6 +309,30 @@ class TestHTTP:
         np.testing.assert_array_equal(
             _load(body), trainer.predict(batch_of(trainer, scaled))[0])
 
+    @pytest.mark.parametrize("fmt", ["png", "jpeg", "gif", "bmp"])
+    def test_image_bodies_use_auto_scaling(self, live_server, fmt):
+        """PNG, JPEG, GIF and BMP bodies (the JAX server decodes them
+        with PIL) decode through the port's codecs, are scaled by dtype
+        and served as ``predict`` of the decoded chip."""
+        from PIL import Image
+        trainer, _, base = live_server
+        img = (np.random.RandomState(3).rand(SIZE, SIZE, 3)
+               * 255).astype(np.uint8)
+        if fmt == "png":
+            data = timage.encode_png(img)
+        elif fmt == "jpeg":
+            data = timage.encode_jpeg(img, 90)
+        else:
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, format=fmt.upper())
+            data = buf.getvalue()
+        decoded = timage.decode_image_bytes(data).array
+        assert decoded.shape == (SIZE, SIZE, 3) and decoded.dtype == np.uint8
+        code, _, body = _post(base + "/predict", data)
+        assert code == 200
+        np.testing.assert_array_equal(_load(body), trainer.predict(
+            batch_of(trainer, tserve.scale_image(decoded, "auto")))[0])
+
     def test_windowed_body_equals_offline(self, live_server):
         trainer, _, base = live_server
         big = np.random.RandomState(11).rand(70, 45, 3).astype(np.float32)
@@ -330,6 +354,10 @@ class TestHTTP:
         (_npy(np.zeros((2, SIZE, SIZE, 3), np.float32)), 400, "expected"),
         (b"not an image", 400, "unsupported raster format"),
         (b"\x89PNG\r\n\x1a\n" + bytes(32), 400, "PNG"),
+        (timage.encode_png(np.zeros((SIZE, SIZE, 3), np.uint8))[:-30], 400,
+         "corrupt or unreadable PNG"),
+        (timage.encode_jpeg(np.zeros((SIZE, SIZE, 3), np.uint8))[:200], 400,
+         "truncated"),
         (b"II*\x00" + bytes(12), 400, "GeoTIFF"),
     ])
     def test_bad_bodies_are_400(self, live_server, body, code, match):
