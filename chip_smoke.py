@@ -146,7 +146,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and encode MP/s at 256 px RGB, convert and MT to-tfrecords seconds,
    the rgbraw, rgbarr and tifarr feeds' records/s; on the card: a train
    step fed from rgbraw and from rgbarr shards (ms, images/s). No
-   hand-written kernel is on this path.
+   hand-written kernel is on this path;
+10. JPEG 2000 and Sentinel-2 ``.SAFE`` ingestion, through ``cli.main``:
+   a reduced SAFE tree written by the port's ``encode_jp2`` (3 granules
+   on 3 dates over phase 4's AOI in zone 43, 13 bands of 12-bit uint16
+   at 10/20/60 m, two granules with GeoJP2 boxes and one with GMLJP2, a
+   TCI preview that must not be ingested) -> ``ingest-safe`` ->
+   ``create-chips --max-cloud-fraction 0`` at ``--batch-tiles`` 16 and
+   0, on the card and with ``--device cpu`` (card bytes == CPU bytes,
+   64 GeoTIFFs a run, K1-K3 launched on the card; every band file
+   decodes to the array encoded); phase 9's PNG chips re-encoded as JP2
+   pairs -> ``to-tfrecords --file-ext jp2`` raw (tifraw) and
+   ``--store-as-array`` (uint8: the rgbarr layout), CRCs checked, and
+   tifarr (FloatList) shards of the same pixels -> ``train --mode
+   tifraw`` and ``--mode tifarr`` (20 steps, one parse thread; falling
+   loss, equal losses, bitwise equal parameters) -> a PredictServer
+   answering 8 JP2 bodies (== predict of the port's decode; a corrupt
+   JP2 gets 400). Times with the card's name and power limit: JP2
+   decode and encode MP/s on one host thread for a 10 m band and a 256²
+   RGB chip, ingest-safe seconds, the tifraw feed's records/s and a fed
+   step. The codec is host C++ (``csrc/host/j2k_decode.cc``,
+   ``j2k_encode.cc``); the card runs K1-K3 in the export and the model.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script
@@ -2089,6 +2109,7 @@ def codec_phase(smi, tmp, share):
     cli_run(["convert", "--directory", folder, "--out", png, "--to", "png",
              "--rescale", str(lo), str(hi)], secs, "convert")
     pngs = {sub: tree_files(png, sub, "png") for sub in ("images", "labels")}
+    share["png"] = png
     if sorted(pngs["images"]) != sorted(arrays) or len(arrays) != 32:
         raise AssertionError(f"convert wrote {len(pngs['images'])} images")
     for k, a in arrays.items():
@@ -2300,6 +2321,442 @@ def codec_phase(smi, tmp, share):
     return out
 
 
+# A 64 x 48 RGB codestream PIL wrote with the 9/7 wavelet, the ICT and
+# one layer at rate 12 (OpenJPEG 2.5.4), and the SHA-256 of PIL's decode
+# of it: the float path's bits on the card's host, which has no PIL.
+J2K_97_B64 = (
+    "/0//UQAvAAAAAABAAAAAMAAAAAAAAAAAAAAAQAAAADAAAAAAAAAAAAADBwEBBwEBBwEB"
+    "/1IADAAAAAEBAwQEAAD/XAAXQmc4Z1BnUGdoUAVQBVBHV9NX01di/2QAJQABQ3JlYXRl"
+    "ZCBieSBPcGVuSlBFRyB2ZXJzaW9uIDIuNS40/5AACgAAAAACgQAB/5PH2GQX4HKbQ+p1"
+    "eZ059914+6kf/2Zut9qxXjsTtCMRUT2aJJxki2L29VSJWtRMmK0TjEbykMPrISutf9OR"
+    "9F0DVbh/SYU2O+kBzUgcyJLgiz+eqFxZO98MQ8PrHic4gIfdZSqU9a0foLH+Exv3XH7z"
+    "XVJAtefFQTViasD5SsHzFQA0fNu0ZRkWAIIRMRWmQwMZXfOuty5Ai6CAcgW/5u8b2Xta"
+    "prkpDlgM4CHAPHwBxYA17jFTOKyyHPQaYSPmp38dyV4Mj0UBwHIz7cH0FAA2nSFd5Q+P"
+    "AKftfnaX5ml3TQCBJcBWQfI7gOVwFKJl9bHugvIGNiYIjKJ2CV38tVHfiwROyrGchjW3"
+    "8HIS+xZ4yEIpc3/YSlvL8ythblS+hWr+lW4zlEElyP7kj0f6cFG+FrAsaw+K+0eYE9/e"
+    "An0O5t5w4VfzEdBTBcDykBVwFUBdoNIK1lG/HD/2u/jB32OXjU+gbQwUttL/bzPdKWmF"
+    "EoiP42rgVS1428HwEABfp8G4brjxVMBbsDtTAWyADilkpbo/GX9sYBcMeHKaV9wLoipU"
+    "aenzutGjv9bZzqul9lP+TrkJLF18sTk57vi8cFhKOBKWqYoJfdpd3CVKutwy0yl9AVL0"
+    "NRmFP3lgReqw0Cmj8ZjbnfbYAEgRxiHAc3sBaoAw+hhhZvLqaytjSb1pSZ7yrlLtkcO9"
+    "nZJanGUsuZdjfaqtL3PnWHTcdhqX8EJIHE7KtsBZZluWFpJx3GB3PJCNRFfeWc61BY+g"
+    "5fnTdkdmORaZwO1gw846YP8FkFXvq2zygE2+61BrSMTF9eCfgLMVCoSpSJGTLfiNnlNQ"
+    "qOT88V7/2Q==")
+J2K_97_SHA256 = ("7d0db5fe44f6c3b0377177bf56411a4b"
+                 "07ee28618cf610a4a344d47b2662e8f8")
+
+S2_SAFE_BANDS = {"B01": 60.0, "B02": 10.0, "B03": 10.0, "B04": 10.0,
+                 "B05": 20.0, "B06": 20.0, "B07": 20.0, "B08": 10.0,
+                 "B8A": 20.0, "B09": 60.0, "B10": 60.0, "B11": 20.0,
+                 "B12": 20.0}
+
+
+def gml_box(gt, epsg, w, h):
+    """A GMLJP2 ``xml `` box (RectifiedGrid origin, offset vectors, EPSG
+    srsName): the Sentinel-2 convention."""
+    import struct
+    srs = f'srsName="urn:ogc:def:crs:EPSG::{epsg}"'
+    xml = (f'<gml:FeatureCollection><gml:RectifiedGrid dimension="2">'
+           f'<gml:limits><gml:GridEnvelope><gml:low>0 0</gml:low>'
+           f'<gml:high>{w - 1} {h - 1}</gml:high></gml:GridEnvelope>'
+           f'</gml:limits><gml:origin><gml:Point gml:id="p" {srs}>'
+           f'<gml:pos>{gt[0]} {gt[3]}</gml:pos></gml:Point></gml:origin>'
+           f'<gml:offsetVector {srs}>{gt[1]} {gt[2]}</gml:offsetVector>'
+           f'<gml:offsetVector {srs}>{gt[4]} {gt[5]}</gml:offsetVector>'
+           f'</gml:RectifiedGrid></gml:FeatureCollection>').encode()
+    return struct.pack(">I", 8 + len(xml)) + b"xml " + xml
+
+
+def l1c_band(rng, h, w):
+    """12-bit L1C-like DNs: a smooth field (bilinear over a 40 px grid)
+    plus a few DNs of noise, nodata 0 in 64 px blotches."""
+    gh, gw = h // 40 + 2, w // 40 + 2
+    coarse = rng.rand(gh, gw)
+    yi, xi = np.linspace(0, gh - 1.001, h), np.linspace(0, gw - 1.001, w)
+    y0, x0 = yi.astype(int), xi.astype(int)
+    fy, fx = (yi - y0)[:, None], (xi - x0)[None, :]
+    f = (coarse[y0][:, x0] * (1 - fy) * (1 - fx)
+         + coarse[y0 + 1][:, x0] * fy * (1 - fx)
+         + coarse[y0][:, x0 + 1] * (1 - fy) * fx
+         + coarse[y0 + 1][:, x0 + 1] * fy * fx)
+    arr = (300 + 3000 * f + rng.randint(0, 24, (h, w))).astype(np.uint16)
+    blot = np.kron(rng.rand(h // 64 + 1, w // 64 + 1) < 0.04,
+                   np.ones((64, 64), bool))[:h, :w]
+    arr[blot] = 0
+    return arr
+
+
+def write_safe(tmp, x0, y0, span, nx, ny):
+    """A reduced Sentinel-2 L1C ``.SAFE`` product, written by the port's
+    ``encode_jp2`` (lossless 5/3): 3 granules on 3 dates in zone 43, each
+    with the 13 bands at their own resolution (10, 20, 60 m) and a
+    ``_TCI.jp2`` preview that ingestion must skip; two granules carry
+    GeoJP2 boxes, the third a GMLJP2 ``xml `` box. A real granule is
+    10,980 px square at 10 m (109.8 km); this one is cut to the nx x ny
+    tiles of ``span`` metres whose corner is (x0, y0) plus one tile on
+    every side, about 2,600 x 1,560 px at 10 m, on a 60 m grid so that
+    every resolution tiles it exactly. Encodes on 8 threads. Returns
+    (SAFE directory, {band file: array}, seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from dl_image_segmentation_tpu_torch.raster.jp2 import encode_jp2
+    safe = os.path.join(tmp, "S2A_MSIL1C_20201015T053641_N0209_R005_"
+                             "T43QBB_20201015T070000.SAFE")
+    jobs = []
+    for k in range(3):
+        date = dt.date(2020, 10, 1) + dt.timedelta(days=10 * k)
+        stamp = f"{date:%Y%m%d}T053641"
+        img = os.path.join(safe, "GRANULE",
+                           f"L1C_T43QBB_A02{7000 + k}_{stamp}", "IMG_DATA")
+        os.makedirs(img)
+        ox = math.floor((x0 - span) / 60.0) * 60.0 - 60.0 * k
+        oy = math.ceil((y0 + (ny + 1) * span) / 60.0) * 60.0 + 60.0 * k
+        w60 = math.ceil((x0 + (nx + 1) * span - ox) / 60.0) + k
+        h60 = math.ceil((oy - (y0 - span)) / 60.0) + k
+        rng = np.random.RandomState(90 + k)
+        for band, res in S2_SAFE_BANDS.items():
+            f = int(60.0 / res)
+            arr = l1c_band(rng, h60 * f, w60 * f)
+            gt = (ox, res, 0.0, oy, 0.0, -res)
+            jobs.append((os.path.join(img, f"T43QBB_{stamp}_{band}.jp2"), arr,
+                         gt, k == 2))
+        jobs.append((os.path.join(img, f"T43QBB_{stamp}_TCI.jp2"),
+                     rng.randint(0, 256, (64, 64, 3)).astype(np.uint8), None,
+                     False))
+
+    def write(job):
+        path, arr, gt, gml = job
+        if gt is None:
+            data = encode_jp2(arr)
+        elif gml:
+            plain = encode_jp2(arr)
+            at = plain.index(b"jp2c") - 4
+            data = plain[:at] + gml_box(gt, 32643, arr.shape[1],
+                                        arr.shape[0]) + plain[at:]
+        else:
+            data = encode_jp2(arr, geotransform=gt, epsg=32643, nodata=0)
+        with open(path, "wb") as fh:
+            fh.write(data)
+        return path, arr
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        arrays = dict(ex.map(write, jobs))
+    return safe, arrays, time.perf_counter() - t0
+
+
+def safe_phase(smi, tmp, share):
+    """Phase 10: JPEG 2000 and Sentinel-2 ``.SAFE`` ingestion on the
+    card, through ``cli.main``: a reduced SAFE tree (``write_safe``) ->
+    ``ingest-safe`` -> ``create-chips --max-cloud-fraction 0`` over phase
+    7's AOI at ``--batch-tiles`` 16 and 0, on the card and with
+    ``--device cpu`` (card bytes == CPU bytes, 64 GeoTIFFs a run, K1-K3
+    launched on the card, gather errors raised with DLSEG_DEBUG); every
+    band file decodes to the array encoded. Then phase 9's PNG chips and
+    labels re-encoded as JP2 pairs (georeferenced as phase 7's GeoTIFF
+    chips), ``to-tfrecords --file-ext jp2`` raw (tifraw: payloads == the
+    files) and ``--store-as-array`` (its records hold the decoded pixels;
+    uint8 arrays take the rgbarr layout), CRCs checked; tifarr records
+    (FloatList) of the tifraw records' decoded pixels, in their order;
+    ``train --mode tifraw`` and ``--mode tifarr`` at the TrainConfig
+    defaults with 10 classes, 20 steps on one parse thread (falling loss,
+    equal losses, bitwise equal parameters); a PredictServer answering 8 JP2
+    bodies (class maps == predict of the port's decode; a corrupt JP2
+    gets 400). Times: JP2 decode and encode MP/s on one host thread (a
+    10 m band, a 256² RGB chip), ingest-safe seconds, the tifraw feed's
+    records/s and a fed step from tifraw shards."""
+    import glob
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from dl_image_segmentation_tpu_torch import kernels
+    from dl_image_segmentation_tpu_torch.geo import Tile
+    from dl_image_segmentation_tpu_torch.raster.jp2 import decode_jp2
+
+    log(f"phase 10: JPEG 2000 and .SAFE ingestion on the card ({smi})")
+    os.makedirs(tmp, exist_ok=True)
+    out = {"seconds": {}, "exports": []}
+    secs = out["seconds"]
+    x0, y0, _, _ = Tile(256, 2, 10.0, 43, -10, 1400).bounds_unpadded
+    safe, arrays, secs["write SAFE"] = write_safe(tmp, x0, y0, 2560.0, 8, 4)
+    px = sum(a.size for a in arrays.values())
+    log(f"  SAFE tree: 3 granules x 13 bands + TCI, {px / 1e6:.1f} MP, "
+        f"{sum(os.path.getsize(p) for p in arrays) / 2**20:.1f} MiB of JP2, "
+        f"encoded in {secs['write SAFE']:.3f} s on 8 threads")
+    root = os.path.join(tmp, "catalog")
+    lines = cli_run(["ingest-safe", "--catalog", root, "--safe", safe,
+                     "--cloud-fraction", "0"], secs, "ingest-safe")
+    with open(os.path.join(root, "index.json")) as f:
+        scenes = json.load(f)["products"]["sentinel-2:L1C"]["scenes"]
+    if len(scenes) != 3 or any(len(s["band_paths"]) != 13 for s in scenes) \
+            or any("TCI" in p for s in scenes
+                   for p in s["band_paths"].values()):
+        raise AssertionError(f"ingest-safe: {lines}")
+    base = with_flags(share["base"], bands=" ".join(S2_SAFE_BANDS),
+                      catalog=root)
+    launches = {c.name: 0 for c in kernels.COUNTERS}
+    trees = {}
+    os.environ["DLSEG_DEBUG"] = "1"
+    try:
+        for device, batch in (("cuda", 16), ("cuda", 0), ("cpu", 16),
+                              ("cpu", 0)):
+            dest = os.path.join(tmp, f"safe-{device}-{batch}")
+            name = f"create-chips SAFE {device} --batch-tiles {batch}"
+            if device == "cuda":
+                torch.cuda.synchronize()
+                for c in kernels.COUNTERS:
+                    c.reset()
+            cli_run(base + ["--out", dest, "--max-cloud-fraction", "0",
+                            "--batch-tiles", str(batch), "--device", device],
+                    secs, name)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                for c in kernels.COUNTERS:
+                    launches[c.name] += c.count
+            folder, = glob.glob(os.path.join(dest, "*"))
+            trees[(device, batch)] = read_tree(folder)
+            run = {"device": device, "batch_tiles": batch, "tiles": 32,
+                   "seconds": secs[name], "tiles_per_s": 32 / secs[name]}
+            out["exports"].append(run)
+            log(f"    {run['tiles_per_s']:.3f} tiles/s on "
+                f"{smi if device == 'cuda' else 'the host CPU'}")
+    finally:
+        del os.environ["DLSEG_DEBUG"]
+    for batch in (16, 0):
+        ref, got = trees[("cpu", batch)], trees[("cuda", batch)]
+        if len(ref) != 64 or got != ref:
+            bad = [k for k in ref if got.get(k) != ref[k]][:3]
+            raise AssertionError(f"SAFE export batch_tiles={batch}: "
+                                 f"{len(ref)} files; card's bytes differ "
+                                 f"from the CPU's {bad}")
+    for name in ("masked_median", "burn_dense", "burn_binned"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name}: not launched by the SAFE export")
+    out["launches"] = launches
+    import base64
+    import hashlib
+    got = decode_jp2(base64.b64decode(J2K_97_B64)).array
+    if hashlib.sha256(got.tobytes()).hexdigest() != J2K_97_SHA256:
+        raise AssertionError("the 9/7 codestream decodes to other bits than "
+                             "OpenJPEG's")
+
+    def lossless(item):
+        path, arr = item
+        with open(path, "rb") as fh:
+            got = decode_jp2(fh.read()).array
+        return np.array_equal(got.reshape(arr.shape), arr)
+    with ThreadPoolExecutor(8) as ex:
+        if not all(ex.map(lossless, arrays.items())):
+            raise AssertionError("a SAFE band file does not decode to the "
+                                 "array encoded")
+    log(f"  SAFE export: card == CPU bytes per tile and batched (64 "
+        f"GeoTIFFs each); launches on the card {launches}; 42 JP2 files "
+        "decode to the arrays encoded; a 9/7 RGB file decodes to "
+        "OpenJPEG's bits")
+
+    jp2_chip_path(smi, tmp, share, out, next(
+        a for p, a in arrays.items() if p.endswith("_B02.jp2")))
+    return out
+
+
+def jp2_chip_path(smi, tmp, share, out, band):
+    """Phase 10's second half: phase 9's PNG chips and labels as JP2
+    pairs (georeferenced as phase 7's GeoTIFF chips) through the MP
+    engine, training, serving, and the codec's times on ``band`` (a 10 m
+    SAFE band) and a chip; fills ``out``."""
+    import glob
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+    import torch
+    from dl_image_segmentation_tpu_torch.raster import read_geotiff
+    from dl_image_segmentation_tpu_torch.raster.image import (
+        decode_image, decode_png)
+    from dl_image_segmentation_tpu_torch.raster.jp2 import (
+        decode_jp2, encode_jp2)
+    from dl_image_segmentation_tpu_torch.records.example import (
+        write_example_framed)
+    from dl_image_segmentation_tpu_torch.records.parsers import (
+        parse_8bit_array_proto, parse_encoded_gdal_proto_eager)
+    from dl_image_segmentation_tpu_torch.records.proto import decode_example
+    from dl_image_segmentation_tpu_torch.records.tfrecord import (
+        TFRecordWriter, read_records)
+    from dl_image_segmentation_tpu_torch.serve import (
+        PredictServer, make_http_server, scale_image)
+    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+
+    secs = out["seconds"]
+    png = share["png"]
+    tifs = tree_files(share["rgb_folder"], "images", "tif")
+    chips = os.path.join(tmp, "jp2-chips")
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(chips, sub))
+        for k, p in tree_files(png, sub, "png").items():
+            info = read_geotiff(tifs[k]).info
+            with open(p, "rb") as fh:
+                a = decode_png(fh.read())
+            with open(os.path.join(chips, sub, f"{k}.jp2"), "wb") as fh:
+                fh.write(encode_jp2(a, geotransform=info.geotransform,
+                                    epsg=info.epsg))
+    jp2s = {sub: tree_files(chips, sub, "jp2") for sub in ("images",
+                                                           "labels")}
+    size = decode_image(open(next(iter(jp2s["images"].values())),
+                             "rb").read()).shape[0]
+    shards = {}
+    for kind, extra in (("tifraw", []), ("array", ["--store-as-array"])):
+        shards[kind] = os.path.join(tmp, f"jp2-{kind}")
+        cli_run(["to-tfrecords", "--name", "jp2", "--directory", chips,
+                 "--out", shards[kind], "--shards", "4", "--workers", "4",
+                 "--engine", "mp", "--file-ext", "jp2", *extra], secs,
+                f"to-tfrecords jp2 {kind}")
+        recs = [r for f in sorted(glob.glob(os.path.join(
+            shards[kind], "jp2-*"))) for r in read_records(f,
+                                                           verify_crc=True)]
+        if len(recs) != 32:
+            raise AssertionError(f"{kind}: {len(recs)} records")
+        for r in recs:
+            d = decode_example(r)
+            key = d["identifier"].bytes_list[0].decode().replace(":", "#")
+            if kind == "tifraw":
+                for sub, feat in (("images", "image/image_data"),
+                                  ("labels", "target/target_data")):
+                    with open(jp2s[sub][key], "rb") as fh:
+                        if d[feat].bytes_list[0] != fh.read():
+                            raise AssertionError(f"tifraw {key}: {feat} "
+                                                 "!= the file")
+            else:
+                img, lbl, _ = parse_8bit_array_proto(r)
+                for sub, a in (("images", img), ("labels", lbl)):
+                    with open(jp2s[sub][key], "rb") as fh:
+                        want = decode_jp2(fh.read()).array
+                    if not np.array_equal(a, want.reshape(a.shape)):
+                        raise AssertionError(f"--store-as-array {key}: "
+                                             f"{sub} != the decoded JP2")
+    # the MP engine stores uint8 arrays as bytes (the rgbarr layout,
+    # which the step scales by 1/255); tifarr records (FloatList) of the
+    # same pixels, in the tifraw shards' names and order
+    shards["tifarr"] = os.path.join(tmp, "jp2-tifarr")
+    os.makedirs(shards["tifarr"])
+    for f in sorted(glob.glob(os.path.join(shards["tifraw"], "jp2-*"))):
+        w = TFRecordWriter(os.path.join(shards["tifarr"],
+                                        os.path.basename(f)))
+        for r in read_records(f, verify_crc=True):
+            img, lbl, ident = parse_encoded_gdal_proto_eager(r)
+            write_example_framed(w.fileobj, img.astype(np.float32),
+                                 lbl[:, :, 0].astype(np.float32), *img.shape,
+                                 *lbl.shape[:2], ident)
+        w.close()
+    log("  to-tfrecords --file-ext jp2: tifraw payloads == the JP2 files, "
+        "--store-as-array pixels == their decode (uint8: the rgbarr "
+        "layout); 32 records each, CRCs checked; tifarr (FloatList) "
+        "shards of the same pixels")
+    losses, params = {}, {}
+    for kind in ("tifraw", "tifarr"):
+        mlog = os.path.join(tmp, f"{kind}.jsonl")
+        ckpt = os.path.join(tmp, f"{kind}.pt")
+        cli_run(["train", "--records", os.path.join(shards[kind], "jp2-*"),
+                 "--mode", kind, "--classes", "10", "--steps", "20",
+                 "--log-every", "1", "--workers", "1", "--metrics-log", mlog,
+                 "--checkpoint", ckpt], secs, f"train {kind}")
+        losses[kind] = [json.loads(ln)["loss"] for ln in open(mlog)]
+        params[kind] = torch.load(ckpt, weights_only=False)
+    ls = losses["tifraw"]
+    if len(ls) != 20 or not np.mean(ls[-5:]) < ls[0]:
+        raise AssertionError(f"train tifraw: losses {ls}")
+    if ls != losses["tifarr"]:
+        raise AssertionError(f"tifraw losses {ls} != tifarr "
+                             f"{losses['tifarr']}")
+    pa, pb = (params[k]["params"] for k in ("tifraw", "tifarr"))
+    if not all(torch.equal(pa[n], pb[n]) for n in pa):
+        raise AssertionError("tifraw and tifarr runs end in other parameters")
+    out["losses"] = ls
+    log(f"  train --mode tifraw (JP2 payloads): loss {ls[0]:.4f} -> "
+        f"{np.mean(ls[-5:]):.4f}; == the tifarr run's losses, parameters "
+        "bitwise equal")
+    # serve JP2 bodies
+    trainer = Trainer(TrainConfig(num_classes=10, batch_size=8))
+    trainer.restore_checkpoint(os.path.join(tmp, "tifraw.pt"))
+    ps = PredictServer(trainer)
+    httpd = make_http_server("127.0.0.1", 0, ps)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/predict"
+    bodies = []
+    for k in sorted(jp2s["images"])[:8]:
+        with open(jp2s["images"][k], "rb") as fh:
+            bodies.append(fh.read())
+    served = [None] * len(bodies)
+
+    def post(i):
+        req = urllib.request.Request(url, data=bodies[i], method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            served[i] = np.load(io.BytesIO(r.read()))
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(bodies))]
+        for t_ in threads:
+            t_.start()
+        for t_ in threads:
+            t_.join(timeout=300)
+        secs["serve 8 JP2 bodies"] = time.perf_counter() - t0
+        want = trainer.predict(np.stack([scale_image(decode_image(b), "auto")
+                                         for b in bodies]))
+        for i, got in enumerate(served):
+            if got is None or not np.array_equal(got, want[i]):
+                raise AssertionError(f"served JP2 body {i} differs from "
+                                     "predict")
+        req = urllib.request.Request(url, data=bodies[0][:-200],
+                                     method="POST")
+        try:
+            urllib.request.urlopen(req, timeout=60)
+            raise AssertionError("a corrupt JP2 body was answered 200")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                raise AssertionError(f"corrupt JP2: HTTP {e.code}")
+    finally:
+        httpd.shutdown()
+        thread.join(timeout=30)
+        ps.close()
+    del trainer, ps
+    torch.cuda.empty_cache()
+    log(f"  serve: 8 JP2 bodies in {secs['serve 8 JP2 bodies']:.3f} s, "
+        "class maps == predict of the port's decode; corrupt JP2 -> 400")
+    # times
+    chip = decode_png(open(next(iter(tree_files(png, "images",
+                                                "png").values())),
+                           "rb").read())
+    band_bytes, chip_bytes = encode_jp2(band), encode_jp2(chip)
+    out["jp2_mp_per_s"] = {}
+    for what, fn, x, arr in (("decode", decode_jp2, band_bytes, band),
+                             ("encode", encode_jp2, band, band),
+                             ("decode", decode_jp2, chip_bytes, chip),
+                             ("encode", encode_jp2, chip, chip)):
+        n, dt_ = rate(fn, [x])
+        key = f"{what} {'10 m band' if arr is band else f'{size}² RGB chip'}"
+        out["jp2_mp_per_s"][key] = n * arr.shape[0] * arr.shape[1] / 1e6 / dt_
+    pattern = os.path.join(shards["tifraw"], "jp2-*")
+    out["feed_records_per_s"] = {
+        "tifraw": feed_rate(pattern, 8, size, "tifraw"),
+        "tifarr": feed_rate(os.path.join(shards["tifarr"], "jp2-*"), 8,
+                            size)}
+    out["fed_step_ms"] = {"tifraw": fed_step_ms(pattern, "tifraw", size)}
+    out["fed_images_per_s"] = {m: 32 / (v / 1e3)
+                               for m, v in out["fed_step_ms"].items()}
+    out["card"] = smi
+    log("  JP2 on one host thread: " + ", ".join(
+        f"{k} {v:.2f} MP/s" for k, v in out["jp2_mp_per_s"].items())
+        + f" ({band.shape[1]} x {band.shape[0]} uint16 band); host of {smi}")
+    log(f"  ingest-safe {secs['ingest-safe']:.3f} s; SAFE export "
+        + ", ".join(f"{r['device']} --batch-tiles {r['batch_tiles']} "
+                    f"{r['seconds']:.3f} s" for r in out["exports"])
+        + f"; {smi}")
+    log("  feed records/s (4 parse threads): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["feed_records_per_s"].items())
+        + f"; fed train step (batch 32, bf16) tifraw "
+        f"{out['fed_step_ms']['tifraw']:.4f} ms = "
+        f"{out['fed_images_per_s']['tifraw']:.1f} images/s; {smi}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2355,6 +2812,9 @@ def main() -> int:
         t0 = time.perf_counter()
         codecs = codec_phase(smi, os.path.join(work, "codecs"), share)
         log(f"  codec_phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        safe = safe_phase(smi, os.path.join(work, "safe"), share)
+        log(f"  safe_phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2378,6 +2838,7 @@ def main() -> int:
     log(json.dumps({"cli": cli}))
     log(json.dumps({"remote": remote}))
     log(json.dumps({"codecs": codecs}))
+    log(json.dumps({"safe": safe}))
     log(f"seconds {time.perf_counter() - t_start:.1f}; runs "
         f"{json.dumps(runs)}")
     log(f"{smi}")

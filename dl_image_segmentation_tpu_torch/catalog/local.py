@@ -55,10 +55,6 @@ from .base import (Catalog, SceneMeta, bounds_in_tile_zone,
 
 __all__ = ["LocalCatalog"]
 
-SAFE_NOT_PORTED = ("Sentinel-2 .SAFE ingestion needs the JP2 decoder, "
-                   "which is not ported yet: ROADMAP queue 1 item 6")
-
-
 def _write_bytes(path: str, data: bytes) -> None:
     """Atomic write: one object creation on a remote root; locally a
     tmp file named per process and thread, then a rename."""
@@ -86,6 +82,9 @@ class LocalCatalog(Catalog):
         self._lock = threading.Lock()
         self._cache: Dict[str, object] = {}
         self._cache_order: List[str] = []
+        self._bands: Dict[str, object] = {}  # SAFE band files
+        self._band_order: List[str] = []
+        self._band_locks: Dict[str, threading.Lock] = {}
         self._cache_max = cache_scenes
         self._bounds_cache: Dict[str, list] = {}
         self._size_cache: Dict[str, int] = {}
@@ -161,12 +160,90 @@ class LocalCatalog(Catalog):
             self._save_index()
         return n
 
+    # canonical Sentinel-2 band order (the L1C/L2A granule set; B8A
+    # sits between B08 and B09 per ESA's band numbering)
+    _S2_BAND_ORDER = ("B01", "B02", "B03", "B04", "B05", "B06", "B07",
+                      "B08", "B8A", "B09", "B10", "B11", "B12")
+
     def ingest_safe(self, safe_dir: str,
                     product: str = "sentinel-2:L1C",
                     cloud_fraction: Optional[float] = None) -> int:
-        """Sentinel-2 ``.SAFE`` trees hold JP2 band files: not ported
-        (see SAFE_NOT_PORTED)."""
-        raise NotImplementedError(SAFE_NOT_PORTED)
+        """Walk a Sentinel-2 ``.SAFE`` directory (the ESA distribution
+        convention: ``GRANULE/<id>/IMG_DATA/*_Bxx.jp2``, local or under a
+        gs://, s3:// or http(s):// prefix) and register each granule as
+        one scene with per-band JP2 assets. Bounds and EPSG come from a
+        header-only sniff of the finest band (GeoJP2 or GMLJP2); mixed
+        10/20/60 m bands need no resample here because load() warps each
+        band file onto the tile grid on its own. Returns the granules
+        registered."""
+        import re as _re
+
+        from ..raster.jp2 import sniff_jp2_info
+
+        gran_root = storage.join(safe_dir, "GRANULE")
+        try:
+            granules = storage.listdir(gran_root)
+        except (FileNotFoundError, NotADirectoryError, OSError):
+            raise FileNotFoundError(
+                f"{safe_dir!r} has no GRANULE/ directory -- not a "
+                ".SAFE product tree")
+        n = 0
+        for gran in granules:
+            img_dir = storage.join(gran_root, gran, "IMG_DATA")
+            try:
+                files = storage.listdir(img_dir)
+            except (FileNotFoundError, NotADirectoryError, OSError):
+                continue
+            band_paths: Dict[str, str] = {}
+            date = None
+            for fn in files:
+                m = _re.search(r"_(B(?:\d\d|8A))\.jp2$", fn)
+                if not m:
+                    continue  # TCI previews, QI masks, metadata
+                band_paths[m.group(1)] = storage.join(img_dir, fn)
+                if date is None:
+                    dm = _re.search(r"(\d{8})T\d{6}", fn)
+                    if dm:
+                        date = _dt.datetime.strptime(
+                            dm.group(1), "%Y%m%d").date()
+            if not band_paths:
+                continue
+            if date is None:
+                dm = _re.search(r"(\d{8})T\d{6}",
+                                storage.basename(safe_dir.rstrip("/")))
+                date = (_dt.datetime.strptime(dm.group(1), "%Y%m%d")
+                        .date() if dm else _dt.date(1970, 1, 1))
+            bands = [b for b in self._S2_BAND_ORDER if b in band_paths]
+            # bounds from the finest-resolution band present
+            ref = band_paths[bands[min(range(len(bands)), key=lambda i:
+                             0 if bands[i] in ("B02", "B03", "B04",
+                                               "B08") else 1)]]
+            info = sniff_jp2_info(storage.read_bytes(ref))
+            if info.geotransform is None or info.epsg is None:
+                raise ValueError(
+                    f"SAFE band {ref!r} carries no GeoJP2/GMLJP2 "
+                    "georeferencing")
+            gt = equator_referenced_gt(info.geotransform, info.epsg)
+            bounds = [gt[0], gt[3] + info.height * gt[5],
+                      gt[0] + info.width * gt[1], gt[3]]
+            prods = self._index.setdefault("products", {})
+            p = prods.setdefault(product,
+                                 {"bands": bands, "scenes": []})
+            missing = [b for b in bands if b not in p["bands"]]
+            if missing:
+                raise ValueError(
+                    f"granule {gran!r} carries bands {missing} not in "
+                    f"product {product!r}'s band list {p['bands']}")
+            entry = {"id": gran, "date": date.isoformat(),
+                     "band_paths": band_paths, "bounds": bounds,
+                     "epsg": int(info.epsg)}
+            if cloud_fraction is not None:
+                entry["cloud_fraction"] = cloud_fraction
+            p["scenes"].append(entry)
+            n += 1
+        if n:
+            self._save_index()
+        return n
 
     # -- Catalog interface ----------------------------------------------
     def products(self) -> List[str]:
@@ -218,6 +295,7 @@ class LocalCatalog(Catalog):
              bands: Sequence[str], resampler: str = "near"
              ) -> Tuple[np.ndarray, np.ndarray]:
         validate_resampler(resampler)  # even when scenes is empty
+        self._prefetch_bands(scenes, bands)
         stacks = []
         valids = []
         for m in scenes:
@@ -344,24 +422,59 @@ class LocalCatalog(Catalog):
                 self._readers[rel_path] = pair
             return self._readers[rel_path]
 
+    def _prefetch_bands(self, scenes: Sequence[SceneMeta],
+                        bands: Sequence[str]) -> None:
+        """Decode the band files of ``scenes`` that are not in the band
+        LRU on a thread each (up to the host's cores; the JPEG 2000
+        decoder releases the GIL), so that a tile of 13-band SAFE scenes
+        waits for the slowest file, not for the sum of them."""
+        paths = [m.extra["band_paths"][b] for m in scenes
+                 if m.extra.get("band_paths") for b in bands
+                 if b in m.extra["band_paths"]]
+        with self._lock:
+            missing = list(dict.fromkeys(p for p in paths
+                                         if p not in self._bands))
+        if len(missing) < 2:
+            return
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(min(len(missing),
+                                    os.cpu_count() or 1)) as ex:
+            for f in [ex.submit(self._load_band_raster, p)
+                      for p in missing]:
+                f.result()
+
     def _load_band_raster(self, path: str):
-        """One SAFE band file through the scene LRU. ``path`` is stored
+        """One SAFE band file through the band LRU. ``path`` is stored
         as written by ingest_safe -- a full path or URL, independent of
-        the catalog root. GeoTIFF, PNG, JPEG, GIF and BMP band files
-        decode; other containers raise UnsupportedFormatError naming the
-        ROADMAP item of their decoder."""
+        the catalog root. JPEG 2000 (the .SAFE band files), GeoTIFF,
+        PNG, JPEG, GIF and BMP band files decode; other containers raise
+        UnsupportedFormatError naming the ROADMAP item of their
+        decoder.
+
+        The LRU holds ``cache_scenes`` scenes' worth of band files (13
+        each), where the JAX package puts them in its scene LRU of
+        ``cache_scenes`` entries: a 13-band granule there evicts its own
+        bands, and every tile decodes each band file again. A file being
+        decoded is decoded once: the export's other gather threads wait
+        for it."""
         with self._lock:
-            if path in self._cache:
-                return self._cache[path]
-        from ..raster.image import decode_image_bytes
-        g = decode_image_bytes(storage.read_bytes(path))
-        with self._lock:
-            if path not in self._cache:
-                self._cache[path] = g
-                self._cache_order.append(path)
-                if len(self._cache_order) > self._cache_max:
-                    old = self._cache_order.pop(0)
-                    self._cache.pop(old, None)
+            g = self._bands.get(path)
+            if g is not None:
+                return g
+            busy = self._band_locks.setdefault(path, threading.Lock())
+        with busy:
+            with self._lock:
+                g = self._bands.get(path)
+            if g is not None:
+                return g
+            from ..raster.image import decode_image_bytes
+            g = decode_image_bytes(storage.read_bytes(path))
+            with self._lock:
+                self._bands[path] = g
+                self._band_order.append(path)
+                if len(self._band_order) > (self._cache_max
+                                            * len(self._S2_BAND_ORDER)):
+                    self._bands.pop(self._band_order.pop(0), None)
         return g
 
     # -- scene cache ------------------------------------------------------

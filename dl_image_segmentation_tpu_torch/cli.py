@@ -36,10 +36,12 @@ The device commands (create-chips, train, eval, predict, serve) take
 unless ``--device cpu`` is given. Checkpoints are the port's
 ``torch.save`` files. PNG, JPEG, GIF and BMP decode and PNG/JPEG encode
 through the port's own codecs (``raster/``), so the default ``train
---mode rgbraw`` reads PNG/JPEG records. What is not ported raises
-NotImplementedError naming its ROADMAP queue 1 item: ``ingest-safe``
-(JPEG 2000, item 6); ``--n-model``, ``--spatial`` and ``--fsdp`` (item
-8); ``--remat`` and orbax checkpoints (item 1). predict, eval and
+--mode rgbraw`` reads PNG/JPEG records; JPEG 2000 decodes and encodes
+through the port's own codec too, so ``ingest-safe`` walks Sentinel-2
+``.SAFE`` trees and JP2 chips take every path a GeoTIFF takes. What is
+not ported raises NotImplementedError naming its ROADMAP queue 1 item:
+``--n-model``, ``--spatial`` and ``--fsdp`` (item 8); ``--remat`` and
+orbax checkpoints (item 1). predict, eval and
 serve take ``--quantize int8|int8-static`` (the U-Net only); int8-static
 calibrates on ``--calibrate-records`` (``--calibrate-batches`` batches)
 or else on the first batch it infers.
@@ -52,12 +54,6 @@ import datetime as _dt
 import json
 import os
 import sys
-
-_NOT_PORTED = {
-    "ingest-safe": "ingest-safe reads Sentinel-2 JP2 band files, which is "
-                   "not ported yet: ROADMAP queue 1 item 6",
-}
-
 
 def _date(s: str) -> _dt.date:
     return _dt.date.fromisoformat(s)
@@ -510,7 +506,18 @@ def cmd_stitch(args) -> int:
 
 
 def cmd_ingest_safe(args) -> int:
-    raise NotImplementedError(_NOT_PORTED["ingest-safe"])
+    """Walk Sentinel-2 .SAFE product trees into a LocalCatalog."""
+    from .catalog.local import LocalCatalog
+    cat = LocalCatalog.create(args.catalog)
+    total = 0
+    for safe in args.safe:
+        n = cat.ingest_safe(safe, product=args.product,
+                            cloud_fraction=args.cloud_fraction)
+        print(f"{safe}: {n} granule(s) registered")
+        total += n
+    print(f"registered {total} scene(s) in {args.catalog} "
+          f"(product {args.product})")
+    return 0 if total else 1
 
 
 def cmd_push(args) -> int:
@@ -1167,12 +1174,16 @@ def main(argv=None) -> int:
     stp.set_defaults(fn=cmd_stitch)
 
     ing = sub.add_parser(
-        "ingest-safe", help="Sentinel-2 .SAFE tree -> catalog scenes "
-                            "(raises: ROADMAP queue 1 item 6)")
-    ing.add_argument("--catalog", required=True)
-    ing.add_argument("--safe", required=True, nargs="+")
+        "ingest-safe", help="Sentinel-2 .SAFE tree -> catalog scenes")
+    ing.add_argument("--catalog", required=True,
+                     help="LocalCatalog root (created if missing)")
+    ing.add_argument("--safe", required=True, nargs="+",
+                     help="one or more .SAFE product directories")
     ing.add_argument("--product", default="sentinel-2:L1C")
-    ing.add_argument("--cloud-fraction", type=float, default=None)
+    ing.add_argument("--cloud-fraction", type=float, default=None,
+                     help="recorded per-scene cloud fraction (ESA "
+                          "metadata is not parsed; pass the value "
+                          "when known)")
     ing.set_defaults(fn=cmd_ingest_safe)
 
     pu = sub.add_parser("push", help="shards -> records sink (dir or "

@@ -2,13 +2,14 @@
 
 A copy of the JAX package's ``raster/image.py`` for the containers the
 port decodes: TIFF/GeoTIFF (classic and BigTIFF) through its own reader
-(``raster/geotiff.py``), and PNG, JPEG, GIF (first frame) and BMP
-through its own codecs (``raster/png.py``, ``jpeg.py``, ``gif.py``,
-``bmp.py``), where the JAX package uses PIL. Decoded arrays equal the
-JAX package's, PIL's mode mapping included; the JPEG encoder's bytes
-equal PIL's. ``decode_image_bytes`` sniffs the container from its magic
-bytes. JPEG 2000 and the JPEG variants the decoder lacks raise
-:class:`UnsupportedFormatError` naming ROADMAP queue 1 item 6, the
+(``raster/geotiff.py``), JPEG 2000 (JP2 and raw J2K, with GeoJP2/GMLJP2
+georeferencing) through ``raster/jp2.py``, and PNG, JPEG, GIF (first
+frame) and BMP through its own codecs (``raster/png.py``, ``jpeg.py``,
+``gif.py``, ``bmp.py``), where the JAX package uses PIL. Decoded arrays
+equal the JAX package's, PIL's mode mapping included; the JPEG
+encoder's bytes equal PIL's. ``decode_image_bytes`` sniffs the container
+from its magic bytes. The JPEG variants the decoder lacks and RLE BMPs
+raise :class:`UnsupportedFormatError` naming ROADMAP queue 1 item 6, the
 scientific containers item 10.
 
 ``sniff_image_info`` reads shape and dtype from headers without decoding
@@ -29,6 +30,7 @@ import numpy as np
 from .bmp import BMPUnsupported, bmp_layout, decode_bmp_array
 from .geotiff import GeoTIFF, RasterInfo, decode_geotiff, decode_geotiff_info
 from .gif import decode_gif_array, gif_layout
+from .jp2 import JP2Unsupported, decode_jp2, is_jp2, sniff_jp2_info
 from .jpeg import JPEGUnsupported, decode_jpeg_array, encode_jpeg_array
 from .png import decode_png_array, decoded_layout, encode_png_array, png_header
 
@@ -54,7 +56,7 @@ def _named(fmt: str, fn, *args, **kwargs):
         return fn(*args, **kwargs)
     except (CorruptRasterError, UnsupportedFormatError):
         raise
-    except (JPEGUnsupported, BMPUnsupported) as e:
+    except (JPEGUnsupported, BMPUnsupported, JP2Unsupported) as e:
         raise UnsupportedFormatError(str(e)) from e
     except Exception as e:
         raise CorruptRasterError(
@@ -62,12 +64,9 @@ def _named(fmt: str, fn, *args, **kwargs):
             f"{type(e).__name__}: {e}") from e
 
 
-# (magic, name, ROADMAP queue 1 item that ports its decoder): item 6 is
-# JPEG 2000 (OpenJPEG in the JAX package), item 10 the scientific
-# containers of its universal decode
+# (magic, name, ROADMAP queue 1 item that ports its decoder): item 10
+# holds the scientific containers of the JAX package's universal decode
 _KNOWN_MAGICS = (
-    (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000 (JP2)", 6),
-    (b"\xffO\xffQ", "JPEG 2000 codestream (J2K)", 6),
     (b"CDF\x01", "NetCDF classic", 10),
     (b"CDF\x02", "NetCDF classic", 10),
     (b"CDF\x05", "NetCDF classic", 10),
@@ -106,7 +105,8 @@ def _unsupported(data: bytes) -> UnsupportedFormatError:
                       (f"unknown container (magic bytes {data[:4]!r})", 10))
     return UnsupportedFormatError(
         f"unsupported raster format: {name}. The port decodes GeoTIFF "
-        "(classic and BigTIFF), PNG, JPEG, GIF, BMP and .npy bodies; "
+        "(classic and BigTIFF), JPEG 2000, PNG, JPEG, GIF, BMP and .npy "
+        "bodies; "
         "convert other containers (e.g. with gdal_translate) first. "
         f"Decoding this one is ROADMAP queue 1 item {item}.")
 
@@ -154,8 +154,15 @@ def png_to_jpeg(data: bytes, quality: int = 100) -> bytes:
     return encode_jpeg(decode_png(data), quality=quality)
 
 
+def _jp2_array(data: bytes) -> np.ndarray:
+    return decode_jp2(data).array
+
+
 def _decode_pixels(data: bytes):
-    """(format name, array) of a PNG, JPEG, GIF or BMP; None otherwise."""
+    """(format name, decoder) of a PNG, JPEG, GIF, BMP or JPEG 2000
+    file (PIL opens each of them); None otherwise."""
+    if is_jp2(data):
+        return "JPEG 2000", _jp2_array
     if _is_png(data):
         return "PNG", decode_png_array
     if _is_jpeg(data):
@@ -173,6 +180,10 @@ def decode_image_bytes(data: bytes) -> GeoTIFF:
     UnsupportedFormatError."""
     if _is_tiff(data):
         return _named("GeoTIFF", decode_geotiff, data)
+    if is_jp2(data):
+        # Sentinel-2's format: the port's JPEG 2000 codec, with the
+        # GeoJP2/GMLJP2 georeferencing
+        return _named("JPEG 2000", decode_jp2, data)
     codec = _decode_pixels(data)
     if codec is None:
         raise _unsupported(data)
@@ -236,6 +247,8 @@ def sniff_image_info(data: bytes) -> RasterInfo:
         return _named("JPEG", _sniff_jpeg, data)
     if _is_tiff(data):
         return _named("GeoTIFF", decode_geotiff_info, data)
+    if is_jp2(data):
+        return _named("JPEG 2000", sniff_jp2_info, data)
     if _is_bmp(data):
         return _named("BMP", _sniff_bmp, data)
     if _is_gif(data):

@@ -34,6 +34,7 @@ from dl_image_segmentation_tpu_torch.raster.cog import CogReader
 from dl_image_segmentation_tpu_torch.raster.geotiff import encode_geotiff
 from dl_image_segmentation_tpu_torch.raster.image import (
     UnsupportedFormatError, decode_image_bytes, encode_png)
+from dl_image_segmentation_tpu_torch.raster.jp2 import encode_jp2
 from dl_image_segmentation_tpu_torch.storage.fake_gcs import FakeGCS
 from dl_image_segmentation_tpu_torch.storage.fake_s3 import FakeS3
 
@@ -338,15 +339,36 @@ def test_remote_roots_open_through_fakes(tmp_path, monkeypatch, scheme):
 class TestNotPorted:
 
     def test_ingest_safe_raises_item_6(self, tmp_path):
-        cat = LocalCatalog.create(str(tmp_path / "cat"))
-        with pytest.raises(NotImplementedError, match="item 6"):
-            cat.ingest_safe(str(tmp_path / "S2A.SAFE"))
+        """Named for the item-6 raise it pinned until JPEG 2000 was
+        ported: a .SAFE granule now ingests into the JAX package's index
+        entry, and a directory without GRANULE/ is refused as the JAX
+        package refuses it."""
+        safe = tmp_path / "S2A_MSIL1C_20200501T053939_N1_R1_T43QBB.SAFE"
+        img = safe / "GRANULE" / "L1C_T43QBB" / "IMG_DATA"
+        img.mkdir(parents=True)
+        jt = JTile(*NORTH)
+        arr, gt, epsg = scene_over(jt.bounds, ZONE, ZONE, 10.0, 1,
+                                   np.uint16, 0, seed=29)
+        (img / "T43QBB_20200501T053939_B02.jp2").write_bytes(
+            encode_jp2(arr, geotransform=gt, epsg=epsg, nodata=0))
+        indexes, errors = [], []
+        for cls in (LocalCatalog, JLocalCatalog):
+            root = str(tmp_path / f"cat-{cls.__module__}")
+            cat = cls.create(root)
+            assert cat.ingest_safe(str(safe)) == 1
+            with open(os.path.join(root, "index.json")) as f:
+                indexes.append(json.load(f))
+            with pytest.raises(FileNotFoundError) as e:
+                cat.ingest_safe(str(tmp_path / "S2A.SAFE"))
+            errors.append(str(e.value))
+        assert indexes[0] == indexes[1]
+        assert errors[0] == errors[1]
 
     def test_per_band_scenes(self, tmp_path):
         """A scene of per-band files (as ingest_safe writes them): GeoTIFF
-        band files load as the JAX package loads them; a JP2 band raises
-        naming item 6, an HDF5 band item 10. A PNG band decodes as the
-        JAX package decodes it and then fails as its load fails: a PNG
+        and JPEG 2000 band files load as the JAX package loads them; an
+        HDF5 band raises naming item 10. A PNG band decodes as the JAX
+        package decodes it and then fails as its load fails: a PNG
         carries no geotransform."""
         root = str(tmp_path / "cat")
         LocalCatalog.create(root)
@@ -382,12 +404,21 @@ class TestNotPorted:
                 cat.load(cat.search(tile, "s2"), tile, ["B02"])
             errors.append(str(e.value))
         assert errors[0] == errors[1]
-        for magic, item in ((b"\x00\x00\x00\x0cjP  \r\n\x87\n", 6),
-                            (b"\x89HDF\r\n\x1a\n", 10)):
-            with open(paths["B02"], "wb") as f:
-                f.write(magic + bytes(64))
-            cat = LocalCatalog(root)
-            with pytest.raises(UnsupportedFormatError,
-                               match=f"item {item}"):
-                cat.load(cat.search(tt, "s2"), tt, ["B02"])
+        with open(paths["B02"], "wb") as f:
+            f.write(b"\x89HDF\r\n\x1a\n" + bytes(64))
+        cat = LocalCatalog(root)
+        with pytest.raises(UnsupportedFormatError, match="item 10"):
+            cat.load(cat.search(tt, "s2"), tt, ["B02"])
+        # JP2 band files (the .SAFE format), one by GeoJP2
+        for k, (band, res) in enumerate((("B02", 10.0), ("B05", 20.0))):
+            arr, gt, epsg = scene_over(jt.bounds, ZONE, ZONE, res, 1,
+                                       np.uint16, 0, seed=40 + k)
+            with open(paths[band], "wb") as f:
+                f.write(encode_jp2(arr, geotransform=gt, epsg=epsg,
+                                   nodata=0))
+        t, j = LocalCatalog(root), JLocalCatalog(root)
+        got = t.load(t.search(tt, "s2"), tt, ["B05", "B02"], "bilinear")
+        want = j.load(j.search(jt, "s2"), jt, ["B05", "B02"], "bilinear")
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
 

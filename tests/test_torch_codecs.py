@@ -13,8 +13,9 @@ seeded bytes go through ``decode_image_bytes`` of both packages:
   1-100), and the encoder byte for byte PIL's ``save(quality=q)``;
 * GIF and BMP: arrays equal; each sniffer against the JAX sniffer, with
   the JAX sniffer's faults pinned as intended differences;
-* seeded truncations and bit flips either decode to the header's shape
-  or raise a clean exception within a deadline.
+* seeded truncations and bit flips (PNG, JPEG, GIF, BMP and JPEG 2000)
+  either decode to the header's shape or raise a clean exception within
+  a deadline.
 """
 
 import io
@@ -29,6 +30,8 @@ from PIL import Image
 
 from dl_image_segmentation_tpu.raster import image as jimage
 from dl_image_segmentation_tpu_torch.raster import image as timage
+from dl_image_segmentation_tpu_torch.raster.jp2 import _enc as _jp2_encoder
+from dl_image_segmentation_tpu_torch.raster.jp2 import encode_jp2
 from dl_image_segmentation_tpu_torch.raster.jpeg import JPEGUnsupported
 from dl_image_segmentation_tpu_torch.raster.png import MAX_PIXELS
 
@@ -541,6 +544,25 @@ def _fuzz_fixtures():
     yield "bmp-8bit", make_bmp(rng.randint(0, 256, (10, 9)), 8,
                                rng.randint(0, 256, (256, 3)))
     yield "bmp-24bit", make_bmp(rng.randint(0, 256, (7, 15)), 24)
+    yield "jp2-rgb", encode_jp2(rgb)
+    yield "jp2-uint16-geo", encode_jp2(
+        rng.randint(0, 4096, (17, 23)).astype(np.uint16),
+        geotransform=(300000.0, 10.0, 0.0, 2100000.0, 0.0, -10.0),
+        epsg=32643, nodata=0)
+    yield "j2k-9/7-rpcl-precincts", pil_bytes(
+        Image.fromarray(rgb[:, :, 0]), "JPEG2000", no_jp2=True,
+        irreversible=True, progression="RPCL", precinct_size=(16, 16),
+        num_resolutions=3, quality_layers=[30, 10], codeblock_size=(16, 16))
+    # BYPASS + TERMALL + SEGSYM, SOP, EPH, PPT headers, a POC, RGN 2
+    arr = np.ascontiguousarray(rgb)
+    out = np.empty(1 << 20, np.uint8)
+    n = _jp2_encoder().fc_j2k_encode(arr.ctypes.data, 24, 32, 3, 8,
+                                     37 | 768 | 1024 | 4096 | (2 << 16),
+                                     out.ctypes.data, out.size)
+    yield "j2k-styles-sop-eph-ppt-poc-rgn", out[:n].tobytes()
+    yield "j2k-tiles-plt", pil_bytes(
+        Image.fromarray(rgb), "JPEG2000", no_jp2=True, tile_size=(16, 16),
+        plt=True)
 
 
 @pytest.mark.parametrize("name,data", list(_fuzz_fixtures()),
@@ -578,7 +600,10 @@ def test_decoders_agree_across_threads():
              for q in (50, 95)]
     datas += [timage.encode_png(_image(rng, (33, 20), 3)),
               pil_bytes(Image.fromarray(_image(rng, (30, 30), 3))
-                        .convert("P"), "GIF", interlace=1)]
+                        .convert("P"), "GIF", interlace=1),
+              encode_jp2(_image(rng, (37, 29), 3)),
+              pil_bytes(Image.fromarray(_image(rng, (31, 23), 1)[:, :, 0]),
+                        "JPEG2000", irreversible=True)]
     want = [timage.decode_image_bytes(d).array for d in datas]
     errors = []
 

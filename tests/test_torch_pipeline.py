@@ -304,9 +304,9 @@ class TestImportHygiene:
             assert not bad, (path, bad)
 
     def test_codecs_work_with_pil_blocked(self):
-        """PNG and JPEG decode and encode (and GIF, BMP decode) with PIL,
-        torchvision and the JAX package unimportable: the GPU machine has
-        none of them."""
+        """PNG, JPEG and JPEG 2000 decode and encode (and GIF, BMP
+        decode) with PIL, torchvision and the JAX package unimportable:
+        the GPU machine has none of them."""
         files = glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)
         for path in files + [os.path.join(ROOT, "chip_smoke.py")]:
             bad = [n for n in _imported_names(path) if n.split(".")[0] in (
@@ -329,6 +329,11 @@ assert (image.decode_png(image.encode_png(a)) == a).all()
 j = image.encode_jpeg(a, 95)
 assert image.decode_jpeg(j).shape == a.shape
 assert image.sniff_image_info(j).count == 3
+from dl_image_segmentation_tpu_torch.raster import jp2
+u16 = (np.arange(37 * 29) * 613 % 65536).astype(np.uint16).reshape(37, 29)
+for x in (u16, a):
+    got = jp2.decode_jp2(jp2.encode_jp2(x)).array
+    assert got.dtype == x.dtype and (got.reshape(x.shape) == x).all()
 print("ok", "PIL" in sys.modules)
 """
         out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -357,7 +362,7 @@ print("ok", "PIL" in sys.modules)
             "catalog.httpserver", "catalog.stac", "catalog.stacserver",
             "records.sink", "raster.png", "raster.jpeg", "raster.gif",
             "raster.bmp", "raster.image", "pipeline.convert",
-            "utils.preview")}
+            "utils.preview", "raster.jp2")}
         assert training <= set(mods), sorted(training - set(mods))
         code = f"""
 import sys, importlib, importlib.abc

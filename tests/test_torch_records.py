@@ -354,8 +354,8 @@ def test_unreadable_pairs_are_skipped_with_their_reason(tmp_path, capsys):
         assert twriters.process_dataset_mp("s", chips, out, 2,
                                            store_as_array=arr) == PAIRS - 2
         text = capsys.readouterr().out
-        assert "WARNING: 1 file(s) skipped: unsupported raster format: " \
-            "JPEG 2000 (JP2)" in text
+        assert "WARNING: 1 file(s) skipped: corrupt or unreadable JPEG " \
+            "2000 container" in text
         assert "WARNING: 1 file(s) skipped: corrupt or unreadable GeoTIFF " \
             "container" in text
         assert sum(1 for p in ttfrecord.list_shards(out, "s")

@@ -31,6 +31,7 @@ from dl_image_segmentation_tpu_torch.pipeline import stitch as tstitch
 from dl_image_segmentation_tpu_torch.pipeline import window as twindow
 from dl_image_segmentation_tpu_torch.raster import geotiff as tgeotiff
 from dl_image_segmentation_tpu_torch.raster import image as timage
+from dl_image_segmentation_tpu_torch.raster.jp2 import encode_jp2
 from dl_image_segmentation_tpu_torch.train import trainer as ttrainer
 
 from tests.test_torch_models import flax_params, jax_trainer, top2_gap
@@ -309,11 +310,11 @@ class TestHTTP:
         np.testing.assert_array_equal(
             _load(body), trainer.predict(batch_of(trainer, scaled))[0])
 
-    @pytest.mark.parametrize("fmt", ["png", "jpeg", "gif", "bmp"])
+    @pytest.mark.parametrize("fmt", ["png", "jpeg", "gif", "bmp", "jp2"])
     def test_image_bodies_use_auto_scaling(self, live_server, fmt):
-        """PNG, JPEG, GIF and BMP bodies (the JAX server decodes them
-        with PIL) decode through the port's codecs, are scaled by dtype
-        and served as ``predict`` of the decoded chip."""
+        """PNG, JPEG, GIF, BMP and JPEG 2000 bodies (the JAX server
+        decodes them with PIL) decode through the port's codecs, are
+        scaled by dtype and served as ``predict`` of the decoded chip."""
         from PIL import Image
         trainer, _, base = live_server
         img = (np.random.RandomState(3).rand(SIZE, SIZE, 3)
@@ -322,6 +323,8 @@ class TestHTTP:
             data = timage.encode_png(img)
         elif fmt == "jpeg":
             data = timage.encode_jpeg(img, 90)
+        elif fmt == "jp2":
+            data = encode_jp2(img)
         else:
             buf = io.BytesIO()
             Image.fromarray(img).save(buf, format=fmt.upper())
@@ -359,6 +362,8 @@ class TestHTTP:
         (timage.encode_jpeg(np.zeros((SIZE, SIZE, 3), np.uint8))[:200], 400,
          "truncated"),
         (b"II*\x00" + bytes(12), 400, "GeoTIFF"),
+        (encode_jp2(np.zeros((SIZE, SIZE, 3), np.uint8))[:-20], 400,
+         "corrupt or unreadable JPEG 2000"),
     ])
     def test_bad_bodies_are_400(self, live_server, body, code, match):
         _, _, base = live_server
