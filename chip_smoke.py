@@ -166,7 +166,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    decode and encode MP/s on one host thread for a 10 m band and a 256²
    RGB chip, ingest-safe seconds, the tifraw feed's records/s and a fed
    step. The codec is host C++ (``csrc/host/j2k_decode.cc``,
-   ``j2k_encode.cc``); the card runs K1-K3 in the export and the model.
+   ``j2k_encode.cc``); the card runs K1-K3 in the export and the model;
+11. the JAX package's orbax checkpoints and remat (``orbax_phase``, after
+   phase 7): (a) the committed checkpoint that the JAX Trainer wrote
+   (``tests/data/orbax_unet``: a U-Net of base 4, 2 levels, clip and a
+   cosine schedule, after 2 steps) read by ``train/orbax.py`` on this
+   host: every leaf bitwise equal to its ``.npz``, the zstd decoder's
+   MB/s on its frames, and ``predict`` on the card equal to the JAX
+   class maps where the top two logits are more than 1e-4 apart; (b) the
+   U-Net at the TrainConfig defaults with batch 8 (as phase 5): 3 bf16
+   steps on the card, ``write_checkpoint(..., managed=True)`` of
+   ``orbax_tree()``, ``restore_latest`` into a fresh Trainer: params,
+   mu, nu, count and step bitwise equal, ``predict`` on 8 chips equal,
+   one further step from each with equal losses and parameters; the
+   tree's bytes and the reader's seconds and MB/s; (c) one bf16 step with
+   ``remat=True`` and one without from the same state and batch: losses
+   and every gradient bitwise equal; each step's CUDA-event ms and
+   ``max_memory_allocated``; (d) ``train --remat --steps 2`` on phase
+   7's shards and ``predict --checkpoint`` of (b)'s orbax step (its maps
+   == Trainer.predict of the restored tree); (e) ``random_rotate_pairs``
+   on a batch of 8 chips on the card against ``rotate_pairs`` on the CPU
+   with the same angles: labels and images bitwise equal. No
+   hand-written kernel is on this path.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script
@@ -2757,6 +2778,227 @@ def jp2_chip_path(smi, tmp, share, out, band):
     return out
 
 
+ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data", "orbax_unet")
+
+
+def flat_tree(tree, prefix=""):
+    """{"opt_state/1/0/mu/...": array} of a tree of train/orbax.py."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, tuple):
+        items = enumerate(tree)
+    else:
+        return {} if tree is None else {prefix.rstrip("/"): tree}
+    out = {}
+    for k, v in items:
+        out.update(flat_tree(v, f"{prefix}{k}/"))
+    return out
+
+
+def tree_bytes(tree) -> int:
+    return sum(np.asarray(v).nbytes for v in flat_tree(tree).values())
+
+
+def remat_pair(cfg, x, y, smi):
+    """(c): one bf16 step with remat and one without, from one state and
+    batch: losses and gradients bitwise equal; then each step's warm
+    CUDA-event ms and max memory allocated."""
+    import dataclasses
+    import torch
+    from dl_image_segmentation_tpu_torch.train import Trainer
+    plain = Trainer(cfg)
+    remat = Trainer(dataclasses.replace(cfg, remat=True))
+    remat.model.load_state_dict(plain.model.state_dict())
+    out = {}
+    for name, t in (("plain", plain), ("remat", remat)):
+        out[f"{name}_loss"] = t.train_step(x, y)["loss"]
+    if out["plain_loss"] != out["remat_loss"]:
+        raise AssertionError(f"remat step: loss {out['remat_loss']} != "
+                             f"{out['plain_loss']}")
+    bad = [n for n, p in plain.state.params.items()
+           if not torch.equal(p.grad, remat.state.params[n].grad)]
+    if bad:
+        raise AssertionError(f"remat step: gradients differ: {bad[:4]}")
+    for name, t in (("plain", plain), ("remat", remat)):
+        step = lambda: t.train_step_async(x, y)  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out[f"{name}_ms"] = cuda_ms(step, 5)
+        out[f"{name}_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["ms_ratio"] = out["remat_ms"] / out["plain_ms"]
+    out["memory_ratio"] = (out["remat_max_memory_allocated"]
+                           / out["plain_max_memory_allocated"])
+    log(f"  (c) remat step at bf16, batch {x.shape[0]}: loss and every "
+        f"gradient bitwise equal to the plain step; {out['remat_ms']:.4f} "
+        f"ms against {out['plain_ms']:.4f} ms ({out['ms_ratio']:.3f}x), max "
+        f"memory allocated {out['remat_max_memory_allocated'] / 2**20:.1f} "
+        f"MiB against {out['plain_max_memory_allocated'] / 2**20:.1f} MiB "
+        f"({out['memory_ratio']:.3f}x) ({smi})")
+    return out
+
+
+def orbax_phase(smi, tmp, share):
+    """Phase 11: the JAX package's orbax checkpoints (read and written by
+    train/orbax.py), remat and random_rotate_pairs on the card. Uses
+    phase 7's shards and RGB chips (``share``)."""
+    import glob
+    import torch
+    from dl_image_segmentation_tpu_torch.ops.augment import (
+        random_rotate_pairs, rotate_pairs)
+    from dl_image_segmentation_tpu_torch.raster import read_geotiff
+    from dl_image_segmentation_tpu_torch.storage import zstd
+    from dl_image_segmentation_tpu_torch.train import (TrainConfig, Trainer,
+                                                       orbax)
+
+    log(f"phase 11: orbax checkpoints, remat and rotation ({smi})")
+    os.makedirs(tmp, exist_ok=True)
+    out = {"seconds": {}}
+    # (a) the checkpoint the JAX Trainer wrote
+    ck = os.path.join(ORBAX_FIXTURE, "ckpt")
+    t0 = time.perf_counter()
+    tree = orbax.read_checkpoint(ck)
+    read_s = time.perf_counter() - t0
+    with np.load(os.path.join(ORBAX_FIXTURE, "leaves.npz")) as z:
+        want = {k[5:]: z[k] for k in z.files if k.startswith("tree/")}
+        images, maps = z["images"], z["maps"]
+    got = flat_tree(tree)
+    if sorted(got) != sorted(want) or any(
+            got[k].dtype != v.dtype or got[k].tobytes() != v.tobytes()
+            for k, v in want.items()):
+        raise AssertionError("(a) the fixture's leaves differ from its .npz")
+    store = orbax._Store(ck)
+    frames = [store.get(k.decode()) for k in store.entries]
+    frames = [f for f in frames if f[:4] == b"\x28\xb5\x2f\xfd"]
+    sizes = [len(zstd.decompress(f, 1 << 30)) for f in frames]
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for f, n in zip(frames, sizes):
+            zstd.decompress(f, n)
+    zstd_s = (time.perf_counter() - t0) / reps
+    with open(os.path.join(ORBAX_FIXTURE, "config.json")) as f:
+        fcfg = TrainConfig(**json.load(f))
+    t = Trainer(fcfg)
+    t.restore_checkpoint(ck)
+    logits = torch.cat(list(t._chunked_logits(images))).cpu().numpy()
+    clear = top2_gap(logits) > 1e-4
+    pred = t.predict(images)
+    if clear.mean() < 0.9 or not np.array_equal(pred[clear], maps[clear]):
+        raise AssertionError("(a) predict on the card differs from the JAX "
+                             "maps where the top two logits are apart")
+    out["fixture"] = {
+        "leaves": len(got), "bytes": tree_bytes(tree), "read_s": read_s,
+        "zstd_frames": len(frames), "zstd_bytes": sum(sizes),
+        "zstd_mb_per_s": sum(sizes) / zstd_s / 1e6,
+        "clear_share": float(clear.mean())}
+    log(f"  (a) fixture: {len(got)} leaves bitwise equal to the .npz; "
+        f"read in {read_s:.3f} s; zstd decode "
+        f"{out['fixture']['zstd_mb_per_s']:.1f} MB/s over {len(frames)} "
+        f"frames ({sum(sizes)} bytes, host); predict == JAX maps on "
+        f"{clear.mean():.2%} of pixels (top two > 1e-4 apart) ({smi})")
+    del t
+    # (b) full width: train, write orbax, restore_latest
+    cfg = TrainConfig(batch_size=8)
+    n, size = cfg.batch_size, cfg.image_size
+    rng = np.random.RandomState(11)
+    x = rng.randint(0, 256, (n, size, size, 3)).astype(np.uint8)
+    y = rng.randint(0, cfg.num_classes, (n, size, size)).astype(np.int32)
+    y[rng.rand(n, size, size) < 0.05] = 255
+    a = Trainer(cfg)
+    for _ in range(3):
+        a.train_step(x, y)
+    tree = a.orbax_tree()
+    nbytes = tree_bytes(tree)
+    run_dir = os.path.join(tmp, "run")
+    t0 = time.perf_counter()
+    step_dir = orbax.write_checkpoint(run_dir, tree, managed=True)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    orbax.read_checkpoint(step_dir)
+    read_s = time.perf_counter() - t0
+    b = Trainer(cfg)
+    t0 = time.perf_counter()
+    step = b.restore_latest(b.checkpoint_manager(run_dir))
+    restore_s = time.perf_counter() - t0
+    same = step == a.state.step == b.state.step == 3 and \
+        a.state.opt_state.count == b.state.opt_state.count
+    for d in ("params", "mu", "nu"):
+        src = a.state.params if d == "params" else getattr(
+            a.state.opt_state, d)
+        dst = b.state.params if d == "params" else getattr(
+            b.state.opt_state, d)
+        same = same and all(torch.equal(v, dst[n]) for n, v in src.items())
+    if not same:
+        raise AssertionError("(b) the restored state differs")
+    chips = rng.randint(0, 256, (n, size, size, 3)).astype(np.uint8)
+    if not np.array_equal(a.predict(chips), b.predict(chips)):
+        raise AssertionError("(b) predict of the restored state differs")
+    la, lb = a.train_step(x, y)["loss"], b.train_step(x, y)["loss"]
+    if la != lb or not all(torch.equal(v, b.state.params[n])
+                           for n, v in a.state.params.items()):
+        raise AssertionError(f"(b) the next step differs: {la} vs {lb}")
+    out["full_width"] = {
+        "tree_bytes": nbytes, "write_s": write_s, "read_s": read_s,
+        "read_mb_per_s": nbytes / read_s / 1e6, "restore_latest_s":
+        restore_s, "next_loss": la}
+    log(f"  (b) full width (s2d {a.s2d}, width {a.model_features}, bf16): "
+        f"orbax tree of {nbytes} bytes written in {write_s:.3f} s, read in "
+        f"{read_s:.3f} s = {nbytes / read_s / 1e6:.1f} MB/s (host), "
+        f"restore_latest {restore_s:.3f} s; params, mu, nu, count and step "
+        f"bitwise; predict equal; next step loss {la} on both ({smi})")
+    del a, b
+    torch.cuda.empty_cache()
+    # (c) remat at full width
+    out["remat"] = remat_pair(cfg, *(torch.from_numpy(v).cuda()
+                                     for v in (x, y)), smi)
+    torch.cuda.empty_cache()
+    # (d) the CLI: train --remat, predict from the orbax step
+    secs = out["seconds"]
+    model = ["--features", str(cfg.base_features), "--levels",
+             str(cfg.levels), "--image-size", str(size), "--batch-size",
+             str(n)]
+    pattern = os.path.join(share["shards"], "smoke-*")
+    cli_run(["train", "--records", pattern, "--mode", "tifarr",
+             "--classes", "10", *model, "--steps", "2", "--remat",
+             "--checkpoint", os.path.join(tmp, "remat.pt")], secs,
+            "train --remat")
+    pdir = os.path.join(tmp, "pred-orbax")
+    images_dir = os.path.join(share["rgb_folder"], "images")
+    cli_run(["predict", "--images", images_dir, "--checkpoint", step_dir,
+             "--classes", str(cfg.num_classes), *model, "--scale", "none",
+             "--out", pdir], secs, "predict --checkpoint ORBAX")
+    chip_files = sorted(glob.glob(os.path.join(images_dir, "*.tif")))
+    first = chip_files[0]
+    t = Trainer(cfg)
+    t.restore_checkpoint(step_dir)
+    chip = read_geotiff(first).array.astype(np.float32)
+    written = read_geotiff(os.path.join(pdir, os.path.basename(first))).array
+    if len(glob.glob(os.path.join(pdir, "*.tif"))) != len(chip_files) or \
+            not np.array_equal(written[..., 0] if written.ndim == 3
+                               else written, t.predict(chip[None])[0]):
+        raise AssertionError("(d) predict --checkpoint ORBAX differs from "
+                             "Trainer.predict of the restored tree")
+    del t
+    torch.cuda.empty_cache()
+    # (e) rotation, card against CPU on the same angles
+    xi = torch.from_numpy(chips.astype(np.float32) / 255.0).cuda()
+    yl = torch.from_numpy(y).cuda()
+    gen = torch.Generator(device=xi.device).manual_seed(5)
+    ri, rl = random_rotate_pairs(gen, xi, yl, max_degrees=180.0)
+    u = torch.rand(n, generator=torch.Generator(device=xi.device).manual_seed(
+        5), device=xi.device) * 2.0 - 1.0
+    angles = u * float(math.pi)
+    ci, cl = rotate_pairs(xi.cpu(), yl.cpu(), angles.cpu())
+    if not (torch.equal(rl.cpu(), cl) and torch.equal(ri.cpu(), ci)):
+        raise AssertionError("(e) rotation on the card differs from the CPU")
+    rot_ms = cuda_ms(lambda: rotate_pairs(xi, yl, angles), 5)
+    out["rotation"] = {"card_equals_cpu": True, "ms": rot_ms}
+    log(f"  (e) random_rotate_pairs of {n} chips of {size} px: card == CPU "
+        f"bitwise (labels and images); {rot_ms:.3f} ms a batch ({smi})")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2815,6 +3057,9 @@ def main() -> int:
         t0 = time.perf_counter()
         safe = safe_phase(smi, os.path.join(work, "safe"), share)
         log(f"  safe_phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        orbax_ck = orbax_phase(smi, os.path.join(work, "orbax"), share)
+        log(f"  orbax_phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2839,6 +3084,7 @@ def main() -> int:
     log(json.dumps({"remote": remote}))
     log(json.dumps({"codecs": codecs}))
     log(json.dumps({"safe": safe}))
+    log(json.dumps({"orbax": orbax_ck}))
     log(f"seconds {time.perf_counter() - t_start:.1f}; runs "
         f"{json.dumps(runs)}")
     log(f"{smi}")

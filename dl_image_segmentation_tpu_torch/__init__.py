@@ -14,7 +14,11 @@ micro-batching HTTP server and stitch) of the U-Net, DeepLab-lite and
 SegFormer-lite, and the U-Net's int8 inference (dynamic and calibrated
 static scales), with its own PNG, JPEG, GIF and BMP codecs for PNG/JPEG
 chips (``convert``, the MT shard engine, rgbraw records, image request
-bodies). The three Pallas kernels of chip creation are
+bodies), its own JPEG 2000 codec for Sentinel-2 ``.SAFE`` ingestion and
+JP2 chips, and the JAX package's orbax checkpoints, read and written
+with its own zstd and OCDBT code (``train/orbax.py``), so that a model
+trained on the TPU resumes, evaluates and serves here. The three Pallas
+kernels of chip creation are
 hand-written CUDA kernels for Hopper (csrc/), built with nvcc into the
 checkout's ``build/`` at first use; the models' convs, norms, matmuls and
 attention are cuDNN/cuBLAS calls through torch, their int8 convs

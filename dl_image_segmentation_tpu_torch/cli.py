@@ -33,15 +33,17 @@ storage layer (``storage/``): ``STORAGE_EMULATOR_HOST`` and
 
 The device commands (create-chips, train, eval, predict, serve) take
 ``--device {cuda,cpu}``, default ``cuda``: without a card they raise
-unless ``--device cpu`` is given. Checkpoints are the port's
-``torch.save`` files. PNG, JPEG, GIF and BMP decode and PNG/JPEG encode
+unless ``--device cpu`` is given. Checkpoints are written as the port's
+``torch.save`` files; ``--restore`` and ``--checkpoint`` also take the
+JAX package's orbax checkpoint directories, and a ``--save-every``
+directory of its orbax steps resumes from the newest step, locally or
+on gs:// / s3:// (``train/orbax.py``). PNG, JPEG, GIF and BMP decode and PNG/JPEG encode
 through the port's own codecs (``raster/``), so the default ``train
 --mode rgbraw`` reads PNG/JPEG records; JPEG 2000 decodes and encodes
 through the port's own codec too, so ``ingest-safe`` walks Sentinel-2
 ``.SAFE`` trees and JP2 chips take every path a GeoTIFF takes. What is
 not ported raises NotImplementedError naming its ROADMAP queue 1 item:
-``--n-model``, ``--spatial`` and ``--fsdp`` (item 8); ``--remat`` and
-orbax checkpoints (item 1). predict, eval and
+``--n-model``, ``--spatial`` and ``--fsdp`` (item 8). predict, eval and
 serve take ``--quantize int8|int8-static`` (the U-Net only); int8-static
 calibrates on ``--calibrate-records`` (``--calibrate-batches`` batches)
 or else on the first batch it infers.
@@ -609,13 +611,16 @@ def cmd_doctor(args) -> int:
     def _host_check():
         from .raster.lzw import lzw_decode_native, lzw_encode_native
         from .records.crc32c import crc32c, crc32c_native
+        from .storage.zstd import compress_raw, decompress
         data = b"doctor" * 1000
         if lzw_decode_native(lzw_encode_native(data),
                              max_size=len(data)) != data:
             raise AssertionError("LZW round trip failed")
         if crc32c_native(data) != crc32c(data):
             raise AssertionError("CRC32C differs from the table version")
-        return "g++ builds of LZW + CRC32C ok"
+        if decompress(compress_raw(data), len(data)) != data:
+            raise AssertionError("zstd round trip failed")
+        return "g++ builds of LZW + CRC32C + zstd ok"
 
     def _codec_check():
         from .raster.geotiff import decode_geotiff, encode_geotiff
@@ -1024,8 +1029,8 @@ def main(argv=None) -> int:
                          "(ROADMAP queue 1 item 8)")
     tr.add_argument("--s2d", type=int, default=0, help=_S2D_HELP)
     tr.add_argument("--remat", action="store_true",
-                    help="rematerialise activations in the backward pass; "
-                         "raises (ROADMAP queue 1 item 1)")
+                    help="rematerialise activations in the backward "
+                         "pass (more FLOPs, much less HBM)")
     tr.add_argument("--precision", default="bf16",
                     choices=["bf16", "fp32"],
                     help="compute precision: bf16 convs with fp32 params "
@@ -1051,9 +1056,9 @@ def main(argv=None) -> int:
     tr.add_argument("--restore", default=None,
                     help="fine-tune from a single saved checkpoint "
                          "(always runs the full --steps; the step "
-                         "counter continues from the checkpoint); orbax "
-                         "checkpoint directories raise (ROADMAP queue 1 "
-                         "item 1)")
+                         "counter continues from the checkpoint): a .pt "
+                         "file or an orbax checkpoint directory of the JAX "
+                         "package")
     tr.add_argument("--eval-records", default=None,
                     help="validation TFRecord glob: evaluated every "
                          "--eval-every steps (per-step mode) or at "

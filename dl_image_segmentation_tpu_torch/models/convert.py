@@ -60,8 +60,9 @@ from .quant import Int8Conv
 from .segformer import SegFormerLite
 from .unet import ConvBlock, UNet
 
-__all__ = ["adamw_state_from_optax", "flatten_tree", "params_from_flax",
-           "quant_from_flax", "tensors_from_flax"]
+__all__ = ["adamw_state_from_optax", "flatten_tree", "flax_from_tensors",
+           "optax_from_adamw", "params_from_flax", "quant_from_flax",
+           "tensors_from_flax"]
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -86,6 +87,14 @@ def _conv_transpose_kernel(k: np.ndarray) -> np.ndarray:
 
 def _dense_kernel(k: np.ndarray) -> np.ndarray:
     return k.T
+
+
+# torch layout -> flax layout, for each layout above
+_TO_FLAX = {
+    _conv_kernel: lambda t: t.transpose(2, 3, 1, 0),
+    _conv_transpose_kernel: lambda t: t.transpose(2, 3, 0, 1)[::-1, ::-1],
+    _dense_kernel: lambda t: t.T,
+}
 
 
 class _Plan:
@@ -265,8 +274,11 @@ def _states(tree):
 
 
 def _field(state, name: str):
-    """A field of an optax NamedTuple state (a plain tuple's ``count``
-    method is not one), or None."""
+    """A field of an optax NamedTuple state, or of the dict that an orbax
+    checkpoint makes of one (a plain tuple's ``count`` method is not a
+    field), or None."""
+    if isinstance(state, Mapping):
+        return state.get(name)
     return getattr(state, name) if name in getattr(state, "_fields", ()) \
         else None
 
@@ -276,8 +288,11 @@ def adamw_state_from_optax(opt_state, model: nn.Module, device=None):
     optimizer as numpy arrays (``jax.tree_util.tree_map(np.asarray,
     opt_state)``): ``(ScaleByAdamState(count, mu, nu), EmptyState(),
     EmptyState() or ScaleByScheduleState(count))``, optionally behind the
-    clip's ``(EmptyState(), ...)``. mu and nu are mapped like the params;
-    every count in the state must agree."""
+    clip's ``(EmptyState(), ...)``. The tree that
+    ``train/orbax.py:read_checkpoint`` gives is taken too: there each
+    NamedTuple is a dict of its fields and each EmptyState is None. mu
+    and nu are mapped like the params; every count in the state must
+    agree."""
     from ..train.optim import AdamWState
     adam = [s for s in _states(opt_state)
             if _field(s, "mu") is not None and _field(s, "nu") is not None]
@@ -292,5 +307,39 @@ def adamw_state_from_optax(opt_state, model: nn.Module, device=None):
     def moments(tree, what):
         return {n: torch.from_numpy(v).to(device)
                 for n, _, v in _mapped(tree, model, what)}
-    return AdamWState(counts.pop(), moments(adam[0].mu, "Adam's mu"),
-                      moments(adam[0].nu, "Adam's nu"))
+    return AdamWState(counts.pop(),
+                      moments(_field(adam[0], "mu"), "Adam's mu"),
+                      moments(_field(adam[0], "nu"), "Adam's nu"))
+
+
+def flax_from_tensors(tensors: Mapping[str, torch.Tensor], model: nn.Module
+                      ) -> dict:
+    """The inverse of :func:`tensors_from_flax`: float32 tensors by
+    ``model``'s parameter names (the params, or Adam's moments) as the
+    flax tree, nested dicts of numpy arrays in flax layout."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    out: dict = {}
+    for leaf, param, layout in _plan(model):
+        value = tensors[names[id(param)]].detach().to("cpu",
+                                                      torch.float32).numpy()
+        if layout is not None:
+            value = _TO_FLAX[layout](value)
+        node = out
+        *path, last = leaf.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = np.ascontiguousarray(value)
+    return out
+
+
+def optax_from_adamw(opt_state, model: nn.Module, clip: bool,
+                     schedule: bool) -> tuple:
+    """The port's AdamWState as the JAX package's optax state, in the
+    form ``train/orbax.py`` writes: ``({"count", "mu", "nu"}, None,
+    {"count"} with a schedule else None)``, behind ``(None, ...)`` when
+    the optimizer clips. Counts are int32, as optax keeps them."""
+    count = np.asarray(int(opt_state.count), np.int32)
+    adam = {"count": count, "mu": flax_from_tensors(opt_state.mu, model),
+            "nu": flax_from_tensors(opt_state.nu, model)}
+    state = (adam, None, {"count": count} if schedule else None)
+    return (None, state) if clip else state

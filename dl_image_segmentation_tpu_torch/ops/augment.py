@@ -8,17 +8,23 @@ in the tests) give the same output. Geometric ops are the dihedral
 group (flips and 90-degree rotations: exact, label-safe), applied to
 image and label alike; photometric ops touch the image only. The order
 is the JAX package's: hflip, vflip, rot90, invert, contrast, then
-brightness with clip.
+brightness with clip. :func:`rotate_pairs` rotates by any angle, as the
+JAX package's ``random_rotate_pairs`` does with ``map_coordinates``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from .rasterize import _fma32
+
 __all__ = ["apply_augment", "augment_pairs", "draw_augment", "normalize",
-           "random_invert_pairs"]
+           "random_invert_pairs", "random_rotate_pairs", "rotate_pairs"]
 
 
 def draw_augment(generator: torch.Generator, n: int, hflip: bool = True,
@@ -133,3 +139,108 @@ def random_invert_pairs(images: torch.Tensor, labels: torch.Tensor,
         flip = torch.rand(images.shape[0], generator=generator,
                           device=images.device) < prob
     return _select(flip, max_value - images, images), labels
+
+
+_libm = None
+
+
+def _cos_sin(angles: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 cos and sin of ``angles`` (N,), each (N, 1, 1) on their
+    device. XLA:CPU lowers ``jnp.cos``/``jnp.sin`` of float32 to the C
+    library's ``cosf``/``sinf``, which are not correctly rounded (up to
+    0.56 ulp), and torch's differ from them in ~5% of angles; so the
+    values come from the same ``cosf``/``sinf``, on the host (one value
+    per image: a copy of N floats)."""
+    global _libm
+    if _libm is None:
+        lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+        for fn in (lib.cosf, lib.sinf):
+            fn.restype = ctypes.c_float
+            fn.argtypes = [ctypes.c_float]
+        _libm = lib
+    host = angles.detach().to("cpu", torch.float32).tolist()
+    cos = torch.tensor([_libm.cosf(a) for a in host], dtype=torch.float32)
+    sin = torch.tensor([_libm.sinf(a) for a in host], dtype=torch.float32)
+    return (cos.view(-1, 1, 1).to(angles.device),
+            sin.view(-1, 1, 1).to(angles.device))
+
+
+def _round_away(v: torch.Tensor) -> torch.Tensor:
+    """Round half away from zero (XLA's round-nearest-afz); ``v - trunc(v)``
+    is exact, where ``floor(|v| + 0.5)`` would round 0.49999997 up."""
+    t = torch.trunc(v)
+    return t + torch.where((v - t).abs() >= 0.5, torch.sign(v), 0.0)
+
+
+def rotate_pairs(images: torch.Tensor, labels: torch.Tensor,
+                 angles: torch.Tensor, fill_label: int = 255
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rotate each pair about its centre by ``angles`` (N,) float32
+    radians: images (N, H, W, C) float bilinearly with 0 outside, labels
+    (N, H, W) by nearest neighbour with ``fill_label`` outside. The
+    semantics of ``jax.scipy.ndimage.map_coordinates`` (mode
+    ``constant``: order 1 weighs each in-range corner, order 0 rounds
+    half away from zero), with the multiply-adds that XLA:CPU fuses
+    computed fused (``_fma32``). XLA rounds the source row twice: as
+    ``fma(dy, ca, cy) - dx * sa`` where it becomes an index (the labels'
+    rounding, the images' corners) and as ``fma(-dx, sa, fma(dy, ca,
+    cy))`` where it becomes a weight; at a coordinate within an ulp of an
+    integer the two may take different corners, and so does this. The
+    four corner terms sum as ``fma(w11, v11, fma(w10, v10, fma(w00, v00,
+    w01 * v01)))``."""
+    n, h, w = labels.shape
+    dev = images.device
+    ca, sa = _cos_sin(angles)
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    cy = torch.tensor((h - 1) / 2.0, device=dev)
+    cx = torch.tensor((w - 1) / 2.0, device=dev)
+    dy, dx = yy - cy, xx - cx
+    b = torch.arange(n, device=dev).view(n, 1, 1)
+
+    def inside(iy, ix):
+        return (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+
+    def at(src, iy, ix):
+        return src[b, iy.clamp(0, h - 1), ix.clamp(0, w - 1)]
+
+    # the source coordinates where they index
+    sy = _fma32(dy, ca, cy) - dx * sa
+    sx = _fma32(dy, sa, cx) + dx * ca
+    # labels: order 0
+    iy, ix = _round_away(sy).to(torch.int64), _round_away(sx).to(torch.int64)
+    rot_l = torch.where(inside(iy, ix), at(labels.to(torch.float32), iy, ix),
+                        float(fill_label)).to(labels.dtype)
+    # images: order 1, corners from the index rounding, weights from the
+    # fused one
+    iy0, ix0 = torch.floor(sy).to(torch.int64), torch.floor(sx).to(torch.int64)
+    fy = _fma32(-dx, sa, _fma32(dy, ca, cy))
+    fx = _fma32(dx, ca, _fma32(dy, sa, cx))
+    wy1, wx1 = fy - torch.floor(fy), fx - torch.floor(fx)
+    wy0, wx0 = 1 - wy1, 1 - wx1
+    img = images.to(torch.float32)
+    terms = []
+    for iy, wy in ((iy0, wy0), (iy0 + 1, wy1)):
+        for ix, wx in ((ix0, wx0), (ix0 + 1, wx1)):
+            v = torch.where(inside(iy, ix).unsqueeze(-1), at(img, iy, ix),
+                            0.0)
+            terms.append(((wy * wx).unsqueeze(-1).expand_as(v), v))
+    (w00, v00), (w01, v01), (w10, v10), (w11, v11) = terms
+    acc = _fma32(w00, v00, w01 * v01)
+    acc = _fma32(w11, v11, _fma32(w10, v10, acc))
+    return acc.to(images.dtype), rot_l
+
+
+def random_rotate_pairs(generator: torch.Generator, images: torch.Tensor,
+                        labels: torch.Tensor, max_degrees: float = 180.0,
+                        fill_label: int = 255
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Arbitrary-angle rotation augmentation: one angle per example,
+    uniform in [-max_degrees, max_degrees), drawn from ``generator``
+    (on the batch's device), then :func:`rotate_pairs`."""
+    u = torch.rand(images.shape[0], generator=generator,
+                   device=images.device) * 2.0 - 1.0
+    return rotate_pairs(images, labels,
+                        u * float(max_degrees * math.pi / 180.0),
+                        fill_label)

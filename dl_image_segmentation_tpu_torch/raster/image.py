@@ -30,7 +30,8 @@ import numpy as np
 from .bmp import BMPUnsupported, bmp_layout, decode_bmp_array
 from .geotiff import GeoTIFF, RasterInfo, decode_geotiff, decode_geotiff_info
 from .gif import decode_gif_array, gif_layout
-from .jp2 import JP2Unsupported, decode_jp2, is_jp2, sniff_jp2_info
+from .jp2 import (JP2Unsupported, decode_jp2, is_jp2, palette_rgb,
+                  sniff_jp2_info)
 from .jpeg import JPEGUnsupported, decode_jpeg_array, encode_jpeg_array
 from .png import decode_png_array, decoded_layout, encode_png_array, png_header
 
@@ -155,7 +156,11 @@ def png_to_jpeg(data: bytes, quality: int = 100) -> bytes:
 
 
 def _jp2_array(data: bytes) -> np.ndarray:
-    return decode_jp2(data).array
+    # the JAX package's decode_png/decode_jpeg take a palette JP2 (PIL
+    # mode P) through convert("RGB"); decode_jp2 gives its indices
+    arr = decode_jp2(data).array
+    table = palette_rgb(data)
+    return arr if table is None else table[arr[:, :, 0]]
 
 
 def _decode_pixels(data: bytes):

@@ -39,7 +39,7 @@ from .geotiff import GeoTIFF, RasterInfo, decode_geotiff_info
 from .png import MAX_PIXELS
 
 __all__ = ["JP2Error", "JP2Unsupported", "decode_jp2", "encode_jp2",
-           "is_jp2", "sniff_jp2_info"]
+           "is_jp2", "palette_rgb", "sniff_jp2_info"]
 
 _JP2_SIG = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
 _J2K_SOC = b"\xff\x4f\xff\x51"
@@ -224,8 +224,10 @@ _UNPACKERS = {
 }
 
 
-def _pil_mode(data: bytes, csiz: int, prec0: int) -> Tuple[str, int]:
-    """(PIL mode, OpenJPEG colour space) of a JP2/J2K file, as
+def _pil_mode(data: bytes, csiz: int, prec0: int
+              ) -> Tuple[str, int, Optional[bytes]]:
+    """(PIL mode, OpenJPEG colour space, the body of the pclr box that
+    made the mode P or PA, else None) of a JP2/J2K file, as
     ``Jpeg2KImagePlugin`` and OpenJPEG's box reader give them."""
     if data[:4] == _J2K_SOC:
         if csiz == 1:
@@ -235,7 +237,7 @@ def _pil_mode(data: bytes, csiz: int, prec0: int) -> Tuple[str, int]:
         if mode is None:
             raise JP2Unsupported(f"JPEG 2000 codestream of {csiz} "
                                  "components: PIL maps 1 to 4")
-        return mode, _UNSPECIFIED
+        return mode, _UNSPECIFIED, None
     jp2h = next(((off, ln) for typ, off, ln in _boxes(data, 12)
                  if typ == b"jp2h"), None)
     if jp2h is None:
@@ -243,6 +245,7 @@ def _pil_mode(data: bytes, csiz: int, prec0: int) -> Tuple[str, int]:
     mode = None
     nc = None
     space = None
+    pclr = None
     for typ, off, ln in _boxes(data, jp2h[0], jp2h[0] + jp2h[1]):
         body = data[off:off + ln]
         if typ == b"ihdr":
@@ -266,9 +269,50 @@ def _pil_mode(data: bytes, csiz: int, prec0: int) -> Tuple[str, int]:
             depths = body[3:3 + npc]
             if max(depths, default=0) <= 8:
                 mode = "P" if mode == "L" else "PA"
+                pclr = body
     if mode is None:
         raise JP2Error("malformed JP2 header")
-    return mode, _UNKNOWN if space is None else space
+    return mode, _UNKNOWN if space is None else space, \
+        pclr if mode in ("P", "PA") else None
+
+
+def palette_rgb(data: bytes) -> Optional[np.ndarray]:
+    """The (256, 3) uint8 table through which PIL's ``convert("RGB")``
+    shows a JP2 of mode P, or None for any other file. PIL reads the
+    pclr box's entries through ``ImagePalette.getcolor``: an entry equal
+    to an earlier one is dropped (the entries after it move up), 3
+    components make an RGB palette and 4 an RGBA one, and indices past
+    the palette are black."""
+    if not is_jp2(data) or data[:4] == _J2K_SOC:
+        return None
+    off, ln = _find_codestream(data)
+    w, h, comps = _codestream_info(bytes(data[off:off + ln]))
+    mode, _, pclr = _pil_mode(data, len(comps), comps[0][0])
+    if mode != "P":
+        return None
+    ne, npc = struct.unpack(">HB", pclr[:3])
+    if len(pclr) < 3 + npc + ne * npc:
+        raise JP2Error("short pclr box")
+    width = 4 if npc == 4 else 3  # PIL's palette mode: RGBA or RGB
+    palette, seen = bytearray(), set()
+    for i in range(ne):
+        color = pclr[3 + npc + i * npc:3 + npc + (i + 1) * npc]
+        if color in seen:
+            continue
+        seen.add(color)
+        index = len(palette) // width
+        if index >= 256:
+            raise JP2Error("JP2 palette of more than 256 colours (PIL: "
+                           "cannot allocate more than 256 colors)")
+        if index * width < len(palette):
+            palette[index * width:index * width + width] = color
+        else:
+            palette += color
+    table = np.zeros((256, 3), np.uint8)
+    k = len(palette) // width
+    table[:k] = np.frombuffer(bytes(palette[:k * width]), np.uint8).reshape(
+        k, width)[:, :3]
+    return table
 
 
 def _codestream_info(cs: bytes):
@@ -328,7 +372,7 @@ def decode_jp2(data: bytes) -> GeoTIFF:
     if w * h > MAX_PIXELS:
         raise JP2Error(f"image size ({w * h} pixels) exceeds the limit of "
                        f"{MAX_PIXELS} pixels (decompression bomb)")
-    mode, space = _pil_mode(data, len(comps), comps[0][0])
+    mode, space, _ = _pil_mode(data, len(comps), comps[0][0])
     if space == _UNSPECIFIED:
         space = _GRAY if len(comps) <= 2 else _SRGB
     if any(dx != 1 or dy != 1 for _, _, dx, dy in comps):

@@ -1,6 +1,7 @@
 """Training and inference of the U-Net, DeepLab-lite and SegFormer-lite:
 config, loss, optimizer, steps, scanned training from a device pool,
-evaluation, checkpoints, predict, and the U-Net's int8 inference."""
+evaluation, checkpoints (``.pt`` files and the JAX package's orbax
+checkpoints, ``orbax``), predict, and the U-Net's int8 inference."""
 
 from .optim import AdamWState
 from .pool import DeviceDataPool, sample_batch

@@ -11,11 +11,14 @@ entry points run on the CUDA card unless the caller passes
 training thread and a serving thread launch the same algorithms; the
 train step also takes cuDNN's deterministic algorithms, so two runs of
 the same steps end with the same parameters, as in the JAX package.
+``remat=True`` recomputes the forward in the backward
+(``torch.utils.checkpoint``), under the same switches.
 Inference runs in batch_size chunks padded as the server pads, so
 ``predict`` gives each image the server's class map.
 Checkpoints are ``torch.save`` files of ``{"params", "opt_state",
-"step", "model"}``, local or on gs:// / s3:// (orbax checkpoints of the
-JAX package are not read).
+"step", "model"}``, local or on gs:// / s3://; the JAX package's orbax
+checkpoints, single or in a managed directory, restore too
+(``train/orbax.py``), and ``orbax_tree`` gives the state in their form.
 """
 
 from __future__ import annotations
@@ -31,16 +34,20 @@ from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint as _remat
 
 from .. import storage
 from ..device import resolve_device
 from ..models.convert import (_walk, adamw_state_from_optax,
-                              params_from_flax, quant_from_flax)
+                              flax_from_tensors, optax_from_adamw,
+                              params_from_flax, quant_from_flax,
+                              tensors_from_flax)
 from ..models.deeplab import DeepLabLite
 from ..models.quant import Int8Conv
 from ..models.segformer import SegFormerLite
 from ..models.unet import UNet, share_parameters
 from ..ops.augment import apply_augment, draw_augment
+from . import orbax
 from .optim import (AdamWState, adamw_init, adamw_update_,
                     clip_by_global_norm_, make_schedule)
 from .pool import sample_batch
@@ -201,16 +208,15 @@ def _forward_flags(fp32: bool, deterministic: bool = False):
 _NOT_PORTED = {
     "parallel": "model-axis, spatial and FSDP sharding are not ported "
                 "yet: ROADMAP queue 1 item 8 (parallel/)",
-    "remat": "activation rematerialisation is not ported yet: ROADMAP "
-             "queue 1 item 1",
-    "orbax": "reading the JAX package's orbax checkpoints is not ported "
-             "yet: ROADMAP queue 1 item 1",
 }
 
 
 class CheckpointManager:
     """Rotating checkpoints in a directory, one ``<step>.pt`` file per
-    saved step; the newest ``keep`` are kept.
+    saved step; the newest ``keep`` are kept. The steps of the JAX
+    package's orbax ``CheckpointManager`` in the same directory
+    (``<step>/default/``) count as steps too, so a run resumes from the
+    newest of either kind; they are never pruned or deleted here.
 
     A gs:// or s3:// directory is mirrored through a local staging
     directory keyed by the URI's hash, as the JAX package mirrors its
@@ -238,19 +244,31 @@ class CheckpointManager:
             os.makedirs(self.directory, exist_ok=True)
 
     def path(self, step: int) -> str:
+        """Where a new save of ``step`` goes."""
         return os.path.join(self.directory, f"{step}.pt")
 
-    def all_steps(self) -> List[int]:
+    def restore_path(self, step: int) -> str:
+        """The checkpoint of ``step``: its ``.pt`` file, else its orbax
+        step."""
+        if os.path.isfile(self.path(step)):
+            return self.path(step)
+        return orbax.step_path(self.directory, step)
+
+    def _pt_steps(self) -> List[int]:
         return sorted(int(m.group(1)) for m in (
             re.fullmatch(r"(\d+)\.pt", n) for n in os.listdir(self.directory))
             if m)
+
+    def all_steps(self) -> List[int]:
+        return sorted(set(self._pt_steps())
+                      | set(orbax.all_steps(self.directory)))
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
     def prune(self) -> None:
-        for step in self.all_steps()[:-self.keep]:
+        for step in self._pt_steps()[:-self.keep]:
             os.unlink(self.path(step))
 
     def sync(self) -> None:
@@ -261,7 +279,7 @@ class CheckpointManager:
         if self.remote is None:
             return
         remote = set(storage.listdir(self.remote))
-        local = {f"{s}.pt" for s in self.all_steps()}
+        local = {f"{s}.pt" for s in self._pt_steps()}
         for name in sorted(local - remote):
             storage.upload_file(os.path.join(self.directory, name),
                                 storage.join(self.remote, name))
@@ -315,8 +333,6 @@ class Trainer:
             raise NotImplementedError(
                 f"n_model={config.n_model}, spatial={config.spatial}, "
                 f"fsdp={config.fsdp}: " + _NOT_PORTED["parallel"])
-        if config.remat:
-            raise NotImplementedError("remat=True: " + _NOT_PORTED["remat"])
         self._s2d_auto = config.s2d == 0 and _variant is None
         self.s2d, self.model_features = _variant or resolve_s2d(config)
         if self.s2d > 1 and config.model != "unet":
@@ -414,7 +430,11 @@ class Trainer:
         with _forward_flags(self.compute_dtype == torch.float32,
                             deterministic=True):
             self.model.train()
-            logits = self.model(images.permute(0, 3, 1, 2))
+            x = images.permute(0, 3, 1, 2)
+            # remat: the forward runs again in backward(), inside this
+            # block, so the recompute takes the same algorithms
+            logits = (_remat(self.model, x, use_reentrant=False)
+                      if self.config.remat else self.model(x))
             loss, acc = masked_xent_loss(logits.permute(0, 2, 3, 1), labels,
                                          self.config.label_nodata,
                                          self._class_weights)
@@ -794,15 +814,47 @@ class Trainer:
         torch.save(self._payload(), tmp)
         os.replace(tmp, path)
 
+    def orbax_tree(self) -> dict:
+        """The state as the JAX ``Trainer``'s checkpoint tree (flax
+        params, the optax AdamW state with this config's clip and
+        schedule, an int32 step), numpy arrays on the host: what
+        ``train/orbax.py:write_checkpoint`` writes for the JAX package."""
+        cfg = self.config
+        return {"params": flax_from_tensors(self.state.params, self.model),
+                "opt_state": optax_from_adamw(
+                    self.state.opt_state, self.model, cfg.grad_clip_norm > 0,
+                    cfg.schedule == "cosine" or cfg.warmup_steps > 0),
+                "step": np.asarray(self.state.step, np.int32)}
+
+    def _load_orbax_tree(self, tree: dict) -> None:
+        """Load a tree of ``orbax.read_checkpoint``; s2d migration as for
+        ``.pt`` files."""
+        try:
+            params = tensors_from_flax(tree["params"], self.model)
+            opt = adamw_state_from_optax(tree["opt_state"], self.model)
+        except ValueError as e:
+            if not self._try_other_s2d_variant(e):
+                raise
+            return self._load_orbax_tree(tree)
+        self._load_payload({"params": params,
+                            "opt_state": {"count": opt.count, "mu": opt.mu,
+                                          "nu": opt.nu},
+                            "step": int(tree["step"])})
+
     def restore_checkpoint(self, path: str) -> None:
-        """Load a checkpoint of :meth:`save_checkpoint`; under s2d AUTO a
-        checkpoint of another reachable tree rebuilds this trainer as
-        that tree (``_try_other_s2d_variant``). A directory (an orbax
-        checkpoint of the JAX package) raises NotImplementedError.
-        ``path`` may be a gs://, s3:// or http(s):// object."""
+        """Load a checkpoint: a file of :meth:`save_checkpoint`, or a
+        directory (or gs:// / s3:// prefix) holding an orbax checkpoint
+        of the JAX ``Trainer`` (``_METADATA``; read by
+        ``train/orbax.py``). Under s2d AUTO a checkpoint of another
+        reachable tree rebuilds this trainer as that tree
+        (``_try_other_s2d_variant``). A ``.pt`` ``path`` may be a gs://,
+        s3:// or http(s):// object."""
+        if orbax.is_checkpoint(path):
+            self._load_orbax_tree(orbax.read_checkpoint(path))
+            return
         if not storage.is_remote(path) and os.path.isdir(path):
-            raise NotImplementedError(f"{path} is a directory: "
-                                      + _NOT_PORTED["orbax"])
+            raise ValueError(f"{path} is a directory without an orbax "
+                             "checkpoint's _METADATA")
         with storage.open_read(path) as f:
             payload = torch.load(f, map_location="cpu", weights_only=True)
         family = payload.get("model", "unet")
@@ -835,7 +887,7 @@ class Trainer:
         step = manager.latest_step()
         if step is None:
             return None
-        self.restore_checkpoint(manager.path(step))
+        self.restore_checkpoint(manager.restore_path(step))
         return step
 
     def _try_other_s2d_variant(self, err: Exception) -> bool:

@@ -5,7 +5,9 @@ the same bytes and lines -- the TrainConfig each command builds from
 the same argv, the train command's loss log against a direct loop,
 predict, eval and serve of a trained checkpoint, the PNG/JPEG path
 (convert, to-tfrecords --engine mt, the default train --mode rgbraw,
-inspect --preview), and the flags that reach unported parts."""
+inspect --preview), train --remat, orbax checkpoint directories through
+train --restore, --save-every resume, eval and predict, and the flags
+that reach unported parts."""
 
 import contextlib
 import dataclasses
@@ -20,7 +22,10 @@ import subprocess
 import sys
 import urllib.request
 
+import jax
+import jax.numpy as jnp
 import numpy as np
+import orbax.checkpoint as ocp
 import pytest
 import torch
 
@@ -408,8 +413,6 @@ NOT_PORTED = [
      NotImplementedError, "item 8"),
     (["train", "--records", "x", "--mode", "tifarr", "--fsdp"],
      NotImplementedError, "item 8"),
-    (["train", "--records", "x", "--mode", "tifarr", "--remat"],
-     NotImplementedError, "item 1"),
     # ported (JPEG 2000): a path without GRANULE/ is refused as the JAX
     # package refuses it
     (["ingest-safe", "--catalog", "c", "--safe", "s"], FileNotFoundError,
@@ -621,21 +624,87 @@ def test_unet_only_options_raise_for_other_models(argv):
         tcli.main(argv + ["--device", "cpu"])
 
 
-def test_unported_inputs_raise_their_item(seq, tmp_path, monkeypatch):
-    """An orbax checkpoint directory (item 1). The default train --mode
-    rgbraw and inspect --preview work: see
-    test_train_default_rgbraw_equals_rgbarr and
-    test_inspect_preview_equals_jax."""
+def test_train_remat_equals_train(seq, tmp_path):
+    """train --remat: the loss log and the saved parameters of the run
+    without it, bitwise (replaces the NOT_PORTED --remat case)."""
+    work, _ = seq
+    out = {}
+    for name, extra in (("plain", []), ("remat", ["--remat"])):
+        ckpt = str(tmp_path / f"{name}.pt")
+        rc, lines = run(tcli, ["train", "--records",
+                               os.path.join(work, "port-recs", "mumbai-*"),
+                               "--mode", "tifarr", *MODEL, "--steps", "2",
+                               "--log-every", "1", "--workers", "1",
+                               "--checkpoint", ckpt, "--device", "cpu",
+                               *extra])
+        assert rc == 0
+        out[name] = ([re.search(r"loss=\S+ acc=\S+", ln).group(0)
+                      for ln in lines if ln.startswith("step")],
+                     torch.load(ckpt, weights_only=True))
+    assert out["remat"][0] == out["plain"][0] and out["plain"][0]
+    for n, p in out["plain"][1]["params"].items():
+        assert torch.equal(out["remat"][1]["params"][n], p), n
+
+
+def test_orbax_checkpoints_through_the_cli(seq, tmp_path, monkeypatch):
+    """The JAX package's orbax checkpoints (written by orbax from the jax
+    arrays of a trained .pt's state) take every path the .pt takes:
+    eval --checkpoint and predict --checkpoint give the .pt's output,
+    train --restore fine-tunes to the .pt fine-tune's parameters, and
+    train --checkpoint DIR --save-every resumes a managed orbax
+    directory from its newest step, keeping its steps (replaces the
+    item-1 raise of test_unported_inputs_raise_their_item)."""
     work, _ = seq
     recs = os.path.join(work, "port-recs", "mumbai-*")
     monkeypatch.chdir(work)
-    orbax = tmp_path / "orbax_ckpt"
-    orbax.mkdir()
-    for argv in (["train", "--records", recs, "--mode", "tifarr",
-                  "--restore", str(orbax)],
-                 ["eval", "--records", recs, "--checkpoint", str(orbax)]):
-        with pytest.raises(NotImplementedError, match="item 1"):
-            tcli.main(argv + MODEL + ["--device", "cpu"])
+    pt = _train_checkpoint(work, tmp_path)
+    t = ttrainer.Trainer(ttrainer.TrainConfig(
+        num_classes=3, base_features=8, levels=2, image_size=64,
+        batch_size=4), device="cpu")
+    t.restore_checkpoint(pt)
+    tree = jax.tree_util.tree_map(jnp.asarray, t.orbax_tree())
+    single = str(tmp_path / "orbax")
+    ckptr = ocp.StandardCheckpointer()
+    ckptr.save(single, tree)
+    ckptr.wait_until_finished()
+    run_dir = str(tmp_path / "run")
+    mgr = ocp.CheckpointManager(run_dir)
+    mgr.save(2, args=ocp.args.StandardSave(tree))
+    mgr.wait_until_finished()
+    mgr.close()
+
+    def cli(*argv):
+        rc, lines = run(tcli, [*argv, *MODEL, "--device", "cpu"])
+        assert rc == 0
+        return lines
+    assert cli("eval", "--records", recs, "--checkpoint", single,
+               "--json") == cli("eval", "--records", recs, "--checkpoint",
+                                pt, "--json")
+    images = os.path.join(work, "port-cat", FOLDER, "images")
+    for src, out in ((pt, "p-pt"), (single, "p-orbax")):
+        cli("predict", "--images", images, "--checkpoint", src, "--out",
+            str(tmp_path / out))
+    outputs = [{f: open(os.path.join(tmp_path, d, f), "rb").read()
+                for f in os.listdir(tmp_path / d)}
+               for d in ("p-pt", "p-orbax")]
+    assert outputs[0] == outputs[1] and len(outputs[0]) == 15
+    tuned = {}
+    for src in (pt, single):
+        out = str(tmp_path / f"tuned-{len(tuned)}.pt")
+        cli("train", "--records", recs, "--mode", "tifarr", "--steps", "1",
+            "--workers", "1", "--restore", src, "--checkpoint", out)
+        tuned[src] = torch.load(out, weights_only=True)
+    assert tuned[pt]["step"] == tuned[single]["step"] == 3
+    for n, p in tuned[pt]["params"].items():
+        assert torch.equal(tuned[single]["params"][n], p), n
+    lines = cli("train", "--records", recs, "--mode", "tifarr", "--steps",
+                "3", "--workers", "1", "--checkpoint", run_dir,
+                "--save-every", "1", "--keep", "1")
+    assert "resumed from managed checkpoint step 2" in lines
+    assert sorted(os.listdir(run_dir)) == ["2", "3.pt"]
+    resumed = torch.load(os.path.join(run_dir, "3.pt"), weights_only=True)
+    for n, p in tuned[pt]["params"].items():
+        assert torch.equal(resumed["params"][n], p), n
 
 
 def test_device_commands_raise_without_a_card(seq, tmp_path, monkeypatch):

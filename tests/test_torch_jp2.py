@@ -634,3 +634,59 @@ def test_convert_jp2_to_png_equals_jax(tmp_path):
     assert sorted(outs[0]) == sorted(outs[1])
     for k in outs[0]:
         np.testing.assert_array_equal(outs[0][k], outs[1][k])
+
+
+def palette_jp2(seed, entries, npc, alpha=False, cmap=False):
+    """A seeded palette JP2: the port's lossless JP2 of random indices
+    (and an alpha band), with an sRGB colr box and a pclr box of
+    ``entries`` (and a cmap box) in its jp2h."""
+    rng = np.random.RandomState(seed)
+    idx = rng.randint(0, 256, (12, 10, 2 if alpha else 1)).astype(np.uint8)
+    data = tjp2.encode_jp2(idx)
+    c = data.find(b"colr")
+    data = data[:c + 7] + struct.pack(">I", 16) + data[c + 11:]
+    pclr = struct.pack(">HB", len(entries), npc) + bytes([7] * npc) + \
+        b"".join(bytes(e) for e in entries)
+    boxes = struct.pack(">I", 8 + len(pclr)) + b"pclr" + pclr
+    if cmap:
+        body = b"".join(struct.pack(">HBB", 0, 1, k) for k in range(npc))
+        boxes += struct.pack(">I", 8 + len(body)) + b"cmap" + body
+    h = data.find(b"jp2h") - 4
+    n = struct.unpack(">I", data[h:h + 4])[0]
+    return (data[:h] + struct.pack(">I", n + len(boxes)) + data[h + 4:h + n]
+            + boxes + data[h + n:])
+
+
+def _entries(seed, n, npc, repeats=0):
+    rng = np.random.RandomState(seed)
+    out = [tuple(int(v) for v in rng.randint(0, 256, npc)) for _ in range(n)]
+    for i in range(repeats):  # entries equal to an earlier one
+        out[5 + 7 * i] = out[i]
+    return out
+
+
+@pytest.mark.parametrize("case", [
+    dict(entries=_entries(1, 256, 3)),
+    dict(entries=_entries(2, 40, 3, repeats=3)),  # PIL drops repeats
+    dict(entries=_entries(3, 200, 4)),            # an RGBA palette
+    dict(entries=_entries(4, 30, 3), cmap=True),
+    dict(entries=_entries(5, 60, 3), alpha=True),  # PA: not converted
+], ids=["rgb-256", "repeats", "rgba", "cmap", "pa"])
+def test_palette_jp2_decodes_to_the_reference_rgb(case):
+    """ROADMAP queue 3: decode_png and decode_jpeg of a palette JP2 (PIL
+    mode P) give the palette's RGB, as the JAX package's _pil_decode
+    does; mode PA stays indices and alpha, as there; decode_jp2 keeps
+    the indices."""
+    npc = len(case["entries"][0])
+    data = palette_jp2(7, case["entries"], npc, case.get("alpha", False),
+                       case.get("cmap", False))
+    assert Image.open(io.BytesIO(data)).mode == ("PA" if case.get("alpha")
+                                                 else "P")
+    for name in ("decode_png", "decode_jpeg"):
+        want = getattr(jimage, name)(data)
+        got = getattr(timage, name)(data)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    assert want.shape[2] == (2 if case.get("alpha") else 3)
+    np.testing.assert_array_equal(tjp2.decode_jp2(data).array,
+                                  jjp2.decode_jp2(data).array)

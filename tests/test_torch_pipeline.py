@@ -43,7 +43,7 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "dl_image_segmentation_tpu_torch")
-BLOCKED = ("jax", "flax", "optax", "orbax")
+BLOCKED = ("jax", "flax", "optax", "orbax", "tensorstore", "zstandard")
 
 
 def read_all(folder):
@@ -362,7 +362,7 @@ print("ok", "PIL" in sys.modules)
             "catalog.httpserver", "catalog.stac", "catalog.stacserver",
             "records.sink", "raster.png", "raster.jpeg", "raster.gif",
             "raster.bmp", "raster.image", "pipeline.convert",
-            "utils.preview", "raster.jp2")}
+            "utils.preview", "raster.jp2", "storage.zstd", "train.orbax")}
         assert training <= set(mods), sorted(training - set(mods))
         code = f"""
 import sys, importlib, importlib.abc
@@ -376,6 +376,10 @@ class Blocker(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Blocker())
 for m in {sorted(mods)!r} + ["chip_smoke", "median_ab"]:
     importlib.import_module(m)
+# the orbax reader runs where orbax, tensorstore and zstandard are missing
+orbax = importlib.import_module("dl_image_segmentation_tpu_torch.train.orbax")
+tree = orbax.read_checkpoint("tests/data/orbax_unet/ckpt")
+assert int(tree["step"]) == 2, tree["step"]
 print("ok", len(sys.modules))
 """
         out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -28,12 +28,20 @@ unless stated; inputs made from numpy seeds. Tolerances:
 * evaluate: loss rtol 1e-5, confusion-derived metrics within one
   pixel's share;
 * augmentation with the JAX draws: dihedral ops exact, contrast and
-  brightness within 1e-6.
+  brightness within 1e-6; rotation (``rotate_pairs``) exact, labels and
+  images, against ``random_rotate_pairs`` on its own angles and against
+  its ``_rotate_one`` at fixed angles (0, +-90 and 180 degrees, 45
+  degrees on odd sizes, where coordinates fall within an ulp of a pixel);
+* ``remat=True``: loss and every parameter after two steps bitwise equal
+  to the step without it;
+* an orbax checkpoint of the JAX run's state resumes bitwise as the
+  same state given through ``load_optax_state``.
 """
 
 import os
 
 import jax
+import orbax.checkpoint as ocp
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -462,6 +470,80 @@ class TestAugmentAndPool:
                                torch.from_numpy(std)).numpy(),
             np.asarray(jaugment.normalize(x, mean, std)))
 
+    @pytest.mark.parametrize("shape,degrees,seed", [
+        ((6, 37, 29, 3), 180.0, 3), ((4, 64, 64, 4), 30.0, 5),
+        ((8, 16, 16, 1), 180.0, 7), ((3, 33, 33, 2), 90.0, 9)])
+    def test_rotate_pairs_equal_jax_random_rotate_pairs(self, shape, degrees,
+                                                        seed):
+        rng = np.random.default_rng(seed)
+        x = rng.random(shape, dtype=np.float32)
+        y = rng.integers(0, 9, shape[:3]).astype(np.uint8)
+        key = jax.random.PRNGKey(seed)
+        ri, rl = jaugment.random_rotate_pairs(key, x, y, max_degrees=degrees)
+        angles = jax.jit(lambda k: jax.random.uniform(
+            k, (shape[0],), minval=-1.0, maxval=1.0)
+            * (degrees * jnp.pi / 180.0))(key)
+        gi, gl = taugment.rotate_pairs(torch.from_numpy(x),
+                                       torch.from_numpy(y),
+                                       torch.from_numpy(np.asarray(angles)))
+        assert gl.dtype == torch.uint8 and (gl.numpy() == 255).any()
+        np.testing.assert_array_equal(gl.numpy(), np.asarray(rl))
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
+
+    @pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+    @pytest.mark.parametrize("size", [(31, 31), (37, 28), (32, 32)])
+    def test_rotate_pairs_at_fixed_angles_and_ties(self, size, dtype):
+        """Bitwise, but for int32 labels at pixels whose source coordinate
+        lies within 1e-5 of a rounding tie: XLA rounds those as the
+        index of uint8 labels rounds them in one program and otherwise in
+        another (4 of the 10,240 labels at 45 degrees on 32 x 32)."""
+        h, w = size
+        angles = np.float32([0.0, np.pi / 2, -np.pi / 2, np.pi, -np.pi,
+                             1e-7, np.pi / 4, -np.pi / 4, 0.5, -2.9])
+        n = len(angles)
+        rng = np.random.default_rng(h)
+        x = rng.random((n, h, w, 2), dtype=np.float32)
+        # one channel holds its column: a sample's x coordinate shows
+        x[..., 0] = np.arange(w, dtype=np.float32)
+        y = rng.integers(0, 9, (n, h, w)).astype(dtype)
+        rot = jax.jit(lambda im, lb, a: (
+            jax.vmap(lambda i, t: jaugment._rotate_one(i, t, 1, 0.0))(im, a),
+            jax.vmap(lambda lab, t: jaugment._rotate_one(
+                lab.astype(jnp.float32), t, 0, 7.0))(lb, a).astype(lb.dtype)))
+        ri, rl = rot(x, y, angles)
+        gi, gl = taugment.rotate_pairs(torch.from_numpy(x),
+                                       torch.from_numpy(y),
+                                       torch.from_numpy(angles), fill_label=7)
+        tie = np.zeros((n, h, w), bool)
+        if dtype == np.int32:
+            a = angles.astype(np.float64)[:, None, None]
+            dy = np.arange(h)[:, None] - (h - 1) / 2.0
+            dx = np.arange(w)[None, :] - (w - 1) / 2.0
+            for s in ((h - 1) / 2.0 + dy * np.cos(a) - dx * np.sin(a),
+                      (w - 1) / 2.0 + dy * np.sin(a) + dx * np.cos(a)):
+                tie |= np.abs(np.abs(s - np.floor(s)) - 0.5) < 1e-5
+        np.testing.assert_array_equal(gl.numpy()[~tie],
+                                      np.asarray(rl)[~tie])
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
+        # 0 degrees is the identity
+        np.testing.assert_array_equal(gl.numpy()[0], y[0])
+        np.testing.assert_array_equal(gi.numpy()[0], x[0])
+
+    def test_random_rotate_pairs_draws_from_the_generator(self):
+        x, y = batch(10)
+        x = torch.from_numpy(x.astype(np.float32) / 255.0)
+
+        def run(seed, degrees=180.0):
+            return taugment.random_rotate_pairs(
+                torch.Generator().manual_seed(seed), x, torch.from_numpy(y),
+                max_degrees=degrees)
+        a, b, c = run(1), run(1), run(2)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        assert not torch.equal(a[1], c[1])
+        flat = run(3, 0.0)
+        assert torch.equal(flat[0], x) and torch.equal(flat[1],
+                                                       torch.from_numpy(y))
+
     def test_sample_batch_and_refresh_equal_jax(self):
         x = np.random.RandomState(0).randint(0, 256, (6, 4, 4, 3)).astype(
             np.uint8)
@@ -543,15 +625,44 @@ class TestCheckpoints:
         with pytest.raises(ValueError, match="does not match"):
             explicit.restore_checkpoint(path)
 
-    def test_remote_paths_and_remat_raise(self):
-        with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-            ttrainer.Trainer(ttrainer.TrainConfig(**CFG, remat=True),
-                             device="cpu")
+    @pytest.mark.parametrize("precision", ["fp32", "bf16"])
+    def test_remat_steps_equal_the_plain_steps(self, precision):
+        """remat recomputes the forward in backward (each conv runs twice
+        a step) and gives the plain step's loss and parameters, bitwise."""
+        _, params = flax_params()
+        runs = {}
+        for remat in (False, True):
+            tt = port_trainer(params, remat=remat, precision=precision)
+            calls = []
+            tt.model.down_blocks[0].register_forward_hook(
+                lambda *_: calls.append(1))
+            losses = [tt.train_step(*batch(s)) for s in range(2)]
+            runs[remat] = (losses, tt.state.params, len(calls))
+        assert runs[False][2] == 2 and runs[True][2] == 4
+        assert runs[True][0] == runs[False][0]
+        for n, p in runs[False][1].items():
+            assert torch.equal(runs[True][1][n], p), n
 
-    def test_orbax_checkpoint_directory_raises_item_1(self, tmp_path):
-        tt = ttrainer.Trainer(ttrainer.TrainConfig(**CFG), device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-            tt.restore_checkpoint(str(tmp_path))
+    def test_orbax_checkpoint_of_the_jax_run_resumes(self, jax_run,
+                                                     tmp_path):
+        """The JAX run's state after STEPS steps, saved by orbax as the JAX
+        Trainer saves it, restores into the port as the same state given
+        through load_flax_params and load_optax_state; the next step of
+        each is the same, bitwise."""
+        params, opt_state, step = jax_run["state"]
+        path = str(tmp_path / "ck")
+        ckptr = ocp.StandardCheckpointer()
+        ckptr.save(path, jax.tree_util.tree_map(jnp.asarray, {
+            "params": params, "opt_state": opt_state,
+            "step": np.int32(step)}))
+        ckptr.wait_until_finished()
+        got = ttrainer.Trainer(ttrainer.TrainConfig(**CFG), device="cpu")
+        got.restore_checkpoint(path)
+        want = port_trainer(params).load_optax_state(opt_state, step=step)
+        assert got.state.step == want.state.step == STEPS
+        assert got.train_step(*batch(STEPS)) == want.train_step(*batch(STEPS))
+        for n, p in want.state.params.items():
+            assert torch.equal(got.state.params[n], p), n
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
