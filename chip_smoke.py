@@ -148,9 +148,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    step fed from rgbraw and from rgbarr shards (ms, images/s). No
    hand-written kernel is on this path;
 10. JPEG 2000 and Sentinel-2 ``.SAFE`` ingestion, through ``cli.main``:
-   a reduced SAFE tree written by the port's ``encode_jp2`` (3 granules
-   on 3 dates over phase 4's AOI in zone 43, 13 bands of 12-bit uint16
-   at 10/20/60 m, two granules with GeoJP2 boxes and one with GMLJP2, a
+   a reduced SAFE tree written by the port's ``encode_jp2`` (2 granules
+   on 2 dates over phase 4's AOI in zone 43, 13 bands of 12-bit uint16
+   at 10/20/60 m, one granule with GeoJP2 boxes and one with GMLJP2, a
    TCI preview that must not be ingested) -> ``ingest-safe`` ->
    ``create-chips --max-cloud-fraction 0`` at ``--batch-tiles`` 16 and
    0, on the card and with ``--device cpu`` (card bytes == CPU bytes,
@@ -159,7 +159,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    pairs -> ``to-tfrecords --file-ext jp2`` raw (tifraw) and
    ``--store-as-array`` (uint8: the rgbarr layout), CRCs checked, and
    tifarr (FloatList) shards of the same pixels -> ``train --mode
-   tifraw`` and ``--mode tifarr`` (20 steps, one parse thread; falling
+   tifraw`` and ``--mode tifarr`` (10 steps, one parse thread; falling
    loss, equal losses, bitwise equal parameters) -> a PredictServer
    answering 8 JP2 bodies (== predict of the port's decode; a corrupt
    JP2 gets 400). Times with the card's name and power limit: JP2
@@ -187,7 +187,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    == Trainer.predict of the restored tree); (e) ``random_rotate_pairs``
    on a batch of 8 chips on the card against ``rotate_pairs`` on the CPU
    with the same angles: labels and images bitwise equal. No
-   hand-written kernel is on this path.
+   hand-written kernel is on this path;
+12. the scientific raster containers and the library API
+   (``containers_phase``, after phase 7): a LocalCatalog root whose 4
+   scenes' 13 bands are per-band files in rotating containers (VRT over
+   absolute GeoTIFF sources, NetCDF classic with a CF UTM grid mapping,
+   GeoPackage, NITF; every file decodes to its array), over 8 tiles of
+   phase 7's AOI and polygons -> ``create-chips --max-cloud-fraction
+   0`` at ``--batch-tiles`` 0 and 16 on the card (K1, K2 and K3
+   launched) and the CPU, and from a GeoTIFF root of the same arrays on
+   the card: chips bitwise equal per mode; phase 7's RGB chips as
+   NetCDF pairs -> ``to-tfrecords --file-ext nc`` -> ``train --mode
+   tifraw`` (falling loss), and as ENVI pairs -> ``--file-ext hdr
+   --store-as-array`` (records == the chips); NetCDF, GRIB, HDF4, NITF
+   and GeoPackage bodies to a PredictServer (== predict of the port's
+   decode; a VRT body naming a file answers 400 unread); each
+   container's decode MP/s and sniff us on one host thread;
+   ``convert_to_example`` of the card's chips == the MP engine's
+   records, the web map's and ``tiles_to_layer``'s footprints == the
+   chips' geotransforms, and ``duty_cycle`` of the bf16 U-Net step
+   beside the Trainer's own duty.
+   The containers are host code; the card runs K1-K3 and the model.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script
@@ -2408,10 +2428,10 @@ def l1c_band(rng, h, w):
 
 def write_safe(tmp, x0, y0, span, nx, ny):
     """A reduced Sentinel-2 L1C ``.SAFE`` product, written by the port's
-    ``encode_jp2`` (lossless 5/3): 3 granules on 3 dates in zone 43, each
+    ``encode_jp2`` (lossless 5/3): 2 granules on 2 dates in zone 43, each
     with the 13 bands at their own resolution (10, 20, 60 m) and a
-    ``_TCI.jp2`` preview that ingestion must skip; two granules carry
-    GeoJP2 boxes, the third a GMLJP2 ``xml `` box. A real granule is
+    ``_TCI.jp2`` preview that ingestion must skip; the first granule
+    carries GeoJP2 boxes, the second a GMLJP2 ``xml `` box. A real granule is
     10,980 px square at 10 m (109.8 km); this one is cut to the nx x ny
     tiles of ``span`` metres whose corner is (x0, y0) plus one tile on
     every side, about 2,600 x 1,560 px at 10 m, on a 60 m grid so that
@@ -2422,7 +2442,7 @@ def write_safe(tmp, x0, y0, span, nx, ny):
     safe = os.path.join(tmp, "S2A_MSIL1C_20201015T053641_N0209_R005_"
                              "T43QBB_20201015T070000.SAFE")
     jobs = []
-    for k in range(3):
+    for k in range(2):
         date = dt.date(2020, 10, 1) + dt.timedelta(days=10 * k)
         stamp = f"{date:%Y%m%d}T053641"
         img = os.path.join(safe, "GRANULE",
@@ -2438,7 +2458,7 @@ def write_safe(tmp, x0, y0, span, nx, ny):
             arr = l1c_band(rng, h60 * f, w60 * f)
             gt = (ox, res, 0.0, oy, 0.0, -res)
             jobs.append((os.path.join(img, f"T43QBB_{stamp}_{band}.jp2"), arr,
-                         gt, k == 2))
+                         gt, k == 1))
         jobs.append((os.path.join(img, f"T43QBB_{stamp}_TCI.jp2"),
                      rng.randint(0, 256, (64, 64, 3)).astype(np.uint8), None,
                      False))
@@ -2478,7 +2498,7 @@ def safe_phase(smi, tmp, share):
     uint8 arrays take the rgbarr layout), CRCs checked; tifarr records
     (FloatList) of the tifraw records' decoded pixels, in their order;
     ``train --mode tifraw`` and ``--mode tifarr`` at the TrainConfig
-    defaults with 10 classes, 20 steps on one parse thread (falling loss,
+    defaults with 10 classes, 10 steps on one parse thread (falling loss,
     equal losses, bitwise equal parameters); a PredictServer answering 8 JP2
     bodies (class maps == predict of the port's decode; a corrupt JP2
     gets 400). Times: JP2 decode and encode MP/s on one host thread (a
@@ -2498,7 +2518,7 @@ def safe_phase(smi, tmp, share):
     x0, y0, _, _ = Tile(256, 2, 10.0, 43, -10, 1400).bounds_unpadded
     safe, arrays, secs["write SAFE"] = write_safe(tmp, x0, y0, 2560.0, 8, 4)
     px = sum(a.size for a in arrays.values())
-    log(f"  SAFE tree: 3 granules x 13 bands + TCI, {px / 1e6:.1f} MP, "
+    log(f"  SAFE tree: 2 granules x 13 bands + TCI, {px / 1e6:.1f} MP, "
         f"{sum(os.path.getsize(p) for p in arrays) / 2**20:.1f} MiB of JP2, "
         f"encoded in {secs['write SAFE']:.3f} s on 8 threads")
     root = os.path.join(tmp, "catalog")
@@ -2506,7 +2526,7 @@ def safe_phase(smi, tmp, share):
                      "--cloud-fraction", "0"], secs, "ingest-safe")
     with open(os.path.join(root, "index.json")) as f:
         scenes = json.load(f)["products"]["sentinel-2:L1C"]["scenes"]
-    if len(scenes) != 3 or any(len(s["band_paths"]) != 13 for s in scenes) \
+    if len(scenes) != 2 or any(len(s["band_paths"]) != 13 for s in scenes) \
             or any("TCI" in p for s in scenes
                    for p in s["band_paths"].values()):
         raise AssertionError(f"ingest-safe: {lines}")
@@ -2568,9 +2588,9 @@ def safe_phase(smi, tmp, share):
             raise AssertionError("a SAFE band file does not decode to the "
                                  "array encoded")
     log(f"  SAFE export: card == CPU bytes per tile and batched (64 "
-        f"GeoTIFFs each); launches on the card {launches}; 42 JP2 files "
-        "decode to the arrays encoded; a 9/7 RGB file decodes to "
-        "OpenJPEG's bits")
+        f"GeoTIFFs each); launches on the card {launches}; {len(arrays)} "
+        "JP2 files decode to the arrays encoded; a 9/7 RGB file decodes "
+        "to OpenJPEG's bits")
 
     jp2_chip_path(smi, tmp, share, out, next(
         a for p, a in arrays.items() if p.endswith("_B02.jp2")))
@@ -2674,13 +2694,13 @@ def jp2_chip_path(smi, tmp, share, out, band):
         mlog = os.path.join(tmp, f"{kind}.jsonl")
         ckpt = os.path.join(tmp, f"{kind}.pt")
         cli_run(["train", "--records", os.path.join(shards[kind], "jp2-*"),
-                 "--mode", kind, "--classes", "10", "--steps", "20",
+                 "--mode", kind, "--classes", "10", "--steps", "10",
                  "--log-every", "1", "--workers", "1", "--metrics-log", mlog,
                  "--checkpoint", ckpt], secs, f"train {kind}")
         losses[kind] = [json.loads(ln)["loss"] for ln in open(mlog)]
         params[kind] = torch.load(ckpt, weights_only=False)
     ls = losses["tifraw"]
-    if len(ls) != 20 or not np.mean(ls[-5:]) < ls[0]:
+    if len(ls) != 10 or not np.mean(ls[-5:]) < ls[0]:
         raise AssertionError(f"train tifraw: losses {ls}")
     if ls != losses["tifarr"]:
         raise AssertionError(f"tifraw losses {ls} != tifarr "
@@ -2999,6 +3019,554 @@ def orbax_phase(smi, tmp, share):
     return out
 
 
+CONTAINER_KINDS = ("vrt", "netcdf", "gpkg", "nitf")
+
+
+def netcdf_utm(arr, gt, zone, typecode, name="band"):
+    """NetCDF classic bytes (scipy.io.netcdf_file) of a (H, W) or (B, H,
+    W) array on the grid ``gt``: CF x/y coordinates of pixel centres and
+    a transverse_mercator grid mapping of UTM ``zone``, _FillValue 0."""
+    import io
+    from scipy.io import netcdf_file
+    h, w = arr.shape[-2:]
+    buf = io.BytesIO()
+    f = netcdf_file(buf, "w")
+    dims = ("y", "x")
+    if arr.ndim == 3:
+        f.createDimension("band", arr.shape[0])
+        dims = ("band",) + dims
+    f.createDimension("y", h)
+    f.createDimension("x", w)
+    y = f.createVariable("y", "d", ("y",))
+    y[:] = gt[3] + gt[5] * (np.arange(h) + 0.5)
+    y.standard_name = b"projection_y_coordinate"
+    x = f.createVariable("x", "d", ("x",))
+    x[:] = gt[0] + gt[1] * (np.arange(w) + 0.5)
+    x.standard_name = b"projection_x_coordinate"
+    crs = f.createVariable("crs", "i", ())
+    crs.grid_mapping_name = b"transverse_mercator"
+    # float64 arrays: scipy stores a bare float as a float32 attribute
+    crs.scale_factor_at_central_meridian = np.array([0.9996])
+    crs.longitude_of_central_meridian = np.array([zone * 6 - 183.0])
+    crs.false_easting = np.array([500000.0])
+    crs.false_northing = np.array([0.0])
+    v = f.createVariable(name, typecode, dims)
+    v[:] = arr
+    v.grid_mapping = b"crs"
+    v._FillValue = np.zeros((), np.dtype(v.typecode()))
+    f.flush()
+    data = buf.getvalue()
+    f.close()
+    return data
+
+
+def container_band(kind, folder, name, band, gt, epsg):
+    """One (H, W) uint16 band as a ``kind`` file under ``folder`` (the
+    port's encoders; scipy for NetCDF, which stores it as float32: the
+    classic format has no uint16); returns (path, the array that the
+    file holds)."""
+    from dl_image_segmentation_tpu_torch.raster.geotiff import (
+        encode_geotiff)
+    from dl_image_segmentation_tpu_torch.raster.gpkg_raster import (
+        encode_gpkg)
+    from dl_image_segmentation_tpu_torch.raster.nitf import encode_nitf
+    path = os.path.join(folder, f"{name}.{kind}")
+    held = band
+    if kind == "vrt":
+        src = os.path.join(folder, f"{name}-src.tif")
+        with open(src, "wb") as f:
+            f.write(encode_geotiff(band, geotransform=gt, epsg=epsg))
+        h, w = band.shape
+        data = (f'<VRTDataset rasterXSize="{w}" rasterYSize="{h}">'
+                f"<SRS>EPSG:{epsg}</SRS><GeoTransform>"
+                f'{", ".join(repr(float(v)) for v in gt)}</GeoTransform>'
+                '<VRTRasterBand dataType="UInt16" band="1">'
+                "<NoDataValue>0</NoDataValue><SimpleSource>"
+                f'<SourceFilename relativeToVRT="0">{src}</SourceFilename>'
+                "<SourceBand>1</SourceBand></SimpleSource></VRTRasterBand>"
+                "</VRTDataset>").encode()
+    elif kind == "netcdf":
+        held = band.astype(np.float32)
+        data = netcdf_utm(held, gt, epsg % 100, "f")
+    elif kind == "gpkg":
+        data = encode_gpkg(band, tile_size=256, geotransform=gt, epsg=epsg)
+    else:
+        data = encode_nitf(band, geotransform=gt, epsg=epsg)
+    with open(path, "wb") as f:
+        f.write(data)
+    return path, held
+
+
+def write_container_roots(tmp, block, n_scenes=4):
+    """Two LocalCatalog roots of the same ``n_scenes`` Sentinel-2 L1C
+    scenes (13 bands, 10 m, DNs 1-4095 with nodata 0 in blotches, zone
+    43, over ``block`` = (x0, y0, x1, y1) in metres): one whose per-band
+    files rotate through CONTAINER_KINDS (band b of scene s in kind
+    (b + s) % 4) and one of GeoTIFF band files holding the same arrays.
+    Every container file must decode to its array, georeferencing and
+    nodata. Returns (container root, GeoTIFF root, {kind: [paths]})."""
+    from dl_image_segmentation_tpu_torch.raster.geotiff import (
+        encode_geotiff)
+    from dl_image_segmentation_tpu_torch.raster.image import (
+        decode_image_bytes)
+    rng = np.random.RandomState(23)
+    x0, y0, x1, y1 = block
+    gt = (float(x0), 10.0, 0.0, float(y1), 0.0, -10.0)
+    w, h = int((x1 - x0) / 10.0), int((y1 - y0) / 10.0)
+    roots = {k: os.path.join(tmp, f"{k}-root") for k in ("containers",
+                                                          "geotiff")}
+    scenes = {k: [] for k in roots}
+    files = {k: [] for k in CONTAINER_KINDS}
+    for k in roots:
+        os.makedirs(os.path.join(roots[k], "bands"))
+    for s in range(n_scenes):
+        arr = rng.randint(1, 4096, (h, w, len(S2_BANDS))).astype(np.uint16)
+        blot = np.kron(rng.rand(h // 32 + 1, w // 32 + 1) < 0.1,
+                       np.ones((32, 32), bool))[:h, :w]
+        arr[blot] = 0
+        paths = {k: {} for k in roots}
+        for b, band in enumerate(S2_BANDS):
+            kind = CONTAINER_KINDS[(b + s) % len(CONTAINER_KINDS)]
+            path, held = container_band(
+                kind, os.path.join(roots["containers"], "bands"),
+                f"s{s}-{band}", arr[:, :, b], gt, 32643)
+            with open(path, "rb") as f:
+                g = decode_image_bytes(f.read())
+            a = g.array[:h, :w, 0]
+            if (a.dtype != held.dtype or not np.array_equal(a, held)
+                    or g.info.geotransform != gt or g.info.epsg != 32643
+                    or g.info.nodata not in (0.0, None)):
+                raise AssertionError(f"{path}: decodes to other pixels or "
+                                     f"georeferencing ({g.info})")
+            files[kind].append(path)
+            paths["containers"][band] = path
+            tif = os.path.join(roots["geotiff"], "bands", f"s{s}-{band}.tif")
+            with open(tif, "wb") as f:
+                f.write(encode_geotiff(held[:, :, None], geotransform=gt,
+                                       epsg=32643, nodata=0))
+            paths["geotiff"][band] = tif
+        for k in roots:
+            scenes[k].append({
+                "id": f"s{s}", "date": str(dt.date(2020, 6, 1)
+                                           + dt.timedelta(days=12 * s)),
+                "cloud_fraction": 0.01 * s, "nodata": 0,
+                "band_paths": paths[k], "epsg": 32643,
+                "bounds": [float(x0), float(y0), float(x1), float(y1)]})
+    for k, root in roots.items():
+        with open(os.path.join(root, "index.json"), "w") as f:
+            json.dump({"products": {"sentinel-2:L1C": {
+                "bands": S2_BANDS, "scenes": scenes[k]}}}, f)
+    return roots["containers"], roots["geotiff"], files
+
+
+def sub_aoi_labels(labels, path, tiles_x=4, tiles_y=2):
+    """The features of ``labels`` (phase 7's GeoJSON) whose tiles
+    (``--tile-size 260 --pad 2``: 256 px and a 2 px pad) all lie in the
+    ``tiles_x`` x ``tiles_y`` tiles at the AOI's south-west corner,
+    written to ``path``; returns (those tiles' keys, their padded bounds'
+    union)."""
+    from dl_image_segmentation_tpu_torch.geo.geometry import Geometry
+    from dl_image_segmentation_tpu_torch.geo.tilegrid import tiles_from_shape
+    with open(labels) as f:
+        fc = json.load(f)
+    per = [{(t.ti, t.tj): t for t in tiles_from_shape(
+        Geometry.coerce(ft["geometry"]), 10.0, 256, 2)}
+        for ft in fc["features"]]
+    cols = sorted({ij[0] for p in per for ij in p})[:tiles_x]
+    rows = sorted({ij[1] for p in per for ij in p})[:tiles_y]
+    keep, tiles = [], {}
+    for ft, p in zip(fc["features"], per):
+        if all(i in cols and j in rows for i, j in p):
+            keep.append(ft)
+            tiles.update(p)
+    with open(path, "w") as f:
+        json.dump({"type": "FeatureCollection", "features": keep}, f)
+    bounds = np.array([t.bounds for t in tiles.values()])
+    return sorted(t.key for t in tiles.values()), (
+        bounds[:, 0].min(), bounds[:, 1].min(), bounds[:, 2].max(),
+        bounds[:, 3].max())
+
+
+def containers_phase(smi, tmp, share):
+    """Phase 12: the scientific raster containers and the public library
+    API on the card (after ``cli_phase``). (1) A LocalCatalog root whose
+    scenes' 13 bands are per-band files in rotating containers (VRT over
+    GeoTIFF sources, NetCDF classic with a CF UTM grid mapping,
+    GeoPackage, NITF), over 8 tiles of phase 7's AOI and polygons ->
+    ``create-chips --max-cloud-fraction 0`` at ``--batch-tiles`` 0 and
+    16 on the card (K1 and K2/K3 launched: the counters are set to 0
+    before each card export of this root and read after) and the CPU,
+    and from a GeoTIFF root of the same pixels on the card: all chips
+    bitwise equal per mode. (2) ``to-tfrecords --file-ext nc`` over
+    phase 7's RGB chips as NetCDF pairs (tifraw) and ``--file-ext hdr
+    --store-as-array`` over them as ENVI pairs (the MP engine finds each
+    data file from its header's directory and name); ``train --mode
+    tifraw`` (20 steps, falling loss). (3) NetCDF, GRIB, HDF4, NITF and
+    GeoPackage request bodies to a PredictServer over HTTP (the serving
+    config: TrainConfig defaults, bf16, batch 8, the trained weights):
+    class maps == ``Trainer.predict`` of the port's decode; a VRT body
+    naming a file answers 400 before the file is read. (4) Each
+    container's decode MP/s and sniff us on one host thread. (5)
+    ``convert_to_example`` of the card's chips (torch tensors on the
+    card) == the MP engine's records; the web map's and
+    ``tiles_to_layer``'s footprints == those of the chips'
+    geotransforms; ``duty_cycle`` of the bf16 U-Net step beside the
+    Trainer's own duty."""
+    import glob
+    import io
+    import itertools
+    import threading
+    import urllib.error
+    import urllib.request
+    import torch
+    from dl_image_segmentation_tpu_torch import convert_to_example, kernels
+    from dl_image_segmentation_tpu_torch.geo import crs as tcrs
+    from dl_image_segmentation_tpu_torch.geo.tilegrid import (
+        tile_from_key, tiles_to_layer)
+    from dl_image_segmentation_tpu_torch.raster import (envi, grib, hdf4,
+                                                        nitf, gpkg_raster)
+    from dl_image_segmentation_tpu_torch.raster import read_geotiff
+    from dl_image_segmentation_tpu_torch.raster.image import (
+        decode_image_bytes, sniff_image_info)
+    from dl_image_segmentation_tpu_torch.records.proto import decode_example
+    from dl_image_segmentation_tpu_torch.records.tfrecord import read_records
+    from dl_image_segmentation_tpu_torch.records.writers import (
+        _tile_key_from_filename)
+    from dl_image_segmentation_tpu_torch.serve import (
+        PredictServer, make_http_server, scale_image)
+    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+    from dl_image_segmentation_tpu_torch.utils import profiling, webmap
+
+    t_phase = time.perf_counter()
+    log(f"phase 12: raster containers and the library API on the card "
+        f"({smi})")
+    os.makedirs(tmp, exist_ok=True)
+    out = {"seconds": {}, "exports": [], "card": smi}
+    secs = out["seconds"]
+    labels = share["base"][share["base"].index("--labels") + 1]
+    sub_labels = os.path.join(tmp, "labels-sub.geojson")
+    keys, (bx0, by0, bx1, by1) = sub_aoi_labels(labels, sub_labels)
+    if len(keys) != 8:
+        raise AssertionError(f"sub-AOI: {len(keys)} tiles {keys}")
+    block = (bx0 - 200.0, by0 - 200.0, bx1 + 200.0, by1 + 200.0)
+    t0 = time.perf_counter()
+    croot, groot, files = write_container_roots(tmp, block)
+    secs["write roots"] = time.perf_counter() - t0
+    counts = ", ".join(f"{k} {len(v)}" for k, v in files.items())
+    log(f"  roots: 4 scenes x 13 bands, {counts} band files (each decodes "
+        f"to its array and georeferencing), {secs['write roots']:.3f} s")
+
+    # (1) exports
+    base = with_flags(share["base"], labels=sub_labels)
+    launches = {c.name: 0 for c in kernels.COUNTERS}
+    trees = {}
+    os.environ["DLSEG_DEBUG"] = "1"
+    try:
+        for root_name, root, device, batch in (
+                ("containers", croot, "cuda", 0),
+                ("containers", croot, "cuda", 16),
+                ("geotiff", groot, "cuda", 0),
+                ("geotiff", groot, "cuda", 16),
+                ("containers", croot, "cpu", 0),
+                ("containers", croot, "cpu", 16)):
+            dest = os.path.join(tmp, f"{root_name}-{device}-{batch}")
+            name = f"create-chips {root_name} {device} --batch-tiles {batch}"
+            counted = root_name == "containers" and device == "cuda"
+            if counted:
+                torch.cuda.synchronize()
+                for c in kernels.COUNTERS:
+                    c.reset()
+            cli_run(with_flags(base, catalog=root) + [
+                "--out", dest, "--max-cloud-fraction", "0", "--batch-tiles",
+                str(batch), "--device", device], secs, name)
+            if counted:
+                torch.cuda.synchronize()
+                for c in kernels.COUNTERS:
+                    launches[c.name] += c.count
+            folder, = glob.glob(os.path.join(dest, "*"))
+            trees[(root_name, device, batch)] = read_tree(folder)
+            if root_name == "containers" and device == "cuda" and batch:
+                share["container_chips"] = folder
+            out["exports"].append({
+                "root": root_name, "device": device, "batch_tiles": batch,
+                "tiles": 8, "seconds": secs[name],
+                "tiles_per_s": 8 / secs[name]})
+    finally:
+        del os.environ["DLSEG_DEBUG"]
+    for batch in (0, 16):
+        ref = trees[("containers", "cuda", batch)]
+        if len(ref) != 16:
+            raise AssertionError(f"container export: {len(ref)} files")
+        for other in (("geotiff", "cuda", batch), ("containers", "cpu",
+                                                   batch)):
+            got = trees[other]
+            if got != ref:
+                bad = [k for k in ref if got.get(k) != ref[k]][:3]
+                raise AssertionError(f"{other}: chips differ from the "
+                                     f"container root's on the card {bad}")
+    if not launches["masked_median"] or not (launches["burn_dense"]
+                                             and launches["burn_binned"]):
+        raise AssertionError(f"container exports launched {launches}")
+    out["launches"] = launches
+    log(f"  container root == GeoTIFF root == CPU chips, per tile and "
+        f"batched (16 GeoTIFFs each); launches on the card {launches}; "
+        + ", ".join(f"{r['root']} {r['device']} b{r['batch_tiles']} "
+                    f"{r['seconds']:.3f} s" for r in out["exports"]))
+
+    # (2) tifraw from NetCDF chips, ENVI through the MP engine
+    tifs = {sub: tree_files(share["rgb_folder"], sub, "tif")
+            for sub in ("images", "labels")}
+    nc_dir, envi_dir = (os.path.join(tmp, d) for d in ("nc-chips",
+                                                       "envi-chips"))
+    decoded = {}
+    # int16 for both: NetCDF classic has no uint8, and labels hold 255
+    # (nodata), which int8 would turn into -1
+    for sub in ("images", "labels"):
+        for d in (nc_dir, envi_dir):
+            os.makedirs(os.path.join(d, sub))
+        for k, p in tifs[sub].items():
+            g = read_geotiff(p)
+            a = g.array
+            decoded[(sub, k)] = a
+            with open(os.path.join(nc_dir, sub, f"{k}.nc"), "wb") as f:
+                f.write(netcdf_utm(np.moveaxis(a, 2, 0).astype(np.int16),
+                                   g.info.geotransform, g.info.epsg % 100,
+                                   "h", name="chip"))
+            hdr, body = envi.encode_envi(a, geotransform=g.info.geotransform,
+                                         epsg=g.info.epsg)
+            with open(os.path.join(envi_dir, sub, f"{k}.hdr"), "wb") as f:
+                f.write(hdr)
+            with open(os.path.join(envi_dir, sub, f"{k}.img"), "wb") as f:
+                f.write(body)
+    shards = {}
+    for kind, folder, ext, extra in (("nc", nc_dir, "nc", []),
+                                     ("envi", envi_dir, "hdr",
+                                      ["--store-as-array"])):
+        shards[kind] = os.path.join(tmp, f"{kind}-shards")
+        cli_run(["to-tfrecords", "--name", kind, "--directory", folder,
+                 "--out", shards[kind], "--shards", "4", "--workers", "4",
+                 "--engine", "mp", "--file-ext", ext, *extra], secs,
+                f"to-tfrecords --file-ext {ext}")
+    from dl_image_segmentation_tpu_torch.records.parsers import (
+        parse_8bit_array_proto, parse_encoded_gdal_proto_wrapped,
+        parse_higher_dtype_array_proto)
+    # the MP engine stores a uint8 pair as bytes (rgbarr), else FloatList
+    stored = (parse_8bit_array_proto if all(
+        a.dtype == np.uint8 for a in decoded.values())
+        else parse_higher_dtype_array_proto)
+    n = 0
+    for kind, parse in (("nc", parse_encoded_gdal_proto_wrapped),
+                        ("envi", stored)):
+        for f in sorted(glob.glob(os.path.join(shards[kind], f"{kind}-*"))):
+            for r in read_records(f, verify_crc=True):
+                img, lbl, ident = parse(r)
+                k = ident.decode().replace(":", "#")
+                want_i = decoded[("images", k)]
+                want_l = decoded[("labels", k)][:, :, 0]
+                if not (np.array_equal(img, want_i.astype(img.dtype))
+                        and np.array_equal(np.asarray(lbl).reshape(
+                            want_l.shape), want_l.astype(lbl.dtype))):
+                    raise AssertionError(f"{kind} record {k}: other pixels")
+                n += 1
+    if n != 2 * len(tifs["images"]):
+        raise AssertionError(f"{n} container records, not 2 x "
+                             f"{len(tifs['images'])}")
+    mlog = os.path.join(tmp, "nc.jsonl")
+    ckpt = os.path.join(tmp, "nc.pt")
+    cli_run(["train", "--records", os.path.join(shards["nc"], "nc-*"),
+             "--mode", "tifraw", "--classes", "10", "--steps", "20",
+             "--log-every", "1", "--workers", "1", "--metrics-log", mlog,
+             "--checkpoint", ckpt], secs, "train --mode tifraw (NetCDF)")
+    losses = [json.loads(ln)["loss"] for ln in open(mlog)]
+    if len(losses) != 20 or not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"train tifraw (NetCDF): losses {losses}")
+    out["losses"] = losses
+    log(f"  to-tfrecords: NetCDF tifraw and ENVI --store-as-array records "
+        f"== the chips ({n}, CRCs checked); train --mode tifraw from NetCDF "
+        f"chips: loss {losses[0]:.4f} -> {np.mean(losses[-5:]):.4f}")
+
+    # (3) container bodies: a 256² RGB chip as uint8 (GeoPackage's PNG
+    # tiles take 3 bands only at 8 bits)
+    chip = decoded[("images", sorted(tifs["images"])[0])]
+    if chip.dtype != np.uint8:
+        chip = np.clip(chip >> 4, 0, 255).astype(np.uint8)
+    bodies = {
+        "netcdf": netcdf_utm(np.moveaxis(chip, 2, 0).astype(np.int16),
+                             (0.0, 1.0, 0.0, 0.0, 0.0, -1.0), 43, "h"),
+        "grib": b"".join(grib.encode_grib2(
+            chip[:, :, b].astype(np.float64), 19.0, 72.0, 1e-4, 1e-4,
+            nbits=8, packing="complex-sd2") for b in range(3)),
+        "hdf4": hdf4.encode_hdf4({"rgb": np.moveaxis(chip, 2, 0)},
+                                 storage="chunked"),
+        "nitf": nitf.encode_nitf(chip, imode="B",
+                                 block_size=chip.shape[0] // 2),
+        "gpkg": gpkg_raster.encode_gpkg(chip, tile_size=chip.shape[0] // 2)}
+    trainer = Trainer(TrainConfig(num_classes=10, batch_size=8))
+    trainer.restore_checkpoint(ckpt)
+    ps = PredictServer(trainer)
+    httpd = make_http_server("127.0.0.1", 0, ps)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/predict"
+    names = sorted(bodies)
+    served = {}
+
+    def post(kind):
+        req = urllib.request.Request(url, data=bodies[kind], method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            served[kind] = np.load(io.BytesIO(r.read()))
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(k,)) for k in names]
+        for t_ in threads:
+            t_.start()
+        for t_ in threads:
+            t_.join(timeout=300)
+        secs["serve 5 container bodies"] = time.perf_counter() - t0
+        want = trainer.predict(np.stack([scale_image(
+            decode_image_bytes(bodies[k]).array, "auto") for k in names]))
+        for i, k in enumerate(names):
+            if k not in served or not np.array_equal(served[k], want[i]):
+                raise AssertionError(f"served {k} body differs from predict")
+        # a VRT body would make the server read the file it names
+        src = tifs["images"][sorted(tifs["images"])[0]]
+        vrt = (f'<VRTDataset rasterXSize="8" rasterYSize="8"><VRTRasterBand '
+               f'dataType="Byte" band="1"><SimpleSource><SourceFilename '
+               f'relativeToVRT="0">{src}</SourceFilename></SimpleSource>'
+               f'</VRTRasterBand></VRTDataset>').encode()
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                url, data=vrt, method="POST"), timeout=120)
+            raise AssertionError("a VRT body naming a file was served")
+        except urllib.error.HTTPError as e:
+            msg = e.read().decode()
+            if e.code != 400 or "VRT refused" not in msg or src in msg:
+                raise AssertionError(f"VRT body: {e.code} {msg}") from e
+    finally:
+        httpd.shutdown()
+        thread.join(timeout=30)
+        ps.close()
+    del trainer, ps
+    torch.cuda.empty_cache()
+    log(f"  serve: {', '.join(names)} bodies in "
+        f"{secs['serve 5 container bodies']:.3f} s, class maps == predict "
+        "of the port's decode; a VRT body naming a file: 400, unread")
+
+    # (4) decode MP/s and sniff us on one host thread
+    band = decode_image_bytes(open(files["nitf"][0], "rb").read()).array[
+        :, :, 0]
+    rest = {
+        "envi": envi.encode_envi(band),
+        "hdf4": hdf4.encode_hdf4({"band": band}),
+        "grib": grib.encode_grib2(band.astype(np.float64), 19.0, 72.0,
+                                  1e-4, 1e-4, nbits=12)}
+    samples = {k: open(v[0], "rb").read() for k, v in files.items()}
+    samples["grib"], samples["hdf4"] = rest["grib"], rest["hdf4"]
+    envi_dir1 = os.path.join(tmp, "envi-band")
+    os.makedirs(envi_dir1)
+    with open(os.path.join(envi_dir1, "band.img"), "wb") as f:
+        f.write(rest["envi"][1])
+    samples["envi"] = rest["envi"][0]
+    out["decode_mp_per_s"], out["sniff_us"] = {}, {}
+    for kind, data in samples.items():
+        kw = ({"base_dir": envi_dir1, "origin": "band.hdr"}
+              if kind == "envi" else {})
+        px = decode_image_bytes(data, **kw).array.shape
+        calls, took = rate(lambda d: decode_image_bytes(d, **kw), [data],
+                           min_s=0.3)
+        out["decode_mp_per_s"][kind] = calls * px[0] * px[1] / 1e6 / took
+        calls, took = rate(sniff_image_info, [data], min_s=0.2)
+        out["sniff_us"][kind] = took / calls * 1e6
+    log(f"  decode MP/s ({band.shape[1]} x {band.shape[0]} uint16 band; "
+        "one host thread): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in out["decode_mp_per_s"].items())
+        + "; sniff us: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in out["sniff_us"].items())
+        + f"; host of {smi}")
+
+    # (5) the library API
+    folder = share["container_chips"]
+    tif_i = tree_files(folder, "images", "tif")
+    tif_l = tree_files(folder, "labels", "tif")
+    api_shards = os.path.join(tmp, "api-shards")
+    cli_run(["to-tfrecords", "--name", "api", "--directory", folder,
+             "--out", api_shards, "--shards", "1", "--workers", "1",
+             "--engine", "mp", "--store-as-array"], secs,
+            "to-tfrecords container chips")
+    recs = [r for f in sorted(glob.glob(os.path.join(api_shards, "api-*")))
+            for r in read_records(f, verify_crc=True)]
+    by_key = {decode_example(r)["identifier"].bytes_list[0].decode(): r
+              for r in recs}
+    for k in tif_i:
+        img = torch.from_numpy(read_geotiff(tif_i[k]).array).cuda()
+        lbl = torch.from_numpy(read_geotiff(tif_l[k]).array[:, :, 0]).cuda()
+        key = _tile_key_from_filename(tif_i[k])
+        ex = convert_to_example(img, lbl, *img.shape, *lbl.shape, key)
+        if ex.SerializeToString() != by_key[key]:
+            raise AssertionError(f"convert_to_example({key}) != the MP "
+                                 "engine's record")
+    html = webmap.write_html_map_for_folder(os.path.join(tmp, "map.html"),
+                                            os.path.join(folder, "images"))
+    text = open(html, encoding="utf-8").read()
+    shown = json.loads(re.search(r"var tiles = (.*);\n", text).group(1))
+    # the web map draws tiles_to_layer's footprints: hold them against
+    # footprints computed apart, from each chip's own geotransform less
+    # its pad, in degrees (1e-9 is about 0.1 mm)
+    layer = tiles_to_layer([tile_from_key(k) for k in sorted(keys)])
+    drawn = {f["properties"]["key"]: np.asarray(
+        f["geometry"]["coordinates"][0]) for f in shown["features"]}
+    built = {ft.properties["key"]: ft.geometry.polygons()[0][0]
+             for ft in layer.features}
+    chips = {k.replace("#", ":"): p for k, p in tif_i.items()}
+    if sorted(drawn) != sorted(chips) or sorted(built) != sorted(chips):
+        raise AssertionError("the web map's or tiles_to_layer's keys are "
+                             "not the chips'")
+    for k, path in chips.items():
+        info = read_geotiff(path).info
+        gx, rx, _, gy, _, ry = info.geotransform
+        pad = int(k.split(":")[1])
+        xs = gx + rx * np.array([pad, info.width - pad])
+        ys = gy + ry * np.array([info.height - pad, pad])
+        lon, lat = tcrs.utm_to_lonlat(xs[[0, 1, 1, 0, 0]],
+                                      ys[[0, 0, 1, 1, 0]],
+                                      info.epsg - 32600)
+        ring = np.stack([lon, lat], axis=1)
+        for name, got in (("the web map", drawn[k]),
+                          ("tiles_to_layer", built[k])):
+            if not np.allclose(got, ring, rtol=0, atol=1e-9):
+                raise AssertionError(f"{name}'s footprint of {k} is not "
+                                     "its chip's")
+    t = Trainer(TrainConfig(num_classes=10))
+    cfg = t.config
+    rng = np.random.RandomState(24)
+    shape = (cfg.batch_size, cfg.image_size, cfg.image_size)
+    host = [(rng.randint(0, 255, shape + (cfg.in_channels,)).astype(
+        np.uint8), rng.randint(0, 10, shape).astype(np.int32))
+            for _ in range(4)]
+    feed = itertools.cycle(host)
+    first = next(feed)
+    d = profiling.duty_cycle(t.train_step_async, feed, 10,
+                             device_only_batch=t.place_batch(*first))
+    for _ in range(10):
+        t.train_step(*next(feed))
+    own = t.throughput_stats()
+    out["duty_cycle"] = d
+    out["trainer_duty"] = {k: own[k] for k in ("duty_cycle",
+                                               "duty_cycle_lower")}
+    del t
+    torch.cuda.empty_cache()
+    secs["phase"] = time.perf_counter() - t_phase
+    log(f"  API: convert_to_example of the card's 8 chips (cuda tensors) == "
+        f"the MP engine's records; the web map's and tiles_to_layer's "
+        f"footprints == the chips' geotransforms; "
+        f"duty_cycle of the bf16 U-Net step (batch {cfg.batch_size}): duty "
+        f"{d['duty_cycle']:.3f}, {d['steps_per_sec']:.2f} steps/s fed; the "
+        f"Trainer's own duty {own['duty_cycle']:.3f} (lower "
+        f"{own['duty_cycle_lower']:.3f}); {smi}")
+    log(f"  phase 12: {secs['phase']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3060,6 +3628,10 @@ def main() -> int:
         t0 = time.perf_counter()
         orbax_ck = orbax_phase(smi, os.path.join(work, "orbax"), share)
         log(f"  orbax_phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        containers = containers_phase(smi, os.path.join(work, "containers"),
+                                      share)
+        log(f"  containers_phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3070,6 +3642,11 @@ def main() -> int:
         out.append({
             "name": c.name, "route": "cuda", "source": c.source,
             "replaces": c.replaces, "launches": launches[c.name],
+            "launches_by_phase": {
+                "4": launches[c.name], "7": cli["launches"][c.name],
+                "8": remote["launches"][c.name],
+                "10": safe["launches"][c.name],
+                "12": containers["launches"][c.name]},
             "equal": all(r["equal"] for r in cases),
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "ms": main_case["ms"], "wrapper_ms": main_case["wrapper_ms"],
@@ -3085,6 +3662,7 @@ def main() -> int:
     log(json.dumps({"codecs": codecs}))
     log(json.dumps({"safe": safe}))
     log(json.dumps({"orbax": orbax_ck}))
+    log(json.dumps({"containers": containers}))
     log(f"seconds {time.perf_counter() - t_start:.1f}; runs "
         f"{json.dumps(runs)}")
     log(f"{smi}")

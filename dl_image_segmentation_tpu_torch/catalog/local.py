@@ -446,10 +446,12 @@ class LocalCatalog(Catalog):
     def _load_band_raster(self, path: str):
         """One SAFE band file through the band LRU. ``path`` is stored
         as written by ingest_safe -- a full path or URL, independent of
-        the catalog root. JPEG 2000 (the .SAFE band files), GeoTIFF,
-        PNG, JPEG, GIF and BMP band files decode; other containers raise
-        UnsupportedFormatError naming the ROADMAP item of their
-        decoder.
+        the catalog root. Any raster the port decodes may be a band
+        file: JPEG 2000 (the .SAFE band files), GeoTIFF, NetCDF, VRT,
+        GeoPackage, NITF, ... The bytes are decoded bare, as the JAX
+        package decodes them, so an ENVI header or a VRT with
+        relativeToVRT sources fails here; HDF5 raises naming ROADMAP
+        item 13.
 
         The LRU holds ``cache_scenes`` scenes' worth of band files (13
         each), where the JAX package puts them in its scene LRU of

@@ -1,11 +1,13 @@
 """GeoPackage (.gpkg) vector IO, stdlib-sqlite3 + hand-rolled WKB.
 
-Extends the OGR-subset reader (geo/vector.py) with the modern default
+A copy of the JAX package's ``geo/gpkg.py``. Extends the OGR-subset reader (geo/vector.py) with the modern default
 interchange format. Implements the slice of the OGC GeoPackage spec
 the label pipeline needs: feature tables registered in gpkg_contents /
 gpkg_geometry_columns, the GP binary geometry header, and 2-D WKB
 Polygon / MultiPolygon (+ Z/M variants by coordinate dropping).
-Read only: the port's chip creation reads label layers and writes none.
+Both read and write (write: enough of the spec that the reader and
+common GIS tools accept the file; ``write_gpkg``'s files are byte for
+byte the JAX package's, ``gpkg_contents.last_change`` aside).
 """
 
 from __future__ import annotations
@@ -66,6 +68,28 @@ def _parse_wkb(buf: bytes, pos: int = 0):
     raise ValueError(f"unsupported WKB geometry type {gtype}")
 
 
+def _encode_wkb(geom: Geometry) -> bytes:
+    polys = geom.polygons()
+
+    def poly_body(rings) -> bytes:
+        out = struct.pack("<I", len(rings))
+        for r in rings:
+            r = np.asarray(r, dtype="<f8")
+            if len(r) and not np.allclose(r[0], r[-1]):
+                r = np.concatenate([r, r[:1]])
+            out += struct.pack("<I", len(r)) + r.tobytes()
+        return out
+
+    if len(polys) == 1:
+        return b"\x01" + struct.pack("<I", _WKB_POLYGON) \
+            + poly_body(polys[0])
+    out = b"\x01" + struct.pack("<I", _WKB_MULTIPOLYGON) \
+        + struct.pack("<I", len(polys))
+    for rings in polys:
+        out += b"\x01" + struct.pack("<I", _WKB_POLYGON) + poly_body(rings)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # GPKG geometry blob (GP header + WKB)
 # ---------------------------------------------------------------------------
@@ -91,8 +115,14 @@ def _parse_gpkg_geom(blob: bytes) -> Optional[Geometry]:
     return geom
 
 
+def _encode_gpkg_geom(geom: Geometry, srs_id: int) -> bytes:
+    # version 0, flags: little-endian byte order, no envelope
+    header = b"GP\x00\x01" + struct.pack("<i", srs_id)
+    return header + _encode_wkb(geom)
+
+
 # ---------------------------------------------------------------------------
-# dataset reader
+# dataset reader / writer
 # ---------------------------------------------------------------------------
 
 def read_gpkg(path: str):
@@ -128,5 +158,83 @@ def read_gpkg(path: str):
             layers.append(VectorLayer(name, feats,
                                       srs if srs > 0 else 4326))
         return VectorDataset(layers)
+    finally:
+        con.close()
+
+
+def write_gpkg(path: str, layer, srs_id: Optional[int] = None) -> None:
+    """Write one VectorLayer to a new GeoPackage file."""
+    if os.path.exists(path):
+        os.remove(path)
+    srs = srs_id if srs_id is not None else (layer.crs_epsg or 4326)
+    con = sqlite3.connect(path)
+    try:
+        cur = con.cursor()
+        cur.execute("PRAGMA application_id = 0x47504B47")  # 'GPKG'
+        cur.execute("PRAGMA user_version = 10300")
+        cur.execute(
+            "CREATE TABLE gpkg_spatial_ref_sys (srs_name TEXT NOT NULL, "
+            "srs_id INTEGER PRIMARY KEY, organization TEXT NOT NULL, "
+            "organization_coordsys_id INTEGER NOT NULL, definition TEXT "
+            "NOT NULL, description TEXT)")
+        for sid, nm in ((-1, "Undefined cartesian"),
+                        (0, "Undefined geographic"),
+                        (4326, "WGS 84")):
+            cur.execute("INSERT INTO gpkg_spatial_ref_sys VALUES "
+                        "(?,?,?,?,?,NULL)",
+                        (nm, sid, "EPSG" if sid > 0 else "NONE",
+                         max(sid, 0), "undefined"))
+        if srs not in (-1, 0, 4326):
+            cur.execute("INSERT INTO gpkg_spatial_ref_sys VALUES "
+                        "(?,?,?,?,?,NULL)",
+                        (f"EPSG:{srs}", srs, "EPSG", srs, "undefined"))
+        cur.execute(
+            "CREATE TABLE gpkg_contents (table_name TEXT PRIMARY KEY, "
+            "data_type TEXT NOT NULL, identifier TEXT UNIQUE, "
+            "description TEXT DEFAULT '', last_change DATETIME, "
+            "min_x DOUBLE, min_y DOUBLE, max_x DOUBLE, max_y DOUBLE, "
+            "srs_id INTEGER)")
+        cur.execute(
+            "CREATE TABLE gpkg_geometry_columns (table_name TEXT NOT "
+            "NULL, column_name TEXT NOT NULL, geometry_type_name TEXT "
+            "NOT NULL, srs_id INTEGER NOT NULL, z TINYINT NOT NULL, "
+            "m TINYINT NOT NULL, CONSTRAINT pk_geom_cols PRIMARY KEY "
+            "(table_name, column_name))")
+        # attribute columns from the first feature
+        props0 = layer.features[0].properties if layer.features else {}
+        cols = []
+        for k, v in props0.items():
+            sqltype = ("INTEGER" if isinstance(v, (int, bool))
+                       else "REAL" if isinstance(v, float) else "TEXT")
+            cols.append(f'"{k}" {sqltype}')
+        col_sql = (", " + ", ".join(cols)) if cols else ""
+        cur.execute(f'CREATE TABLE "{layer.name}" (fid INTEGER PRIMARY '
+                    f'KEY AUTOINCREMENT, geom BLOB{col_sql})')
+        keys = list(props0.keys())
+        for f in layer.features:
+            blob = _encode_gpkg_geom(f.geometry, srs)
+            vals = [f.properties.get(k) for k in keys]
+            ph = ",".join("?" * (1 + len(keys)))
+            cur.execute(
+                f'INSERT INTO "{layer.name}" (geom'
+                + ("".join(f', "{k}"' for k in keys)) + f") VALUES ({ph})",
+                [blob] + vals)
+        bounds = None
+        for f in layer.features:
+            if f.geometry.is_empty:  # null shapes have no envelope
+                continue
+            b = f.geometry.bounds
+            bounds = b if bounds is None else (
+                min(bounds[0], b[0]), min(bounds[1], b[1]),
+                max(bounds[2], b[2]), max(bounds[3], b[3]))
+        cur.execute(
+            "INSERT INTO gpkg_contents VALUES (?,?,?,?,"
+            "datetime('now'),?,?,?,?,?)",
+            (layer.name, "features", layer.name, "",
+             *(bounds or (None,) * 4), srs))
+        cur.execute("INSERT INTO gpkg_geometry_columns VALUES "
+                    "(?,?,?,?,0,0)",
+                    (layer.name, "geom", "MULTIPOLYGON", srs))
+        con.commit()
     finally:
         con.close()

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -195,6 +195,28 @@ class Tile:
         except ValueError:
             # extension-less filename whose only '.' is the resolution's
             return cls.from_key(base.replace("#", ":"))
+
+
+def tile_from_key(key: str) -> Tile:
+    return Tile.from_key(key)
+
+
+def tiles_to_layer(tiles: Sequence["Tile"]):
+    """Persistable vector layer of tile footprints (WGS84 polygons with
+    a 'key' attribute) -- the reference's save-tile-list-to-shapefile
+    resume flow (create nb cells 22-24) via geo.vector.write_geojson;
+    reload with DLSampleCreationConfig.get_tiles(tile_ids=[...keys])."""
+    from .vector import Feature, VectorLayer
+    from .geometry import Geometry
+    feats = []
+    for t in tiles:
+        x0, y0, x1, y1 = t.bounds_unpadded
+        xs = np.array([x0, x1, x1, x0, x0])
+        ys = np.array([y0, y0, y1, y1, y0])
+        lon, lat = _crs.utm_to_lonlat(xs, ys, t.zone)
+        ring = np.stack([lon, lat], axis=1)
+        feats.append(Feature(Geometry([[ring]]), {"key": t.key}))
+    return VectorLayer("tiles", feats, 4326)
 
 
 def tiles_from_bounds_utm(

@@ -1,4 +1,5 @@
-"""Vector dataset reader: GeoJSON and ESRI Shapefile, pure Python.
+"""Vector dataset reader and writers: GeoJSON and ESRI Shapefile, pure
+Python.
 
 Replaces the OGR subset the reference actually uses
 (dl_segmentation_utils/_descartes_img_chips.py:125-144,
@@ -11,7 +12,8 @@ integer attribute, in some CRS. Supported formats:
 A dataset exposes ``layers()`` -> [VectorLayer]; each layer exposes
 ``features`` (list of Feature), ``crs_wkt``/``crs_epsg`` and ``name``.
 CRS handling matches the pipeline's needs: features can be reprojected
-to WGS84 or to a UTM zone via geo.crs.
+to WGS84 or to a UTM zone via geo.crs. ``write_geojson`` and
+``write_shapefile`` (.shp, .shx, .dbf, .prj) write a polygon layer.
 """
 
 from __future__ import annotations
@@ -339,3 +341,161 @@ def _read_dbf(path: str) -> List[Optional[Dict[str, object]]]:
                 props[fname] = txt
         out.append(props)
     return out
+
+
+# ---------------------------------------------------------------------------
+# writers (persist tile plans: the reference's save-tile-list-to-shapefile
+# resume flow, create nb cells 22-24); byte for byte the JAX package's
+# ---------------------------------------------------------------------------
+
+_WGS84_WKT = ('GEOGCS["WGS 84",DATUM["WGS_1984",SPHEROID["WGS 84",'
+              '6378137,298.257223563]],PRIMEM["Greenwich",0],'
+              'UNIT["degree",0.0174532925199433],'
+              'AUTHORITY["EPSG","4326"]]')
+
+
+def _ensure_winding(ring: np.ndarray, clockwise: bool) -> np.ndarray:
+    """The ring closed and in the given winding (shoelace sign)."""
+    r = np.asarray(ring, dtype=np.float64)
+    if len(r) and not np.allclose(r[0], r[-1]):
+        r = np.concatenate([r, r[:1]])
+    area2 = float(np.sum(r[:-1, 0] * r[1:, 1] - r[1:, 0] * r[:-1, 1]))
+    is_ccw = area2 > 0
+    if is_ccw == clockwise:
+        r = r[::-1].copy()
+    return r
+
+
+def write_shapefile(path: str, layer: VectorLayer) -> None:
+    """Write a polygon layer as an ESRI Shapefile (.shp/.shx/.dbf/.prj).
+
+    Exterior rings are written clockwise and holes counter-clockwise
+    per the spec; attributes come from the first feature's properties
+    (ints/floats -> N fields, everything else -> C fields)."""
+    base = os.path.splitext(path)[0]
+
+    records = []
+    for f in layer.features:
+        rings = []
+        for poly in f.geometry.polygons():
+            if not poly:
+                continue
+            rings.append(_ensure_winding(poly[0], clockwise=True))
+            for hole in poly[1:]:
+                rings.append(_ensure_winding(hole, clockwise=False))
+        records.append(rings)
+
+    body = bytearray()
+    offsets = []
+    for recno, rings in enumerate(records, start=1):
+        pts = (np.concatenate(rings, axis=0) if rings
+               else np.zeros((0, 2)))
+        content = struct.pack("<i", 5 if rings else 0)
+        if rings:
+            content += struct.pack(
+                "<4d", pts[:, 0].min(), pts[:, 1].min(),
+                pts[:, 0].max(), pts[:, 1].max())
+            content += struct.pack("<ii", len(rings), len(pts))
+            idx = 0
+            for r in rings:
+                content += struct.pack("<i", idx)
+                idx += len(r)
+            content += np.ascontiguousarray(pts, "<f8").tobytes()
+        offsets.append((100 + len(body)) // 2)
+        body += struct.pack(">ii", recno, len(content) // 2) + content
+
+    allpts = [np.concatenate(r, axis=0) for r in records if r]
+    if allpts:
+        ap = np.concatenate(allpts, axis=0)
+        bbox = (ap[:, 0].min(), ap[:, 1].min(),
+                ap[:, 0].max(), ap[:, 1].max())
+    else:
+        bbox = (0.0, 0.0, 0.0, 0.0)
+
+    def header(total_words: int) -> bytes:
+        h = struct.pack(">i", 9994) + b"\x00" * 20
+        h += struct.pack(">i", total_words)
+        h += struct.pack("<ii", 1000, 5)
+        h += struct.pack("<4d", *bbox)
+        h += struct.pack("<4d", 0, 0, 0, 0)
+        return h
+
+    with open(base + ".shp", "wb") as fh:
+        fh.write(header((100 + len(body)) // 2))
+        fh.write(body)
+    shx_body = b"".join(
+        struct.pack(">ii", off,
+                    struct.unpack(">i", body[(off * 2 - 100) + 4:
+                                             (off * 2 - 100) + 8])[0])
+        for off in offsets)
+    with open(base + ".shx", "wb") as fh:
+        fh.write(header((100 + len(shx_body)) // 2))
+        fh.write(shx_body)
+
+    # DBF: infer fields from the first feature
+    props0 = layer.features[0].properties if layer.features else {}
+    # DBF names are 10-char-truncated; values must still be looked up
+    # by the ORIGINAL property key or long-named fields come out blank
+    # (C) or crash on int('') (N)
+    fields = []
+    for k, v in props0.items():
+        nm = str(k)[:10]
+        if isinstance(v, bool) or isinstance(v, int):
+            fields.append((nm, k, "N", 18, 0))
+        elif isinstance(v, float):
+            fields.append((nm, k, "N", 18, 6))
+        else:
+            fields.append((nm, k, "C", 80, 0))
+    if not fields:
+        fields = [("FID", "FID", "N", 18, 0)]
+    rec_size = 1 + sum(f[3] for f in fields)
+    hdr_size = 32 + 32 * len(fields) + 1
+    dbf = bytearray()
+    dbf += struct.pack("<BBBBIHH", 3, 24, 1, 1, len(layer.features),
+                       hdr_size, rec_size)
+    dbf += b"\x00" * 20
+    for nm, _key, t, ln, dec in fields:
+        dbf += nm.encode("ascii", "replace").ljust(11, b"\x00")
+        dbf += t.encode() + b"\x00" * 4 + bytes([ln, dec]) + b"\x00" * 14
+    dbf += b"\x0d"
+    for i, f in enumerate(layer.features):
+        dbf += b" "
+        for nm, key, t, ln, dec in fields:
+            v = f.properties.get(key, i if nm == "FID" else "")
+            if t == "N":
+                txt = ("" if v is None or v == "" else
+                       (f"{float(v):.{dec}f}" if dec else str(int(v))))
+                dbf += txt.rjust(ln)[:ln].encode("ascii", "replace")
+            else:
+                dbf += str(v).ljust(ln)[:ln].encode("latin-1", "replace")
+    dbf += b"\x1a"
+    with open(base + ".dbf", "wb") as fh:
+        fh.write(bytes(dbf))
+
+    epsg = layer.crs_epsg or 4326
+    if 32601 <= epsg <= 32660:
+        wkt = _crs.utm_wkt(epsg - 32600, north=True)
+    elif 32701 <= epsg <= 32760:
+        wkt = _crs.utm_wkt(epsg - 32700, north=False)
+    else:
+        wkt = _WGS84_WKT
+    with open(base + ".prj", "w", encoding="ascii") as fh:
+        fh.write(wkt)
+
+
+def write_geojson(path: str, layer: VectorLayer) -> None:
+    """Write a layer as a GeoJSON FeatureCollection (a ``crs`` member
+    names a CRS other than WGS84)."""
+    feats = []
+    for f in layer.features:
+        feats.append({
+            "type": "Feature",
+            "geometry": f.geometry.__geo_interface__,
+            "properties": f.properties,
+        })
+    obj = {"type": "FeatureCollection", "features": feats}
+    if layer.crs_epsg and layer.crs_epsg != 4326:
+        obj["crs"] = {"type": "name", "properties": {
+            "name": f"urn:ogc:def:crs:EPSG::{layer.crs_epsg}"}}
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(obj, fh)

@@ -38,7 +38,9 @@ def _convert_one(src_path: str, dst_path: str, to: str, quality: int,
     if storage.exists(dst_path):
         return False
     from ..raster.image import decode_image_bytes
-    g = decode_image_bytes(storage.read_bytes(src_path))
+    g = decode_image_bytes(storage.read_bytes(src_path),
+                           base_dir=storage.dirname(src_path),
+                           origin=storage.basename(src_path))
     arr = g.array
     if rescale is not None:
         arr = _to_uint8(arr, rescale)

@@ -1,16 +1,21 @@
 """Image codecs and the decode-from-bytes dispatch.
 
-A copy of the JAX package's ``raster/image.py`` for the containers the
-port decodes: TIFF/GeoTIFF (classic and BigTIFF) through its own reader
+A copy of the JAX package's ``raster/image.py``. The port decodes
+TIFF/GeoTIFF (classic and BigTIFF) with its own reader
 (``raster/geotiff.py``), JPEG 2000 (JP2 and raw J2K, with GeoJP2/GMLJP2
-georeferencing) through ``raster/jp2.py``, and PNG, JPEG, GIF (first
-frame) and BMP through its own codecs (``raster/png.py``, ``jpeg.py``,
-``gif.py``, ``bmp.py``), where the JAX package uses PIL. Decoded arrays
-equal the JAX package's, PIL's mode mapping included; the JPEG
-encoder's bytes equal PIL's. ``decode_image_bytes`` sniffs the container
-from its magic bytes. The JPEG variants the decoder lacks and RLE BMPs
-raise :class:`UnsupportedFormatError` naming ROADMAP queue 1 item 6, the
-scientific containers item 10.
+georeferencing) with ``raster/jp2.py``, PNG, JPEG, GIF (first frame) and
+BMP with its own codecs (``raster/png.py``, ``jpeg.py``, ``gif.py``,
+``bmp.py``), where the JAX package uses PIL, and the scientific
+containers with copies of the JAX package's decoders: NetCDF classic
+(``netcdf.py``), GRIB 1 and 2 (``grib.py``), GDAL VRT (``vrt.py``), ENVI
+(``envi.py``), HDF4 (``hdf4.py``), NITF (``nitf.py``) and GeoPackage
+rasters (``gpkg_raster.py``). Decoded arrays equal the JAX package's,
+PIL's mode mapping included; the JPEG encoder's bytes equal PIL's.
+``decode_image_bytes`` sniffs the container from its magic bytes, in the
+JAX package's order. The JPEG variants the decoder lacks and RLE BMPs
+raise :class:`UnsupportedFormatError` naming ROADMAP queue 1 item 6;
+HDF5 and NetCDF-4 files, which the JAX package reads through h5py, name
+item 13.
 
 ``sniff_image_info`` reads shape and dtype from headers without decoding
 pixels. Its JPEG sniffer is a copy of the JAX package's; for PNG, GIF
@@ -18,22 +23,33 @@ and BMP it reports what the port's decoder returns, where the JAX
 package's sniffer does not in places (16-bit RGB(A) PNG: uint8, not
 uint16; 16-bit grey+alpha PNG: 4 bands, not 2; 1-bit grey PNG and
 black/white BMP: bool; BMP palettes that are grey but not the identity
-ramp: 3 bands; 32-bit BMP without an alpha mask: 3 bands).
+ramp: 3 bands; 32-bit BMP without an alpha mask: 3 bands), and so for a
+GeoPackage's PNG tiles; for NITF and GeoPackage it reports what their
+decoders return, or raises what they raise (a C8 NITF georeferenced
+inside its codestream, images the decoders refuse).
 """
 
 from __future__ import annotations
 
 import struct
+from typing import Optional
 
 import numpy as np
 
 from .bmp import BMPUnsupported, bmp_layout, decode_bmp_array
+from .envi import decode_envi, is_envi_header, sniff_envi_info
 from .geotiff import GeoTIFF, RasterInfo, decode_geotiff, decode_geotiff_info
 from .gif import decode_gif_array, gif_layout
+from .gpkg_raster import decode_gpkg, is_gpkg, sniff_gpkg_info
+from .grib import decode_grib, is_grib, sniff_grib_info
+from .hdf4 import decode_hdf4, is_hdf4, sniff_hdf4_info
 from .jp2 import (JP2Unsupported, decode_jp2, is_jp2, palette_rgb,
                   sniff_jp2_info)
 from .jpeg import JPEGUnsupported, decode_jpeg_array, encode_jpeg_array
+from .netcdf import decode_netcdf, is_netcdf_classic, sniff_netcdf_info
+from .nitf import decode_nitf, is_nitf, sniff_nitf_info
 from .png import decode_png_array, decoded_layout, encode_png_array, png_header
+from .vrt import decode_vrt, is_vrt, sniff_vrt_info
 
 __all__ = ["CorruptRasterError", "UnsupportedFormatError", "decode_image",
            "decode_image_bytes", "decode_jpeg", "decode_png", "encode_jpeg",
@@ -65,18 +81,20 @@ def _named(fmt: str, fn, *args, **kwargs):
             f"{type(e).__name__}: {e}") from e
 
 
-# (magic, name, ROADMAP queue 1 item that ports its decoder): item 10
-# holds the scientific containers of the JAX package's universal decode
-_KNOWN_MAGICS = (
-    (b"CDF\x01", "NetCDF classic", 10),
-    (b"CDF\x02", "NetCDF classic", 10),
-    (b"CDF\x05", "NetCDF classic", 10),
-    (b"\x89HDF\r\n\x1a\n", "HDF5 / NetCDF-4", 10),
-    (b"\x0e\x03\x13\x01", "HDF4", 10),
-    (b"GRIB", "GRIB", 10),
-    (b"NITF", "NITF", 10),
-    (b"SQLite format 3\x00", "GeoPackage (SQLite)", 10),
-)
+_HDF5_SIG = b"\x89HDF\r\n\x1a\n"
+
+
+def _is_hdf5(data: bytes) -> bool:
+    # the JAX package's test: the superblock may start at 0 or at a
+    # power-of-two offset >= 512 (a userblock)
+    if data[:8] == _HDF5_SIG:
+        return True
+    off = 512
+    while off + 8 <= len(data) and off <= 65536:
+        if data[off:off + 8] == _HDF5_SIG:
+            return True
+        off *= 2
+    return False
 
 
 def _is_png(data: bytes) -> bool:
@@ -101,15 +119,43 @@ def _is_gif(data: bytes) -> bool:
 
 
 def _unsupported(data: bytes) -> UnsupportedFormatError:
-    name, item = next(((n, i) for magic, n, i in _KNOWN_MAGICS
-                       if data[:len(magic)] == magic),
-                      (f"unknown container (magic bytes {data[:4]!r})", 10))
     return UnsupportedFormatError(
-        f"unsupported raster format: {name}. The port decodes GeoTIFF "
-        "(classic and BigTIFF), JPEG 2000, PNG, JPEG, GIF, BMP and .npy "
-        "bodies; "
-        "convert other containers (e.g. with gdal_translate) first. "
-        f"Decoding this one is ROADMAP queue 1 item {item}.")
+        f"unsupported raster format: unknown container (magic bytes "
+        f"{data[:4]!r}). Supported formats: "
+        "GeoTIFF, PNG, JPEG, JPEG 2000, BMP, NetCDF, HDF4, HDF5, "
+        "GRIB (1+2), ENVI, VRT (GIF decode-only); convert other "
+        "containers (e.g. with gdal_translate) before ingestion.")
+
+
+def _hdf5() -> UnsupportedFormatError:
+    return UnsupportedFormatError(
+        "unsupported raster format: HDF5 / NetCDF-4. The port decodes "
+        "GeoTIFF, JPEG 2000, PNG, JPEG, GIF, BMP, NetCDF classic, GRIB "
+        "(1+2), VRT, ENVI, HDF4, NITF, GeoPackage rasters and .npy "
+        "bodies; convert other containers (e.g. with gdal_translate) "
+        "first. Decoding this one is ROADMAP queue 1 item 13.")
+
+
+def _container(data: bytes):
+    """(format name, decoder, sniffer) of a scientific container, in the
+    JAX package's order, or None. HDF5 raises."""
+    if is_netcdf_classic(data):
+        return "NetCDF", decode_netcdf, sniff_netcdf_info
+    if _is_hdf5(data):
+        raise _hdf5()
+    if is_grib(data):
+        return "GRIB", decode_grib, sniff_grib_info
+    if is_vrt(data):
+        return "VRT", decode_vrt, sniff_vrt_info
+    if is_envi_header(data):
+        return "ENVI", decode_envi, sniff_envi_info
+    if is_hdf4(data):
+        return "HDF4", decode_hdf4, sniff_hdf4_info
+    if is_nitf(data):
+        return "NITF", decode_nitf, sniff_nitf_info
+    if is_gpkg(data):
+        return "GeoPackage", decode_gpkg, sniff_gpkg_info
+    return None
 
 
 def _three_d(arr: np.ndarray, what: str) -> np.ndarray:
@@ -179,10 +225,19 @@ def _decode_pixels(data: bytes):
     return None
 
 
-def decode_image_bytes(data: bytes) -> GeoTIFF:
+def decode_image_bytes(data: bytes, base_dir: Optional[str] = None,
+                       origin: Optional[str] = None,
+                       allow_sources: bool = True) -> GeoTIFF:
     """Decode a supported raster from bytes, with its georeferencing when
-    the container carries it; bands-last. Other containers raise
-    UnsupportedFormatError."""
+    the container carries it; bands-last. ``base_dir`` (the directory of
+    the file) and ``origin`` (its file name) serve the multi-file
+    containers: a VRT's ``relativeToVRT`` sources and the ENVI data file
+    next to its header. Other containers raise UnsupportedFormatError.
+
+    A VRT reads the paths and URLs that its XML names. Bytes from an
+    untrusted sender (a request body) are decoded with
+    ``allow_sources=False``, which refuses a VRT before it reads
+    anything, so the sender cannot choose files or URLs to fetch."""
     if _is_tiff(data):
         return _named("GeoTIFF", decode_geotiff, data)
     if is_jp2(data):
@@ -190,12 +245,24 @@ def decode_image_bytes(data: bytes) -> GeoTIFF:
         # GeoJP2/GMLJP2 georeferencing
         return _named("JPEG 2000", decode_jp2, data)
     codec = _decode_pixels(data)
-    if codec is None:
+    if codec is not None:
+        arr = _named(codec[0], codec[1], data)
+        info = RasterInfo(width=arr.shape[1], height=arr.shape[0],
+                          count=arr.shape[2], dtype=arr.dtype.name)
+        return GeoTIFF(arr, info)
+    found = _container(data)
+    if found is None:
         raise _unsupported(data)
-    arr = _named(codec[0], codec[1], data)
-    info = RasterInfo(width=arr.shape[1], height=arr.shape[0],
-                      count=arr.shape[2], dtype=arr.dtype.name)
-    return GeoTIFF(arr, info)
+    name, decode, _ = found
+    if name == "VRT":
+        if not allow_sources:
+            raise UnsupportedFormatError(
+                "VRT refused: a VRT reads the files and URLs it names, "
+                "and this input may not choose them")
+        return _named(name, decode, data, base_dir=base_dir)
+    if name == "ENVI":
+        return _named(name, decode, data, base_dir=base_dir, origin=origin)
+    return _named(name, decode, data)
 
 
 def decode_image(data: bytes) -> np.ndarray:
@@ -258,4 +325,7 @@ def sniff_image_info(data: bytes) -> RasterInfo:
         return _named("BMP", _sniff_bmp, data)
     if _is_gif(data):
         return _named("GIF", _sniff_gif, data)
-    raise _unsupported(data)
+    found = _container(data)
+    if found is None:
+        raise _unsupported(data)
+    return _named(found[0], found[2], data)

@@ -12,6 +12,10 @@ including its storage promotion rule:
 
 Schema: image/image_data, image/height, image/width, image/channels,
 target/target_data, target/height, target/width, identifier.
+
+``convert_to_example`` is the reference's facade function: it returns an
+:class:`Example` whose ``SerializeToString()`` gives the bytes, and
+takes torch tensors (and anything else numpy converts) as arrays.
 """
 
 from __future__ import annotations
@@ -24,8 +28,28 @@ from . import proto
 from .crc32c import masked_crc32c_native
 from .tfrecord import frame_header, writeall
 
-__all__ = ["encode_example_features", "storage_payloads",
-           "write_example_framed"]
+__all__ = ["Example", "convert_to_example", "encode_example_features",
+           "storage_payloads", "write_example_framed"]
+
+
+class Example:
+    """A serialized Example with tf.train.Example's
+    ``SerializeToString()``, so call sites written against TensorFlow
+    keep working."""
+
+    __slots__ = ("_data",)
+
+    def __init__(self, data: bytes):
+        self._data = data
+
+    def SerializeToString(self) -> bytes:  # noqa: N802 (TF's name)
+        return self._data
+
+    def __bytes__(self) -> bytes:
+        return self._data
+
+    def __len__(self) -> int:
+        return len(self._data)
 
 
 def _is_uint8_array(x) -> bool:
@@ -99,3 +123,23 @@ def write_example_framed(fileobj, img_data, target_data, img_h, img_w,
     writeall(fileobj, rec)
     writeall(fileobj, struct.pack("<I", masked_crc32c_native(rec)))
     return len(rec) + 16
+
+
+def _as_numpy(x):
+    if isinstance(x, (bytes, np.ndarray)):
+        return x
+    if hasattr(x, "detach"):  # a torch tensor, on any device
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def convert_to_example(img_data, target_data, img_h, img_w, img_b,
+                       target_h, target_w, identifier) -> Example:
+    """The reference's convert_to_example
+    (_tfrecord_image_translation.py:55): ``img_data`` / ``target_data``
+    are encoded file bytes or arrays (numpy, torch tensors); uint8
+    arrays and bytes are stored as BytesList, anything else as float32
+    FloatList, under the promotion rule above."""
+    return Example(encode_example_features(
+        _as_numpy(img_data), _as_numpy(target_data), img_h, img_w, img_b,
+        target_h, target_w, identifier))

@@ -1,10 +1,12 @@
 """Chip folders -> sharded TFRecords: the MP and MT engines.
 
 A copy of the JAX package's ``records/writers.py``:
-``process_dataset_mp`` over GeoTIFF chip folders and
+``process_dataset_mp`` over chip folders of any raster container the
+port decodes (GeoTIFF, JPEG 2000, ENVI headers, NetCDF, ...) and
 ``process_dataset_multithreaded`` (the MT engine) over PNG/JPEG chip
-folders; their shards are byte for byte the JAX package's (whichever of
-its paths, C++ or Python, wrote them). Chip folders may be local, gs://,
+folders, also under the facade's names ``images_to_tfrecords_mp`` and
+``images_to_tfrecords_mt``; their shards are byte for byte the JAX
+package's (whichever of its paths, C++ or Python, wrote them). Chip folders may be local, gs://,
 s3:// or http(s)://, and the output directory local, gs:// or s3://,
 through the storage layer. Contracts kept:
 
@@ -46,7 +48,8 @@ from ..raster.image import (CorruptRasterError, UnsupportedFormatError,
 from .example import write_example_framed
 from .tfrecord import TFRecordWriter, shard_filename
 
-__all__ = ["process_dataset_mp", "process_dataset_multithreaded"]
+__all__ = ["images_to_tfrecords_mp", "images_to_tfrecords_mt",
+           "process_dataset_mp", "process_dataset_multithreaded"]
 
 
 def _tile_key_from_filename(path: str) -> str:
@@ -117,11 +120,15 @@ def _load_mt(path: str, dltile_from_filename: bool, png_to_jpg: bool,
 
 
 def _load_any(path: str, dltile_from_filename: bool, decode: bool):
-    """(array or file bytes, h, w, bands, identifier) of one GeoTIFF;
-    without ``decode`` only the header is read."""
+    """(array or file bytes, h, w, bands, identifier) of one raster of
+    any container the port decodes; without ``decode`` only the header
+    is read."""
     data = storage.read_bytes(path)
     if decode:
-        g = decode_image_bytes(data)
+        # base_dir + origin let the multi-file containers (VRT sources,
+        # the ENVI data file) find their siblings
+        g = decode_image_bytes(data, base_dir=storage.dirname(path),
+                               origin=storage.basename(path))
         info = g.info
     else:
         info = sniff_image_info(data)
@@ -288,3 +295,8 @@ def process_dataset_multithreaded(name: str, directory: str,
         functools.partial(_load_mt, dltile_from_filename=dltile_from_filename,
                           png_to_jpg=convert_png_to_jpg),
         store_as_array, ["png", "jpg"], 1000, resume)
+
+
+# the facade's names (the reference's dl_segmentation_utils/__init__.py)
+images_to_tfrecords_mt = process_dataset_multithreaded
+images_to_tfrecords_mp = process_dataset_mp

@@ -10,10 +10,13 @@ Prometheus lines:
 - one forward pass serves BOTH output kinds: probability requests get
   the softmax map, class-map requests the logits' argmax (the same
   int32 map as ``Trainer.predict``);
-- request bodies are TIFF/GeoTIFF, PNG, JPEG, GIF or BMP (decoded by the
-  port's codecs and scaled by the offline rules of ``scale_image``) or
-  ``.npy`` arrays taken as raw, already-scaled float arrays; other
-  containers and corrupt bodies answer 400;
+- request bodies are any raster the port decodes (TIFF/GeoTIFF, JPEG
+  2000, PNG, JPEG, GIF, BMP, NetCDF, GRIB, HDF4, NITF, GeoPackage, ...;
+  decoded as bare bytes and scaled by the offline rules of
+  ``scale_image``) or ``.npy`` arrays taken as raw, already-scaled float
+  arrays; other containers (HDF5, multi-file ENVI), every VRT (its
+  sources are files or URLs that a client must not choose) and corrupt
+  bodies answer 400;
 - bounded admission: beyond ``max_queue`` waiting requests the server
   answers 503 at once, and shutdown fails queued requests instead of
   letting them time out. A batch that fails surfaces its error to every
@@ -447,7 +450,8 @@ def make_http_server(host: str, port: int, server: PredictServer,
                                           allow_pickle=False),
                                   np.float32)
             from .raster.image import decode_image_bytes
-            g = decode_image_bytes(body)
+            # a body never names files or URLs for the server to read
+            g = decode_image_bytes(body, allow_sources=False)
             return scale_image(np.asarray(g.array), scale)
 
     return ThreadingHTTPServer((host, port), Handler)

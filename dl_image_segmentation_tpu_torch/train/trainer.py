@@ -47,6 +47,7 @@ from ..models.quant import Int8Conv
 from ..models.segformer import SegFormerLite
 from ..models.unet import UNet, share_parameters
 from ..ops.augment import apply_augment, draw_augment
+from ..utils.profiling import duty
 from . import orbax
 from .optim import (AdamWState, adamw_init, adamw_update_,
                     clip_by_global_norm_, make_schedule)
@@ -754,10 +755,9 @@ class Trainer:
                 if self.wall_start else 0.0)
         return {
             "examples_per_sec": self.examples_seen / wall if wall else 0.0,
-            "duty_cycle": self.device_seconds / wall if wall else 0.0,
-            "duty_cycle_lower": (
-                max(0.0, self.device_seconds - self.feed_seconds) / wall
-                if wall else 0.0),
+            "duty_cycle": duty(self.device_seconds, wall),
+            "duty_cycle_lower": duty(
+                max(0.0, self.device_seconds - self.feed_seconds), wall),
             "wall_seconds": wall,
             "device_seconds": self.device_seconds,
             "feed_seconds": self.feed_seconds,

@@ -1,2 +1,3 @@
-"""Host utilities: the HTML tile map (webmap) and contact-sheet previews
-of record pairs (preview)."""
+"""Host utilities: the HTML tile map (webmap), contact-sheet previews of
+record pairs (preview), profiling (StageTimer, trace, duty_cycle) and
+matplotlib plots (viz)."""

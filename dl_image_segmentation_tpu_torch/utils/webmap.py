@@ -62,22 +62,8 @@ if (b.isValid()) map.fitBounds(b); else map.setView([0, 0], 2);
 
 
 def _tiles_to_geojson(tiles) -> dict:
-    """Tile footprints as WGS84 polygons with a 'key' property (the JAX
-    package's ``geo/tilegrid.py:tiles_to_layer``)."""
-    import numpy as np
-
-    from ..geo import crs as _crs
-    from ..geo.geometry import Geometry
-    from ..geo.vector import Feature, VectorLayer
-    feats = []
-    for t in tiles:
-        x0, y0, x1, y1 = t.bounds_unpadded
-        xs = np.array([x0, x1, x1, x0, x0])
-        ys = np.array([y0, y0, y1, y1, y0])
-        lon, lat = _crs.utm_to_lonlat(xs, ys, t.zone)
-        ring = np.stack([lon, lat], axis=1)
-        feats.append(Feature(Geometry([[ring]]), {"key": t.key}))
-    return _layer_to_geojson(VectorLayer("tiles", feats, 4326))
+    from ..geo.tilegrid import tiles_to_layer
+    return _layer_to_geojson(tiles_to_layer(tiles))
 
 
 def _layer_to_geojson(layer) -> dict:

@@ -367,7 +367,7 @@ class TestNotPorted:
     def test_per_band_scenes(self, tmp_path):
         """A scene of per-band files (as ingest_safe writes them): GeoTIFF
         and JPEG 2000 band files load as the JAX package loads them; an
-        HDF5 band raises naming item 10. A PNG band decodes as the JAX
+        HDF5 band raises naming item 13. A PNG band decodes as the JAX
         package decodes it and then fails as its load fails: a PNG
         carries no geotransform."""
         root = str(tmp_path / "cat")
@@ -407,7 +407,7 @@ class TestNotPorted:
         with open(paths["B02"], "wb") as f:
             f.write(b"\x89HDF\r\n\x1a\n" + bytes(64))
         cat = LocalCatalog(root)
-        with pytest.raises(UnsupportedFormatError, match="item 10"):
+        with pytest.raises(UnsupportedFormatError, match="item 13"):
             cat.load(cat.search(tt, "s2"), tt, ["B02"])
         # JP2 band files (the .SAFE format), one by GeoJP2
         for k, (band, res) in enumerate((("B02", 10.0), ("B05", 20.0))):

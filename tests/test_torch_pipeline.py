@@ -362,7 +362,11 @@ print("ok", "PIL" in sys.modules)
             "catalog.httpserver", "catalog.stac", "catalog.stacserver",
             "records.sink", "raster.png", "raster.jpeg", "raster.gif",
             "raster.bmp", "raster.image", "pipeline.convert",
-            "utils.preview", "raster.jp2", "storage.zstd", "train.orbax")}
+            "utils.preview", "raster.jp2", "storage.zstd", "train.orbax",
+            "records.parsers_tf", "utils.profiling", "utils.viz",
+            "raster.cf", "raster.netcdf", "raster.vrt", "raster.envi",
+            "raster.hdf4", "raster.grib", "raster.nitf",
+            "raster.gpkg_raster")}
         assert training <= set(mods), sorted(training - set(mods))
         code = f"""
 import sys, importlib, importlib.abc
@@ -376,6 +380,8 @@ class Blocker(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Blocker())
 for m in {sorted(mods)!r} + ["chip_smoke", "median_ab"]:
     importlib.import_module(m)
+# the facade, the TF parsers and the plots import neither TF nor matplotlib
+assert not {{"tensorflow", "matplotlib"}} & set(sys.modules), "TF/mpl"
 # the orbax reader runs where orbax, tensorstore and zstandard are missing
 orbax = importlib.import_module("dl_image_segmentation_tpu_torch.train.orbax")
 tree = orbax.read_checkpoint("tests/data/orbax_unet/ckpt")
