@@ -208,6 +208,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    chips' geotransforms, and ``duty_cycle`` of the bf16 U-Net step
    beside the Trainer's own duty.
    The containers are host code; the card runs K1-K3 and the model.
+13. HDF5 / NetCDF-4 through the port's own reader (``hdf5_phase``, after
+   phase 12): a LocalCatalog root of 4 scenes x 13 bands over phase 12's
+   8 tiles, every band an HDF5 file from ``hdf5_utm`` (superblock 0,
+   version 1 object headers; chunked deflate+shuffle under a v1 B-tree
+   with CF sibling coordinates, and contiguous with NetCDF-4 dimension
+   scales, alternating by band) -> ``create-chips`` at ``--batch-tiles``
+   0 and 16 on the card (K1, K2 and K3 launched) and the CPU, and from a
+   GeoTIFF root of the same arrays: chips bitwise equal per mode; phase
+   7's RGB chips as HDF5 pairs -> ``to-tfrecords --file-ext h5`` ->
+   ``train --mode tifraw`` (10 steps, falling loss); HDF5 and NetCDF-4
+   bodies served == predict of the port's decode, an external-storage
+   body and a truncated body answer 400; the committed fixtures of
+   ``tests/data/hdf5`` (written by h5py: the layout-v4 chunk indexes,
+   dense links and attributes, LZF, szip, n-bit, scale-offset) == their
+   ``.npz``; decode MP/s and sniff us of a band in each layout.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script
@@ -3019,7 +3034,11 @@ def orbax_phase(smi, tmp, share):
     return out
 
 
+HDF5_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data", "hdf5")
 CONTAINER_KINDS = ("vrt", "netcdf", "gpkg", "nitf")
+# phase 13's band files: the two layouts of ``hdf5_utm``
+HDF5_KINDS = {"h5chunked": "chunked", "h5contiguous": "contiguous"}
 
 
 def netcdf_utm(arr, gt, zone, typecode, name="band"):
@@ -3060,6 +3079,193 @@ def netcdf_utm(arr, gt, zone, typecode, name="band"):
     return data
 
 
+def _h5_type(dt):
+    """HDF5 datatype message body of a little-endian numpy dtype."""
+    import struct
+    dt = np.dtype(dt)
+    if dt.kind in "iu":
+        return struct.pack("<BBBBIHH", 0x10, 0x08 if dt.kind == "i" else 0,
+                           0, 0, dt.itemsize, 0, 8 * dt.itemsize)
+    if dt.kind == "f":
+        exp, mant, bias = {4: (8, 23, 127), 8: (11, 52, 1023)}[dt.itemsize]
+        return struct.pack("<BBBBIHHBBBBI", 0x11, 0x20, 8 * dt.itemsize - 1,
+                           0, dt.itemsize, 0, 8 * dt.itemsize, mant, exp, 0,
+                           mant, bias)
+    raise ValueError(f"no HDF5 type for {dt}")
+
+
+def _h5_space(shape):
+    import struct
+    return struct.pack(f"<BBBB4x{len(shape)}Q", 1, len(shape), 0, 0, *shape)
+
+
+def _h5_pad(b):
+    return b + bytes(-len(b) % 8)
+
+
+def _h5_msg(mtype, body):
+    import struct
+    body = _h5_pad(body)
+    return struct.pack("<HHB3x", mtype, len(body), 0) + body
+
+
+def _h5_attr(name, tbody, shape, data):
+    """A version 1 attribute message (name, type and space padded to 8)."""
+    import struct
+    nm = name.encode() + b"\0"
+    space = _h5_space(shape)
+    return _h5_msg(0x0C, struct.pack("<BBHHH", 1, 0, len(nm), len(tbody),
+                                     len(space))
+                   + _h5_pad(nm) + _h5_pad(tbody) + _h5_pad(space) + data)
+
+
+def _h5_text(name, text):
+    import struct
+    raw = text.encode() + b"\0"
+    return _h5_attr(name, struct.pack("<BBBBI", 0x13, 0, 0, 0, len(raw)), (),
+                    raw)
+
+
+def _h5_scalar(name, value, dt):
+    return _h5_attr(name, _h5_type(dt), (), np.array(value, dt).tobytes())
+
+
+def hdf5_utm(arr, gt, zone, layout, name="band", nodata=0):
+    """HDF5 bytes of a (H, W) or (B, H, W) little-endian array on the
+    grid ``gt`` in UTM ``zone``, written as h5py's default does: superblock
+    version 0, version 1 object headers, a symbol-table root group. x/y
+    coordinates of pixel centres (float64, CF ``standard_name``), a
+    ``crs`` dataset with a transverse_mercator grid mapping, and
+    ``_FillValue`` ``nodata``. ``layout`` "chunked": deflate+shuffle
+    chunks under a v1 B-tree, x/y found as CF siblings; "contiguous":
+    x/y are NetCDF-4 dimension scales attached through ``DIMENSION_LIST``
+    (object references in a global heap collection)."""
+    import struct
+    import zlib
+    arr = np.ascontiguousarray(arr, arr.dtype.newbyteorder("<"))
+    h, w = arr.shape[-2:]
+    undef = 0xFFFFFFFFFFFFFFFF
+    out = bytearray(96)                          # the superblock, last
+
+    def alloc(blob):
+        out.extend(bytes(-len(out) % 8))
+        at = len(out)
+        out.extend(blob)
+        return at
+
+    def ohdr(msgs):
+        body = b"".join(msgs)
+        return struct.pack("<BBHII4x", 1, 0, len(msgs), 1, len(body)) + body
+
+    def layout_contig(addr, n):
+        return _h5_msg(0x08, struct.pack("<BBQQ", 3, 1, addr, n))
+
+    names = sorted(["x", "y", "crs", name])
+    heap = bytearray(8)                          # "" at offset 0
+    offs = {}
+    for n in names:
+        offs[n] = len(heap)
+        heap.extend(_h5_pad(n.encode() + b"\0"))
+    heap_data = alloc(bytes(heap))
+    heap_hdr = alloc(b"HEAP" + bytes(4) + struct.pack("<QQQ", len(heap), 1,
+                                                      heap_data))
+    gbtree = alloc(bytes(24 + 33 * 8 + 32 * 8))  # group K = 16
+    snod = alloc(bytes(8 + 8 * 40))              # leaf K = 4
+    root = alloc(ohdr([_h5_msg(0x11, struct.pack("<QQ", gbtree,
+                                                 heap_hdr))]))
+    coords = {"x": gt[0] + gt[1] * (np.arange(w) + 0.5),
+              "y": gt[3] + gt[5] * (np.arange(h) + 0.5)}
+    objs = {}
+    for axis in ("x", "y"):
+        v = coords[axis]
+        data = alloc(v.astype("<f8").tobytes())
+        msgs = [_h5_msg(0x01, _h5_space(v.shape)), _h5_msg(0x03, _h5_type(
+            "<f8")), layout_contig(data, v.nbytes), _h5_text(
+            "standard_name", f"projection_{axis}_coordinate")]
+        if layout == "contiguous":
+            msgs += [_h5_text("CLASS", "DIMENSION_SCALE"),
+                     _h5_text("NAME", axis)]
+        objs[axis] = alloc(ohdr(msgs))
+    crs_data = alloc(np.int32(0).tobytes())
+    objs["crs"] = alloc(ohdr([
+        _h5_msg(0x01, _h5_space(())), _h5_msg(0x03, _h5_type("<i4")),
+        layout_contig(crs_data, 4),
+        _h5_text("grid_mapping_name", "transverse_mercator"),
+        _h5_scalar("scale_factor_at_central_meridian", 0.9996, "<f8"),
+        _h5_scalar("longitude_of_central_meridian", zone * 6 - 183.0, "<f8"),
+        _h5_scalar("false_easting", 500000.0, "<f8"),
+        _h5_scalar("false_northing", 0.0, "<f8")]))
+    es = arr.dtype.itemsize
+    msgs = [_h5_msg(0x01, _h5_space(arr.shape)),
+            _h5_msg(0x03, _h5_type(arr.dtype))]
+    if layout == "chunked":
+        lead = arr.shape[:-2]
+        c = 128
+        while int(np.prod(lead)) * -(-h // c) * -(-w // c) > 64:
+            c *= 2                               # one B-tree leaf: <= 64
+        chunk = (1,) * len(lead) + (c, c)
+        keys, kids = [], []
+        for idx in np.ndindex(*[-(-s // k) for s, k in zip(arr.shape,
+                                                           chunk)]):
+            lo = [i * k for i, k in zip(idx, chunk)]
+            block = np.zeros(chunk, arr.dtype)
+            part = arr[tuple(slice(a, a + k) for a, k in zip(lo, chunk))]
+            block[tuple(slice(0, s) for s in part.shape)] = part
+            raw = block.tobytes()
+            shuffled = np.frombuffer(raw, np.uint8).reshape(-1, es).T
+            comp = zlib.compress(shuffled.tobytes(), 4)
+            kids.append(alloc(comp))
+            keys.append(struct.pack(f"<II{len(chunk) + 1}Q", len(comp), 0,
+                                    *lo, 0))
+        keys.append(struct.pack(f"<II{len(chunk) + 1}Q", 0, 0, *lo, es))
+        ksize = 8 + 8 * (len(chunk) + 1)
+        node = b"TREE" + struct.pack("<BBHQQ", 1, 0, len(kids), undef,
+                                     undef)
+        for k, child in zip(keys, kids):
+            node += k + struct.pack("<Q", child)
+        node += keys[-1]
+        btree = alloc(node + bytes(24 + 65 * ksize + 64 * 8 - len(node)))
+        pipe = struct.pack("<BB6x", 1, 2)
+        for fid, fname, val in ((2, b"shuffle\0", es), (1, b"deflate\0", 4)):
+            pipe += struct.pack("<HHHH", fid, 8, 1, 1) + fname + struct.pack(
+                "<I4x", val)
+        msgs += [_h5_msg(0x0B, pipe), _h5_msg(0x08, struct.pack(
+            f"<BBBQ{len(chunk) + 1}I", 3, 2, len(chunk) + 1, btree, *chunk,
+            es))]
+    else:
+        data = alloc(arr.tobytes())
+        msgs.append(layout_contig(data, arr.nbytes))
+        # DIMENSION_LIST: per dimension a vlen of object references
+        objects = [objs["y"], objs["x"]]
+        gcol = bytearray(b"GCOL" + struct.pack("<B3xQ", 1, 4096))
+        for i, ref in enumerate(objects, 1):
+            gcol += struct.pack("<HH4xQQ", i, 1, 8, ref)
+        gcol += struct.pack("<HH4xQ", 0, 0, 4096 - len(gcol))
+        gheap = alloc(bytes(gcol) + bytes(4096 - len(gcol)))
+        lead = len(arr.shape) - 2
+        refs = b"".join([struct.pack("<IQI", 0, 0, 0)] * lead
+                        + [struct.pack("<IQI", 1, gheap, i)
+                           for i in (1, 2)])
+        vlen_ref = struct.pack("<BBBBI", 0x19, 0, 0, 0, 16) + struct.pack(
+            "<BBBBI", 0x17, 0, 0, 0, 8)
+        msgs.append(_h5_attr("DIMENSION_LIST", vlen_ref, (arr.ndim,), refs))
+    msgs += [_h5_text("grid_mapping", "crs"),
+             _h5_scalar("_FillValue", nodata, arr.dtype)]
+    objs[name] = alloc(ohdr(msgs))
+    entries = b"".join(struct.pack("<QQII16x", offs[n], objs[n], 0, 0)
+                       for n in names)
+    out[snod:snod + 8 + len(entries)] = b"SNOD" + struct.pack(
+        "<BBH", 1, 0, len(names)) + entries
+    node = b"TREE" + struct.pack("<BBHQQ", 0, 0, 1, undef, undef) + \
+        struct.pack("<QQQ", 0, snod, offs[names[-1]])
+    out[gbtree:gbtree + len(node)] = node
+    out[:96] = b"\x89HDF\r\n\x1a\n" + struct.pack(
+        "<BBBBBBBBHHIQQQQ", 0, 0, 0, 0, 0, 8, 8, 0, 4, 16, 0, 0, undef,
+        len(out), undef) + struct.pack("<QQII", 0, root, 1, 0) + \
+        struct.pack("<QQ", gbtree, heap_hdr)
+    return bytes(out)
+
+
 def container_band(kind, folder, name, band, gt, epsg):
     """One (H, W) uint16 band as a ``kind`` file under ``folder`` (the
     port's encoders; scipy for NetCDF, which stores it as float32: the
@@ -3070,9 +3276,12 @@ def container_band(kind, folder, name, band, gt, epsg):
     from dl_image_segmentation_tpu_torch.raster.gpkg_raster import (
         encode_gpkg)
     from dl_image_segmentation_tpu_torch.raster.nitf import encode_nitf
-    path = os.path.join(folder, f"{name}.{kind}")
+    h5 = kind in HDF5_KINDS
+    path = os.path.join(folder, f"{name}.{'h5' if h5 else kind}")
     held = band
-    if kind == "vrt":
+    if h5:
+        data = hdf5_utm(band, gt, epsg % 100, HDF5_KINDS[kind])
+    elif kind == "vrt":
         src = os.path.join(folder, f"{name}-src.tif")
         with open(src, "wb") as f:
             f.write(encode_geotiff(band, geotransform=gt, epsg=epsg))
@@ -3097,12 +3306,13 @@ def container_band(kind, folder, name, band, gt, epsg):
     return path, held
 
 
-def write_container_roots(tmp, block, n_scenes=4):
+def write_container_roots(tmp, block, n_scenes=4, kinds=CONTAINER_KINDS):
     """Two LocalCatalog roots of the same ``n_scenes`` Sentinel-2 L1C
     scenes (13 bands, 10 m, DNs 1-4095 with nodata 0 in blotches, zone
     43, over ``block`` = (x0, y0, x1, y1) in metres): one whose per-band
-    files rotate through CONTAINER_KINDS (band b of scene s in kind
-    (b + s) % 4) and one of GeoTIFF band files holding the same arrays.
+    files rotate through ``kinds`` (band b of scene s in kind
+    (b + s) % len(kinds)) and one of GeoTIFF band files holding the same
+    arrays.
     Every container file must decode to its array, georeferencing and
     nodata. Returns (container root, GeoTIFF root, {kind: [paths]})."""
     from dl_image_segmentation_tpu_torch.raster.geotiff import (
@@ -3116,7 +3326,7 @@ def write_container_roots(tmp, block, n_scenes=4):
     roots = {k: os.path.join(tmp, f"{k}-root") for k in ("containers",
                                                           "geotiff")}
     scenes = {k: [] for k in roots}
-    files = {k: [] for k in CONTAINER_KINDS}
+    files = {k: [] for k in kinds}
     for k in roots:
         os.makedirs(os.path.join(roots[k], "bands"))
     for s in range(n_scenes):
@@ -3126,7 +3336,7 @@ def write_container_roots(tmp, block, n_scenes=4):
         arr[blot] = 0
         paths = {k: {} for k in roots}
         for b, band in enumerate(S2_BANDS):
-            kind = CONTAINER_KINDS[(b + s) % len(CONTAINER_KINDS)]
+            kind = kinds[(b + s) % len(kinds)]
             path, held = container_band(
                 kind, os.path.join(roots["containers"], "bands"),
                 f"s{s}-{band}", arr[:, :, b], gt, 32643)
@@ -3187,6 +3397,73 @@ def sub_aoi_labels(labels, path, tiles_x=4, tiles_y=2):
         bounds[:, 3].max())
 
 
+def export_roots(base, croot, groot, tmp, secs):
+    """``create-chips --max-cloud-fraction 0`` (8 tiles) from a container
+    root ``croot`` at ``--batch-tiles`` 0 and 16 on the card and the CPU,
+    and from the GeoTIFF root ``groot`` of the same pixels on the card:
+    all chips bitwise equal per mode, and K1, K2 and K3 launched in the
+    card exports of the container root (the counters are set to 0 before
+    each and read after). Returns (the exports' rows, the launches, the
+    folder of the batched card export)."""
+    import glob
+    import torch
+    from dl_image_segmentation_tpu_torch import kernels
+    launches = {c.name: 0 for c in kernels.COUNTERS}
+    trees, exports, batched = {}, [], None
+    os.environ["DLSEG_DEBUG"] = "1"
+    try:
+        for root_name, root, device, batch in (
+                ("containers", croot, "cuda", 0),
+                ("containers", croot, "cuda", 16),
+                ("geotiff", groot, "cuda", 0),
+                ("geotiff", groot, "cuda", 16),
+                ("containers", croot, "cpu", 0),
+                ("containers", croot, "cpu", 16)):
+            dest = os.path.join(tmp, f"{root_name}-{device}-{batch}")
+            name = f"create-chips {root_name} {device} --batch-tiles {batch}"
+            counted = root_name == "containers" and device == "cuda"
+            if counted:
+                torch.cuda.synchronize()
+                for c in kernels.COUNTERS:
+                    c.reset()
+            cli_run(with_flags(base, catalog=root) + [
+                "--out", dest, "--max-cloud-fraction", "0", "--batch-tiles",
+                str(batch), "--device", device], secs, name)
+            if counted:
+                torch.cuda.synchronize()
+                for c in kernels.COUNTERS:
+                    launches[c.name] += c.count
+            folder, = glob.glob(os.path.join(dest, "*"))
+            trees[(root_name, device, batch)] = read_tree(folder)
+            if root_name == "containers" and device == "cuda" and batch:
+                batched = folder
+            exports.append({
+                "root": root_name, "device": device, "batch_tiles": batch,
+                "tiles": 8, "seconds": secs[name],
+                "tiles_per_s": 8 / secs[name]})
+    finally:
+        del os.environ["DLSEG_DEBUG"]
+    for batch in (0, 16):
+        ref = trees[("containers", "cuda", batch)]
+        if len(ref) != 16:
+            raise AssertionError(f"container export: {len(ref)} files")
+        for other in (("geotiff", "cuda", batch), ("containers", "cpu",
+                                                   batch)):
+            got = trees[other]
+            if got != ref:
+                bad = [k for k in ref if got.get(k) != ref[k]][:3]
+                raise AssertionError(f"{other}: chips differ from the "
+                                     f"container root's on the card {bad}")
+    if not launches["masked_median"] or not (launches["burn_dense"]
+                                             and launches["burn_binned"]):
+        raise AssertionError(f"container exports launched {launches}")
+    log(f"  container root == GeoTIFF root == CPU chips, per tile and "
+        f"batched (16 GeoTIFFs each); launches on the card {launches}; "
+        + ", ".join(f"{r['root']} {r['device']} b{r['batch_tiles']} "
+                    f"{r['seconds']:.3f} s" for r in exports))
+    return exports, launches, batched
+
+
 def containers_phase(smi, tmp, share):
     """Phase 12: the scientific raster containers and the public library
     API on the card (after ``cli_phase``). (1) A LocalCatalog root whose
@@ -3219,7 +3496,7 @@ def containers_phase(smi, tmp, share):
     import urllib.error
     import urllib.request
     import torch
-    from dl_image_segmentation_tpu_torch import convert_to_example, kernels
+    from dl_image_segmentation_tpu_torch import convert_to_example
     from dl_image_segmentation_tpu_torch.geo import crs as tcrs
     from dl_image_segmentation_tpu_torch.geo.tilegrid import (
         tile_from_key, tiles_to_layer)
@@ -3258,60 +3535,9 @@ def containers_phase(smi, tmp, share):
 
     # (1) exports
     base = with_flags(share["base"], labels=sub_labels)
-    launches = {c.name: 0 for c in kernels.COUNTERS}
-    trees = {}
-    os.environ["DLSEG_DEBUG"] = "1"
-    try:
-        for root_name, root, device, batch in (
-                ("containers", croot, "cuda", 0),
-                ("containers", croot, "cuda", 16),
-                ("geotiff", groot, "cuda", 0),
-                ("geotiff", groot, "cuda", 16),
-                ("containers", croot, "cpu", 0),
-                ("containers", croot, "cpu", 16)):
-            dest = os.path.join(tmp, f"{root_name}-{device}-{batch}")
-            name = f"create-chips {root_name} {device} --batch-tiles {batch}"
-            counted = root_name == "containers" and device == "cuda"
-            if counted:
-                torch.cuda.synchronize()
-                for c in kernels.COUNTERS:
-                    c.reset()
-            cli_run(with_flags(base, catalog=root) + [
-                "--out", dest, "--max-cloud-fraction", "0", "--batch-tiles",
-                str(batch), "--device", device], secs, name)
-            if counted:
-                torch.cuda.synchronize()
-                for c in kernels.COUNTERS:
-                    launches[c.name] += c.count
-            folder, = glob.glob(os.path.join(dest, "*"))
-            trees[(root_name, device, batch)] = read_tree(folder)
-            if root_name == "containers" and device == "cuda" and batch:
-                share["container_chips"] = folder
-            out["exports"].append({
-                "root": root_name, "device": device, "batch_tiles": batch,
-                "tiles": 8, "seconds": secs[name],
-                "tiles_per_s": 8 / secs[name]})
-    finally:
-        del os.environ["DLSEG_DEBUG"]
-    for batch in (0, 16):
-        ref = trees[("containers", "cuda", batch)]
-        if len(ref) != 16:
-            raise AssertionError(f"container export: {len(ref)} files")
-        for other in (("geotiff", "cuda", batch), ("containers", "cpu",
-                                                   batch)):
-            got = trees[other]
-            if got != ref:
-                bad = [k for k in ref if got.get(k) != ref[k]][:3]
-                raise AssertionError(f"{other}: chips differ from the "
-                                     f"container root's on the card {bad}")
-    if not launches["masked_median"] or not (launches["burn_dense"]
-                                             and launches["burn_binned"]):
-        raise AssertionError(f"container exports launched {launches}")
+    out["exports"], launches, share["container_chips"] = export_roots(
+        base, croot, groot, tmp, secs)
     out["launches"] = launches
-    log(f"  container root == GeoTIFF root == CPU chips, per tile and "
-        f"batched (16 GeoTIFFs each); launches on the card {launches}; "
-        + ", ".join(f"{r['root']} {r['device']} b{r['batch_tiles']} "
-                    f"{r['seconds']:.3f} s" for r in out["exports"]))
 
     # (2) tifraw from NetCDF chips, ENVI through the MP engine
     tifs = {sub: tree_files(share["rgb_folder"], sub, "tif")
@@ -3377,6 +3603,7 @@ def containers_phase(smi, tmp, share):
              "--mode", "tifraw", "--classes", "10", "--steps", "20",
              "--log-every", "1", "--workers", "1", "--metrics-log", mlog,
              "--checkpoint", ckpt], secs, "train --mode tifraw (NetCDF)")
+    share["container_ckpt"] = ckpt
     losses = [json.loads(ln)["loss"] for ln in open(mlog)]
     if len(losses) != 20 or not np.mean(losses[-5:]) < losses[0]:
         raise AssertionError(f"train tifraw (NetCDF): losses {losses}")
@@ -3567,6 +3794,213 @@ def containers_phase(smi, tmp, share):
     return out
 
 
+def hdf5_phase(smi, tmp, share):
+    """Phase 13: HDF5 / NetCDF-4 through the port's own reader on the
+    card (after ``containers_phase``). (a) A LocalCatalog root of 4 scenes
+    x 13 bands over phase 12's 8 tiles, every band an HDF5 file from
+    ``hdf5_utm`` (layouts alternating by band: chunked deflate+shuffle
+    under a v1 B-tree with CF sibling coordinates, and contiguous with
+    NetCDF-4 dimension scales), each decoding to its array and
+    georeferencing; (b) ``create-chips --max-cloud-fraction 0`` from it
+    at ``--batch-tiles`` 0 and 16 on the card and the CPU, and from a
+    GeoTIFF root of the same arrays: chips bitwise equal per mode, K1-K3
+    launched; (c) phase 7's RGB chips as HDF5 pairs -> ``to-tfrecords
+    --file-ext h5`` (tifraw, records == the chips, CRCs checked) ->
+    ``train --mode tifraw`` (10 steps, falling loss); (d) HDF5 and
+    NetCDF-4 request bodies served == ``Trainer.predict`` of the port's
+    decode (phase 12's trained U-Net), the committed fixture with
+    external storage and a truncated body answer 400; (e) the committed
+    fixtures of ``tests/data/hdf5`` decode to their ``.npz``; (f) decode
+    MP/s and sniff us of a band in each layout on one host thread."""
+    import glob
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+    import torch
+    from dl_image_segmentation_tpu_torch.raster import read_geotiff
+    from dl_image_segmentation_tpu_torch.raster.image import (
+        decode_image_bytes, sniff_image_info)
+    from dl_image_segmentation_tpu_torch.records.parsers import (
+        parse_encoded_gdal_proto_wrapped)
+    from dl_image_segmentation_tpu_torch.records.tfrecord import read_records
+    from dl_image_segmentation_tpu_torch.serve import (
+        PredictServer, make_http_server, scale_image)
+    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    log(f"phase 13: HDF5 / NetCDF-4 on the card ({smi})")
+    os.makedirs(tmp, exist_ok=True)
+    out = {"seconds": {}, "card": smi}
+    secs = out["seconds"]
+    labels = share["base"][share["base"].index("--labels") + 1]
+    sub_labels = os.path.join(tmp, "labels-sub.geojson")
+    keys, (bx0, by0, bx1, by1) = sub_aoi_labels(labels, sub_labels)
+    block = (bx0 - 200.0, by0 - 200.0, bx1 + 200.0, by1 + 200.0)
+
+    # (a) the roots, (b) the exports
+    t0 = time.perf_counter()
+    hroot, groot, files = write_container_roots(tmp, block,
+                                                kinds=tuple(HDF5_KINDS))
+    secs["write roots"] = time.perf_counter() - t0
+    log(f"  roots: 4 scenes x 13 bands, "
+        + ", ".join(f"{HDF5_KINDS[k]} {len(v)}" for k, v in files.items())
+        + f" HDF5 band files (each decodes to its array, geotransform, EPSG "
+        f"and nodata), {secs['write roots']:.3f} s")
+    base = with_flags(share["base"], labels=sub_labels)
+    out["exports"], out["launches"], _ = export_roots(base, hroot, groot,
+                                                      tmp, secs)
+
+    # (c) the feed: phase 7's RGB chips as HDF5 pairs through tifraw
+    tifs = {sub: tree_files(share["rgb_folder"], sub, "tif")
+            for sub in ("images", "labels")}
+    h5_dir = os.path.join(tmp, "h5-chips")
+    decoded = {}
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(h5_dir, sub))
+        for k, p in tifs[sub].items():
+            g = read_geotiff(p)
+            decoded[(sub, k)] = g.array
+            layout = "chunked" if sub == "images" else "contiguous"
+            with open(os.path.join(h5_dir, sub, f"{k}.h5"), "wb") as f:
+                f.write(hdf5_utm(np.moveaxis(g.array, 2, 0),
+                                 g.info.geotransform, g.info.epsg % 100,
+                                 layout, name="chip",
+                                 nodata=0 if sub == "images" else 255))
+    shards = os.path.join(tmp, "h5-shards")
+    cli_run(["to-tfrecords", "--name", "h5", "--directory", h5_dir, "--out",
+             shards, "--shards", "4", "--workers", "4", "--engine", "mp",
+             "--file-ext", "h5"], secs, "to-tfrecords --file-ext h5")
+    n = 0
+    for f in sorted(glob.glob(os.path.join(shards, "h5-*"))):
+        for r in read_records(f, verify_crc=True):
+            img, lbl, ident = parse_encoded_gdal_proto_wrapped(r)
+            k = ident.decode().replace(":", "#")
+            want_l = decoded[("labels", k)][:, :, 0]
+            if not (np.array_equal(img, decoded[("images", k)])
+                    and np.array_equal(np.asarray(lbl).reshape(
+                        want_l.shape), want_l)):
+                raise AssertionError(f"HDF5 record {k}: other pixels")
+            n += 1
+    if n != len(tifs["images"]):
+        raise AssertionError(f"{n} HDF5 records, not {len(tifs['images'])}")
+    mlog = os.path.join(tmp, "h5.jsonl")
+    cli_run(["train", "--records", os.path.join(shards, "h5-*"), "--mode",
+             "tifraw", "--classes", "10", "--steps", "10", "--log-every", "1",
+             "--workers", "1", "--metrics-log", mlog], secs,
+            "train --mode tifraw (HDF5)")
+    losses = [json.loads(ln)["loss"] for ln in open(mlog)]
+    if len(losses) != 10 or not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"train tifraw (HDF5): losses {losses}")
+    out["losses"] = losses
+    log(f"  to-tfrecords --file-ext h5: tifraw records == the chips ({n}, "
+        f"CRCs checked); train --mode tifraw from HDF5 chips: loss "
+        f"{losses[0]:.4f} -> {np.mean(losses[-3:]):.4f}")
+
+    # (d) request bodies
+    k0 = sorted(tifs["images"])[0]
+    chip = decoded[("images", k0)]
+    gt0 = read_geotiff(tifs["images"][k0]).info.geotransform
+    bodies = {"hdf5": hdf5_utm(np.moveaxis(chip, 2, 0), gt0, 43, "chunked"),
+              "netcdf4": hdf5_utm(np.moveaxis(chip, 2, 0), gt0, 43,
+                                  "contiguous")}
+    fixtures = sorted(glob.glob(os.path.join(HDF5_FIXTURES, "*.h5")))
+    refused = {"external storage": open(os.path.join(
+        HDF5_FIXTURES, "external.h5"), "rb").read(),
+        "truncated": bodies["hdf5"][:len(bodies["hdf5"]) // 3]}
+    trainer = Trainer(TrainConfig(num_classes=10, batch_size=8))
+    trainer.restore_checkpoint(share["container_ckpt"])
+    ps = PredictServer(trainer)
+    httpd = make_http_server("127.0.0.1", 0, ps)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/predict"
+    names = sorted(bodies)
+    served, answers = {}, {}
+
+    def post(kind):
+        req = urllib.request.Request(url, data=bodies[kind], method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            served[kind] = np.load(io.BytesIO(r.read()))
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(k,)) for k in names]
+        for t_ in threads:
+            t_.start()
+        for t_ in threads:
+            t_.join(timeout=300)
+        secs["serve 2 HDF5 bodies"] = time.perf_counter() - t0
+        want = trainer.predict(np.stack([scale_image(
+            decode_image_bytes(bodies[k]).array, "auto") for k in names]))
+        for i, k in enumerate(names):
+            if k not in served or not np.array_equal(served[k], want[i]):
+                raise AssertionError(f"served {k} body differs from predict")
+        for what, body in refused.items():
+            try:
+                urllib.request.urlopen(urllib.request.Request(
+                    url, data=body, method="POST"), timeout=120)
+                raise AssertionError(f"an HDF5 body ({what}) was served")
+            except urllib.error.HTTPError as e:
+                answers[what] = (e.code, e.read().decode())
+        code, msg = answers["external storage"]
+        if code != 400 or "refused" not in msg:
+            raise AssertionError(f"external storage body: {code} {msg}")
+        code, msg = answers["truncated"]
+        if code != 400 or "corrupt or unreadable HDF5" not in msg:
+            raise AssertionError(f"truncated body: {code} {msg}")
+    finally:
+        httpd.shutdown()
+        thread.join(timeout=30)
+        ps.close()
+    del trainer, ps
+    torch.cuda.empty_cache()
+    log(f"  serve: {', '.join(names)} bodies in "
+        f"{secs['serve 2 HDF5 bodies']:.3f} s, class maps == predict of the "
+        "port's decode; external storage and truncated bodies: 400 "
+        f"({answers['external storage'][1][:60]!r}, "
+        f"{answers['truncated'][1][:60]!r})")
+
+    # (e) the committed fixtures (h5py wrote them; the card's host has none)
+    checked = []
+    for path in fixtures:
+        if path.endswith("external.h5"):
+            continue
+        g = decode_image_bytes(open(path, "rb").read())
+        want = np.load(path[:-3] + ".npz")
+        wi = json.loads(str(want["info"]))
+        got = json.loads(json.dumps(vars(g.info)))
+        if (g.array.dtype != want["array"].dtype or g.array.tobytes()
+                != want["array"].tobytes() or got != wi):
+            raise AssertionError(f"{path}: decodes to other pixels or "
+                                 f"metadata ({got} != {wi})")
+        checked.append(os.path.basename(path))
+    if len(checked) < 11:
+        raise AssertionError(f"committed HDF5 fixtures: {checked}")
+    out["fixtures"] = checked
+    log(f"  committed fixtures == their .npz (the JAX package's decode): "
+        f"{', '.join(checked)}")
+
+    # (f) decode MP/s and sniff us on one host thread
+    out["decode_mp_per_s"], out["sniff_us"] = {}, {}
+    for kind, paths in files.items():
+        data = open(paths[0], "rb").read()
+        px = decode_image_bytes(data).array.shape
+        calls, took = rate(decode_image_bytes, [data], min_s=0.3)
+        out["decode_mp_per_s"][HDF5_KINDS[kind]] = (
+            calls * px[0] * px[1] / 1e6 / took)
+        calls, took = rate(sniff_image_info, [data], min_s=0.2)
+        out["sniff_us"][HDF5_KINDS[kind]] = took / calls * 1e6
+    log(f"  decode MP/s ({px[1]} x {px[0]} uint16 band; one host thread): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in
+                    out["decode_mp_per_s"].items())
+        + "; sniff us: " + ", ".join(f"{k} {v:.1f}"
+                                     for k, v in out["sniff_us"].items())
+        + f"; host of {smi}")
+    secs["phase"] = time.perf_counter() - t_phase
+    log(f"  phase 13: {secs['phase']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3632,6 +4066,9 @@ def main() -> int:
         containers = containers_phase(smi, os.path.join(work, "containers"),
                                       share)
         log(f"  containers_phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        hdf5 = hdf5_phase(smi, os.path.join(work, "hdf5"), share)
+        log(f"  hdf5_phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3646,7 +4083,8 @@ def main() -> int:
                 "4": launches[c.name], "7": cli["launches"][c.name],
                 "8": remote["launches"][c.name],
                 "10": safe["launches"][c.name],
-                "12": containers["launches"][c.name]},
+                "12": containers["launches"][c.name],
+                "13": hdf5["launches"][c.name]},
             "equal": all(r["equal"] for r in cases),
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "ms": main_case["ms"], "wrapper_ms": main_case["wrapper_ms"],
@@ -3663,6 +4101,7 @@ def main() -> int:
     log(json.dumps({"safe": safe}))
     log(json.dumps({"orbax": orbax_ck}))
     log(json.dumps({"containers": containers}))
+    log(json.dumps({"hdf5": hdf5}))
     log(f"seconds {time.perf_counter() - t_start:.1f}; runs "
         f"{json.dumps(runs)}")
     log(f"{smi}")

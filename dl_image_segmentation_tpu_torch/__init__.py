@@ -16,9 +16,10 @@ sliding-window inference, the micro-batching HTTP server and stitch) of
 the U-Net, DeepLab-lite and SegFormer-lite, the U-Net's int8 inference,
 storage on local disks, gs://, s3:// and http(s)://, and the port's own
 raster codecs: GeoTIFF, PNG, JPEG, GIF, BMP and JPEG 2000 (Sentinel-2
-``.SAFE`` ingestion), and copies of the JAX package's decoders of NetCDF
-classic, GRIB 1 and 2, VRT, ENVI, HDF4, NITF and GeoPackage rasters.
-HDF5 / NetCDF-4 is not ported yet (ROADMAP queue 1 item 13). The three
+``.SAFE`` ingestion), HDF5 / NetCDF-4 (its own reader, where the JAX
+package uses h5py), and copies of the JAX package's decoders of NetCDF
+classic, GRIB 1 and 2, VRT, ENVI, HDF4, NITF and GeoPackage rasters. The
+three
 Pallas kernels of chip creation are hand-written CUDA kernels for Hopper
 (csrc/), built with nvcc into the checkout's ``build/`` at first use;
 the models' convs, norms, matmuls and attention are cuDNN/cuBLAS calls

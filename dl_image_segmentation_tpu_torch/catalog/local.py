@@ -450,8 +450,8 @@ class LocalCatalog(Catalog):
         file: JPEG 2000 (the .SAFE band files), GeoTIFF, NetCDF, VRT,
         GeoPackage, NITF, ... The bytes are decoded bare, as the JAX
         package decodes them, so an ENVI header or a VRT with
-        relativeToVRT sources fails here; HDF5 raises naming ROADMAP
-        item 13.
+        relativeToVRT sources fails here; HDF5 / NetCDF-4 band files
+        decode with the port's own reader.
 
         The LRU holds ``cache_scenes`` scenes' worth of band files (13
         each), where the JAX package puts them in its scene LRU of

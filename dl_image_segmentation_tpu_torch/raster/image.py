@@ -9,13 +9,14 @@ BMP with its own codecs (``raster/png.py``, ``jpeg.py``, ``gif.py``,
 containers with copies of the JAX package's decoders: NetCDF classic
 (``netcdf.py``), GRIB 1 and 2 (``grib.py``), GDAL VRT (``vrt.py``), ENVI
 (``envi.py``), HDF4 (``hdf4.py``), NITF (``nitf.py``) and GeoPackage
-rasters (``gpkg_raster.py``). Decoded arrays equal the JAX package's,
-PIL's mode mapping included; the JPEG encoder's bytes equal PIL's.
-``decode_image_bytes`` sniffs the container from its magic bytes, in the
-JAX package's order. The JPEG variants the decoder lacks and RLE BMPs
-raise :class:`UnsupportedFormatError` naming ROADMAP queue 1 item 6;
-HDF5 and NetCDF-4 files, which the JAX package reads through h5py, name
-item 13.
+rasters (``gpkg_raster.py``), and HDF5 / NetCDF-4 with its own reader
+(``hdf5.py``), where the JAX package uses h5py. Decoded arrays equal the
+JAX package's, PIL's mode mapping included; the JPEG encoder's bytes
+equal PIL's. ``decode_image_bytes`` sniffs the container from its magic
+bytes, in the JAX package's order. The JPEG variants the decoder lacks
+and RLE BMPs raise :class:`UnsupportedFormatError` naming ROADMAP queue 1
+item 6; the parts of HDF5 the reader refuses (external storage, virtual
+datasets, external links, SOHM) name item 14.
 
 ``sniff_image_info`` reads shape and dtype from headers without decoding
 pixels. Its JPEG sniffer is a copy of the JAX package's; for PNG, GIF
@@ -43,6 +44,7 @@ from .gif import decode_gif_array, gif_layout
 from .gpkg_raster import decode_gpkg, is_gpkg, sniff_gpkg_info
 from .grib import decode_grib, is_grib, sniff_grib_info
 from .hdf4 import decode_hdf4, is_hdf4, sniff_hdf4_info
+from .hdf5 import HDF5Unsupported, decode_hdf5, is_hdf5, sniff_hdf5_info
 from .jp2 import (JP2Unsupported, decode_jp2, is_jp2, palette_rgb,
                   sniff_jp2_info)
 from .jpeg import JPEGUnsupported, decode_jpeg_array, encode_jpeg_array
@@ -73,28 +75,13 @@ def _named(fmt: str, fn, *args, **kwargs):
         return fn(*args, **kwargs)
     except (CorruptRasterError, UnsupportedFormatError):
         raise
-    except (JPEGUnsupported, BMPUnsupported, JP2Unsupported) as e:
+    except (JPEGUnsupported, BMPUnsupported, JP2Unsupported,
+            HDF5Unsupported) as e:
         raise UnsupportedFormatError(str(e)) from e
     except Exception as e:
         raise CorruptRasterError(
             f"corrupt or unreadable {fmt} container; "
             f"{type(e).__name__}: {e}") from e
-
-
-_HDF5_SIG = b"\x89HDF\r\n\x1a\n"
-
-
-def _is_hdf5(data: bytes) -> bool:
-    # the JAX package's test: the superblock may start at 0 or at a
-    # power-of-two offset >= 512 (a userblock)
-    if data[:8] == _HDF5_SIG:
-        return True
-    off = 512
-    while off + 8 <= len(data) and off <= 65536:
-        if data[off:off + 8] == _HDF5_SIG:
-            return True
-        off *= 2
-    return False
 
 
 def _is_png(data: bytes) -> bool:
@@ -127,22 +114,14 @@ def _unsupported(data: bytes) -> UnsupportedFormatError:
         "containers (e.g. with gdal_translate) before ingestion.")
 
 
-def _hdf5() -> UnsupportedFormatError:
-    return UnsupportedFormatError(
-        "unsupported raster format: HDF5 / NetCDF-4. The port decodes "
-        "GeoTIFF, JPEG 2000, PNG, JPEG, GIF, BMP, NetCDF classic, GRIB "
-        "(1+2), VRT, ENVI, HDF4, NITF, GeoPackage rasters and .npy "
-        "bodies; convert other containers (e.g. with gdal_translate) "
-        "first. Decoding this one is ROADMAP queue 1 item 13.")
-
-
 def _container(data: bytes):
     """(format name, decoder, sniffer) of a scientific container, in the
-    JAX package's order, or None. HDF5 raises."""
+    JAX package's order, or None."""
     if is_netcdf_classic(data):
         return "NetCDF", decode_netcdf, sniff_netcdf_info
-    if _is_hdf5(data):
-        raise _hdf5()
+    if is_hdf5(data):
+        # covers NetCDF-4 too (an HDF5 container with CF attributes)
+        return "HDF5", decode_hdf5, sniff_hdf5_info
     if is_grib(data):
         return "GRIB", decode_grib, sniff_grib_info
     if is_vrt(data):
@@ -236,8 +215,10 @@ def decode_image_bytes(data: bytes, base_dir: Optional[str] = None,
 
     A VRT reads the paths and URLs that its XML names. Bytes from an
     untrusted sender (a request body) are decoded with
-    ``allow_sources=False``, which refuses a VRT before it reads
-    anything, so the sender cannot choose files or URLs to fetch."""
+    ``allow_sources=False``, which refuses a VRT before anything is read,
+    so the sender cannot choose files or URLs to fetch. The parts of an
+    HDF5 file that name other files (external storage, virtual datasets,
+    external links) are refused unread in every context."""
     if _is_tiff(data):
         return _named("GeoTIFF", decode_geotiff, data)
     if is_jp2(data):

@@ -4,8 +4,7 @@ A copy of the JAX package's ``raster/netcdf.py``: the classic format
 from the spec (magic ``CDF\\x01|\\x02|\\x05``): header (dims, global
 attrs, variables with attrs), fixed-size and record variables, all
 twelve external types, 64-bit offsets (CDF-2) and 64-bit sizes (CDF-5).
-NetCDF-4 files are HDF5 containers, which the port does not decode yet
-(ROADMAP queue 1 item 13).
+NetCDF-4 files are HDF5 containers, which ``raster/hdf5.py`` decodes.
 
 Decode-only; ``scipy.io.netcdf_file`` writes the fixtures. Georeferencing
 follows CF: 1-D coordinate variables along the x/y dims -> geotransform

@@ -11,12 +11,13 @@ Prometheus lines:
   the softmax map, class-map requests the logits' argmax (the same
   int32 map as ``Trainer.predict``);
 - request bodies are any raster the port decodes (TIFF/GeoTIFF, JPEG
-  2000, PNG, JPEG, GIF, BMP, NetCDF, GRIB, HDF4, NITF, GeoPackage, ...;
-  decoded as bare bytes and scaled by the offline rules of
-  ``scale_image``) or ``.npy`` arrays taken as raw, already-scaled float
-  arrays; other containers (HDF5, multi-file ENVI), every VRT (its
-  sources are files or URLs that a client must not choose) and corrupt
-  bodies answer 400;
+  2000, PNG, JPEG, GIF, BMP, NetCDF, GRIB, HDF4, HDF5 / NetCDF-4, NITF,
+  GeoPackage, ...; decoded as bare bytes and scaled by the offline rules
+  of ``scale_image``) or ``.npy`` arrays taken as raw, already-scaled
+  float arrays; multi-file ENVI, every VRT and every HDF5 file that
+  names other files (external storage, virtual datasets, external links:
+  their sources are files or URLs that a client must not choose) and
+  corrupt bodies answer 400;
 - bounded admission: beyond ``max_queue`` waiting requests the server
   answers 503 at once, and shutdown fails queued requests instead of
   letting them time out. A batch that fails surfaces its error to every

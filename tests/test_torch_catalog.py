@@ -33,7 +33,7 @@ from dl_image_segmentation_tpu_torch.pipeline.export import (
 from dl_image_segmentation_tpu_torch.raster.cog import CogReader
 from dl_image_segmentation_tpu_torch.raster.geotiff import encode_geotiff
 from dl_image_segmentation_tpu_torch.raster.image import (
-    UnsupportedFormatError, decode_image_bytes, encode_png)
+    decode_image_bytes, encode_png)
 from dl_image_segmentation_tpu_torch.raster.jp2 import encode_jp2
 from dl_image_segmentation_tpu_torch.storage.fake_gcs import FakeGCS
 from dl_image_segmentation_tpu_torch.storage.fake_s3 import FakeS3
@@ -336,6 +336,27 @@ def test_remote_roots_open_through_fakes(tmp_path, monkeypatch, scheme):
             assert bool(cat._readers) == (window_bytes == 0)
 
 
+
+def _hdf5_band(band, gt, epsg):
+    """A NetCDF-4-style HDF5 band: CF x/y coordinates of pixel centres, a
+    grid mapping naming ``epsg`` and _FillValue 0 (h5py)."""
+    import io
+    import h5py
+    h, w = band.shape
+    buf = io.BytesIO()
+    with h5py.File(buf, "w") as f:
+        y = f.create_dataset("y", data=gt[3] + gt[5] * (np.arange(h) + 0.5))
+        x = f.create_dataset("x", data=gt[0] + gt[1] * (np.arange(w) + 0.5))
+        y.attrs["standard_name"] = "projection_y_coordinate"
+        x.attrs["standard_name"] = "projection_x_coordinate"
+        crs = f.create_dataset("crs", data=np.int32(0))
+        crs.attrs["epsg_code"] = f"EPSG:{epsg}"
+        d = f.create_dataset("band", data=band, chunks=(64, 64),
+                             compression="gzip")
+        d.attrs["grid_mapping"] = "crs"
+        d.attrs["_FillValue"] = np.uint16(0)
+    return buf.getvalue()
+
 class TestNotPorted:
 
     def test_ingest_safe_raises_item_6(self, tmp_path):
@@ -365,9 +386,10 @@ class TestNotPorted:
         assert errors[0] == errors[1]
 
     def test_per_band_scenes(self, tmp_path):
-        """A scene of per-band files (as ingest_safe writes them): GeoTIFF
-        and JPEG 2000 band files load as the JAX package loads them; an
-        HDF5 band raises naming item 13. A PNG band decodes as the JAX
+        """A scene of per-band files (as ingest_safe writes them): GeoTIFF,
+        HDF5 and JPEG 2000 band files load as the JAX package loads them
+        (HDF5 raised naming item 13 until it was ported). A PNG band
+        decodes as the JAX
         package decodes it and then fails as its load fails: a PNG
         carries no geotransform."""
         root = str(tmp_path / "cat")
@@ -404,11 +426,17 @@ class TestNotPorted:
                 cat.load(cat.search(tile, "s2"), tile, ["B02"])
             errors.append(str(e.value))
         assert errors[0] == errors[1]
+        # an HDF5 / NetCDF-4 band file (CF coordinates, grid mapping)
+        arr, gt, epsg = scene_over(jt.bounds, ZONE, ZONE, 10.0, 1,
+                                   np.uint16, 0, seed=32)
         with open(paths["B02"], "wb") as f:
-            f.write(b"\x89HDF\r\n\x1a\n" + bytes(64))
-        cat = LocalCatalog(root)
-        with pytest.raises(UnsupportedFormatError, match="item 13"):
-            cat.load(cat.search(tt, "s2"), tt, ["B02"])
+            f.write(_hdf5_band(arr[:, :, 0], gt, epsg))
+        t, j = LocalCatalog(root), JLocalCatalog(root)
+        got = t.load(t.search(tt, "s2"), tt, ["B02"], "near")
+        want = j.load(j.search(jt, "s2"), jt, ["B02"], "near")
+        assert got[1].any()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
         # JP2 band files (the .SAFE format), one by GeoJP2
         for k, (band, res) in enumerate((("B02", 10.0), ("B05", 20.0))):
             arr, gt, epsg = scene_over(jt.bounds, ZONE, ZONE, res, 1,

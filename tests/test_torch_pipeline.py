@@ -43,7 +43,8 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "dl_image_segmentation_tpu_torch")
-BLOCKED = ("jax", "flax", "optax", "orbax", "tensorstore", "zstandard")
+BLOCKED = ("jax", "flax", "optax", "orbax", "tensorstore", "zstandard",
+           "h5py")
 
 
 def read_all(folder):
@@ -366,7 +367,7 @@ print("ok", "PIL" in sys.modules)
             "records.parsers_tf", "utils.profiling", "utils.viz",
             "raster.cf", "raster.netcdf", "raster.vrt", "raster.envi",
             "raster.hdf4", "raster.grib", "raster.nitf",
-            "raster.gpkg_raster")}
+            "raster.gpkg_raster", "raster.hdf5")}
         assert training <= set(mods), sorted(training - set(mods))
         code = f"""
 import sys, importlib, importlib.abc
@@ -386,6 +387,10 @@ assert not {{"tensorflow", "matplotlib"}} & set(sys.modules), "TF/mpl"
 orbax = importlib.import_module("dl_image_segmentation_tpu_torch.train.orbax")
 tree = orbax.read_checkpoint("tests/data/orbax_unet/ckpt")
 assert int(tree["step"]) == 2, tree["step"]
+# the HDF5 reader runs where h5py is missing
+hdf5 = importlib.import_module("dl_image_segmentation_tpu_torch.raster.hdf5")
+g = hdf5.decode_hdf5(open("tests/data/hdf5/netcdf4.h5", "rb").read())
+assert g.info.epsg == 32633 and g.array.shape == (6, 7, 1), g.info
 print("ok", len(sys.modules))
 """
         out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
