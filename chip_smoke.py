@@ -116,8 +116,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    GeoTIFFs equal to phase 7's card export, tiles/s and the ranged GETs
    and bytes a tile; the RGB export the same way, equal to phase 7's; a
    STAC tree of the same scenes (``stac_tree_from_root``) served in API
-   mode, exported per tile on the card and the CPU (equal bytes, and
-   equal to phase 7's per-tile export); the launch counters set to 0
+   mode, exported per tile on the card (equal to phase 7's per-tile card
+   export, which phase 7 holds to the CPU's); the launch counters set to 0
    before the card's exports and read after (every kernel launched);
    ``to-tfrecords`` gs:// -> s3:// (shards equal to phase 7's),
    ``inspect --verify-crc`` on s3://, the feed's records/s from s3://
@@ -159,7 +159,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    pairs -> ``to-tfrecords --file-ext jp2`` raw (tifraw) and
    ``--store-as-array`` (uint8: the rgbarr layout), CRCs checked, and
    tifarr (FloatList) shards of the same pixels -> ``train --mode
-   tifraw`` and ``--mode tifarr`` (10 steps, one parse thread; falling
+   tifraw`` and ``--mode tifarr`` (5 steps, one parse thread; falling
    loss, equal losses, bitwise equal parameters) -> a PredictServer
    answering 8 JP2 bodies (== predict of the port's decode; a corrupt
    JP2 gets 400). Times with the card's name and power limit: JP2
@@ -223,6 +223,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``tests/data/hdf5`` (written by h5py: the layout-v4 chunk indexes,
    dense links and attributes, LZF, szip, n-bit, scale-offset) == their
    ``.npz``; decode MP/s and sniff us of a band in each layout.
+14. training across a ``torch.distributed`` world (``parallel_phase``,
+   after phase 7, on its tifarr shards): (a) a NCCL world of one joined
+   by ``initialize()`` from ``COORDINATOR_ADDRESS``,
+   ``DLSEG_NUM_PROCESSES=1`` and ``DLSEG_PROCESS_ID=0``; at the
+   TrainConfig defaults with 10 classes (bf16, batch 32) 5 steps with
+   ``mesh=None`` and 5 with ``fsdp=True`` are bitwise the plain
+   trainer's (losses and parameters), beside its CUDA-event step ms;
+   (b) a gloo world of 4 ranks on the one card (``dryrun_multichip(4,
+   "cuda:0")``; NCCL refuses a card two ranks share): DP 4x1, TP 2x2,
+   spatial 2x2, FSDP 4x1 and FSDP+TP 2x2 at the same width in fp32 with
+   clipping at 1.0, 3 steps on one global batch of 8 each, held against
+   the one-process trainer's here: losses within 1e-4 relative, the
+   first step's clipped gradients leaf by leaf and its global norm
+   (``NORM_RTOL``, ``GRAD_RTOL``, ``GRAD_ATOL``), parameters within 2 x
+   3 x lr after the steps, and a witness (one process through torch's
+   own CUDA convs, cuDNN off) inside the same bars; each world's
+   checkpoint restored here bitwise, class maps equal to this process's
+   from the restored parameters where the top two probabilities are
+   more than 1e-4 apart (and the share that differs from its own
+   steps' maps printed beside the witness's); per rank the bytes of
+   parameters and Adam moments (FSDP's below DP's), step ms and the
+   leaves TP and FSDP shard. No hand-written kernel is on this path.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script
@@ -278,6 +300,15 @@ BURN_PIXEL_EDGE_OPS = 14
 # values, add, multiply, compare) -- rounded down to 27; kept as a second
 # figure, comparable with earlier rows of PERF.md
 BURN_OPS_PER_EDGE = 27
+# phase 14's gradient bars, first step, fp32: the global norm before the
+# clip within NORM_RTOL relative of the one process's; each leaf's
+# difference within GRAD_RTOL of the leaf's norm plus GRAD_ATOL of the
+# whole gradient's. The backward of a GroupNorm subtracts the group's
+# mean, so what is left of a gradient can be small against its rounding:
+# one process through another conv implementation (the witness) must
+# stay inside these bars too. A gradient counted twice is off by 1 of its
+# norm, a shard counted twice in the clip's norm by tens of percent
+NORM_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-2, 1e-6
 S2_BANDS = ["coastal-aerosol", "blue", "green", "red", "red-edge",
             "red-edge-2", "red-edge-3", "nir", "red-edge-4", "water-vapor",
             "cirrus", "swir1", "swir2"]
@@ -1929,25 +1960,20 @@ def remote_phase(smi, share):
             n = stac_tree_from_root(share["root"], os.path.join(tmp, "stac"))
             secs["STAC tree"] = time.perf_counter() - t0
             log(f"  STAC tree of {n} items in {secs['STAC tree']:.3f} s")
+            # card only: phase 7 holds its per-tile card export to the
+            # CPU's bytes, and this export to phase 7's
             with StacServer(os.path.join(tmp, "stac"), api=True) as ss:
-                trees = {}
-                for d in ("cuda", "cpu"):
-                    dest = os.path.join(tmp, f"stac-{d}")
-                    argv = with_flags(s2, catalog="stac+" + ss.url,
-                                      batch_tiles=0, out=dest, device=d)
-                    name = f"create-chips stac+http:// --device {d}"
-                    if d == "cpu":
-                        cli_run(argv, secs, name)
-                    else:
-                        counted(argv, name)
-                    trees[d] = read_tree(os.path.join(dest,
-                                                      share["s2_folder"]))
+                dest = os.path.join(tmp, "stac-cuda")
+                counted(with_flags(s2, catalog="stac+" + ss.url,
+                                   batch_tiles=0, out=dest, device="cuda"),
+                        "create-chips stac+http:// --device cuda")
+                stac = read_tree(os.path.join(dest, share["s2_folder"]))
                 out["stac_search_requests"] = ss.search_requests
-            must_equal(trees["cuda"], trees["cpu"], "STAC export card vs CPU")
-            must_equal(trees["cpu"], share["s2_trees"][0],
+            must_equal(stac, share["s2_trees"][0],
                        "STAC export against phase 7's per-tile export")
             log(f"    STAC (API mode, {out['stac_search_requests']} searches):"
-                f" card bytes == CPU bytes == phase 7's per-tile export")
+                f" card bytes == phase 7's per-tile card export (== its "
+                f"CPU's)")
             idle = [k for k, v in out["launches"].items() if not v]
             if idle:
                 raise AssertionError(f"not launched in phase 8: {idle}")
@@ -2708,14 +2734,15 @@ def jp2_chip_path(smi, tmp, share, out, band):
     for kind in ("tifraw", "tifarr"):
         mlog = os.path.join(tmp, f"{kind}.jsonl")
         ckpt = os.path.join(tmp, f"{kind}.pt")
+        # 5 steps: each tifraw step waits on the host's JP2 decode
         cli_run(["train", "--records", os.path.join(shards[kind], "jp2-*"),
-                 "--mode", kind, "--classes", "10", "--steps", "10",
+                 "--mode", kind, "--classes", "10", "--steps", "5",
                  "--log-every", "1", "--workers", "1", "--metrics-log", mlog,
                  "--checkpoint", ckpt], secs, f"train {kind}")
         losses[kind] = [json.loads(ln)["loss"] for ln in open(mlog)]
         params[kind] = torch.load(ckpt, weights_only=False)
     ls = losses["tifraw"]
-    if len(ls) != 10 or not np.mean(ls[-5:]) < ls[0]:
+    if len(ls) != 5 or not np.mean(ls[-3:]) < ls[0]:
         raise AssertionError(f"train tifraw: losses {ls}")
     if ls != losses["tifarr"]:
         raise AssertionError(f"tifraw losses {ls} != tifarr "
@@ -2725,7 +2752,7 @@ def jp2_chip_path(smi, tmp, share, out, band):
         raise AssertionError("tifraw and tifarr runs end in other parameters")
     out["losses"] = ls
     log(f"  train --mode tifraw (JP2 payloads): loss {ls[0]:.4f} -> "
-        f"{np.mean(ls[-5:]):.4f}; == the tifarr run's losses, parameters "
+        f"{np.mean(ls[-3:]):.4f}; == the tifarr run's losses, parameters "
         "bitwise equal")
     # serve JP2 bodies
     trainer = Trainer(TrainConfig(num_classes=10, batch_size=8))
@@ -2794,7 +2821,8 @@ def jp2_chip_path(smi, tmp, share, out, band):
         "tifraw": feed_rate(pattern, 8, size, "tifraw"),
         "tifarr": feed_rate(os.path.join(shards["tifarr"], "jp2-*"), 8,
                             size)}
-    out["fed_step_ms"] = {"tifraw": fed_step_ms(pattern, "tifraw", size)}
+    out["fed_step_ms"] = {"tifraw": fed_step_ms(pattern, "tifraw", size,
+                                                steps=8)}
     out["fed_images_per_s"] = {m: 32 / (v / 1e3)
                                for m, v in out["fed_step_ms"].items()}
     out["card"] = smi
@@ -4001,6 +4029,267 @@ def hdf5_phase(smi, tmp, share):
     return out
 
 
+def parallel_phase(smi, tmp, share):
+    """Phase 14: training across a torch.distributed world (``parallel/``),
+    after phase 7 (its tifarr shards of 256 px RGB chips). (a) A NCCL
+    world of one joined through ``initialize()`` from the environment:
+    TrainConfig defaults with 10 classes (bf16), 5 steps with
+    ``mesh=None`` and 5 with ``fsdp=True``, both bitwise the plain
+    trainer's losses and parameters on the same batches, fed through
+    ``host_shard_files`` by rank; the step's CUDA-event ms beside the
+    plain step's. (b) A gloo world of 4 ranks on the one card
+    (``dryrun_multichip(4, "cuda:0")``: one process and one CUDA context
+    a rank; NCCL refuses a card that two ranks share): DP 4x1, TP 2x2,
+    spatial 2x2, FSDP 4x1 and FSDP+TP 2x2 at the same width in fp32 with
+    clipping at 1.0, 3 steps each on one global batch of 8, held against
+    the one-process trainer in this process: losses within 1e-4
+    relative, the first step's gradients and global norm within the
+    gradient bars, parameters within 2 x 3 x lr (a witness, one process
+    through torch's own CUDA convs, inside the same bars), each world's
+    checkpoint restored here bitwise, and its class maps equal to this
+    process's from the same (restored) parameters wherever the top two
+    probabilities are apart. Per rank: bytes of parameters and Adam
+    moments, step ms and the leaves TP and FSDP shard."""
+    import hashlib
+    import socket
+    import torch
+    import torch.distributed as dist
+    from dl_image_segmentation_tpu_torch.parallel import initialize
+    from dl_image_segmentation_tpu_torch.parallel.dryrun import \
+        dryrun_multichip
+    from dl_image_segmentation_tpu_torch.pipeline.input import TFRecordFeed
+    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+
+    log(f"phase 14: training across a torch.distributed world ({smi})")
+    out = {}
+    pattern = os.path.join(share["shards"], "smoke-*")
+    cfg = TrainConfig(num_classes=10)
+    feed = iter(TFRecordFeed(pattern, "tifarr", batch_size=cfg.batch_size,
+                             image_size=cfg.image_size, scale="raw",
+                             num_workers=2, seed=5))
+    batches = [next(feed) for _ in range(5)]
+    del feed
+
+    def run(tr):
+        losses = [tr.train_step(x, y)["loss"] for x, y in batches]
+        return losses, {n: p.detach().clone()
+                        for n, p in tr.state.params.items()}
+
+    def step_ms(tr):
+        x, y = tr.place_batch(*batches[0])
+        return cuda_ms(lambda: tr.train_step_async(x, y), 5)
+
+    # (a) the plain trainer outside any world, then a NCCL world of one
+    t0 = time.perf_counter()
+    plain = Trainer(cfg)
+    want, want_p = run(plain)
+    plain_ms = step_ms(plain)
+    del plain
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+           "DLSEG_NUM_PROCESSES": "1", "DLSEG_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        initialize()
+        if not dist.is_initialized() or dist.get_backend() != "nccl":
+            raise AssertionError("initialize() formed no NCCL world")
+        files = TFRecordFeed(pattern, "tifarr", batch_size=1).files
+        if len(files) != 4:
+            raise AssertionError(f"host_shard_files gave rank 0 {files}")
+        rows = []
+        for name, over in (("mesh=None", {}), ("fsdp=True", {"fsdp": True})):
+            tr = Trainer(TrainConfig(num_classes=10, **over))
+            got, got_p = run(tr)
+            same = got == want and all(torch.equal(got_p[n], want_p[n])
+                                       for n in want_p)
+            ms = step_ms(tr)
+            rows.append({"run": name, "mesh": dict(tr.mesh.shape),
+                         "losses": got, "bitwise_equal": same,
+                         "step_ms": ms, "plain_step_ms": plain_ms})
+            log(f"  (a) NCCL world of one, {name}: mesh {tr.mesh.shape}, 5 "
+                f"bf16 steps at batch {cfg.batch_size}, losses and "
+                f"parameters bitwise the plain trainer's: {same}; step "
+                f"{ms:.4f} ms (CUDA events) beside the plain step's "
+                f"{plain_ms:.4f} ms ({smi})")
+            del tr
+            if not same:
+                raise AssertionError(f"world of one ({name}): losses {got} "
+                                     f"differ from the plain {want}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["world_of_one"] = rows
+    out["world_of_one_seconds"] = time.perf_counter() - t0
+
+    # (b) a gloo world of 4 ranks on the one card, full width at fp32,
+    # clipping at 1.0 (the clip's global norm counts each shard once)
+    t0 = time.perf_counter()
+    base = dict(num_classes=10, batch_size=8, precision="fp32",
+                grad_clip_norm=1.0)
+    x, y = (a[:8] for a in batches[0])
+    regimes = {
+        "dp 4x1": {"n_model": 1, "config": base},
+        "tp 2x2": {"n_model": 2, "config": dict(base, n_model=2)},
+        "spatial 2x2": {"n_model": 2, "config": dict(base, n_model=2,
+                                                     spatial=True)},
+        "fsdp 4x1": {"n_model": 1, "config": dict(base, fsdp=True)},
+        "fsdp+tp 2x2": {"n_model": 2, "config": dict(base, n_model=2,
+                                                     fsdp=True)},
+    }
+    for spec in regimes.values():
+        spec.update(batches=[(x, y)] * 3, eval=(x, y))
+    work = os.path.join(tmp, "world")
+    res = dryrun_multichip(4, "cuda:0", regimes, workdir=work)
+    world_s = time.perf_counter() - t0
+
+    def steps(cudnn):
+        """3 one-process steps on the world's batch: losses, the first
+        step's clipped gradients and norm, the parameters, the trainer
+        (``cudnn=False``: torch's own CUDA convs, the same sums in other
+        orders: the witness)."""
+        tr = Trainer(TrainConfig(**base))
+        losses = []
+        with torch.backends.cudnn.flags(enabled=cudnn):
+            for i in range(3):
+                losses.append(tr.train_step(x, y)["loss"])
+                if i == 0:
+                    norm = float(tr.grad_norm)
+                    grads = {n: p.grad.detach().cpu()
+                             for n, p in tr.state.params.items()}
+        params = {n: p.detach().cpu().numpy().copy()
+                  for n, p in tr.state.params.items()}
+        return losses, norm, grads, params, tr
+
+    def grad_gap(grads, norm, want_grads, want_norm):
+        """(the norm's relative difference, the largest leaf's difference
+        over its bar: the leaf's norm x GRAD_RTOL plus the whole
+        gradient's x GRAD_ATOL)"""
+        whole = float(torch.sqrt(sum(g.double().square().sum()
+                                     for g in want_grads.values())))
+        worst = max(float((grads[n] - w).norm())
+                    / (GRAD_RTOL * float(w.norm()) + GRAD_ATOL * whole)
+                    for n, w in want_grads.items())
+        return abs(norm - want_norm) / want_norm, worst
+
+    t1 = time.perf_counter()
+    wit_losses, wit_norm, wit_grads, wit_p, wit = steps(False)
+    wit_probs = wit.predict_probs(x[:7])
+    del wit
+    ref_losses, ref_norm, ref_grads, ref_p, ref = steps(True)
+    own_probs = ref.predict_probs(x[:7])
+    srt = np.sort(own_probs, axis=-1)
+    own_apart = srt[..., -1] - srt[..., -2] > 1e-4
+    own_classes = own_probs.argmax(-1)
+    bound = 2 * 3 * ref.config.learning_rate
+
+    def param_gap(params):
+        return max(float(np.abs(params[n] - v).max())
+                   for n, v in ref_p.items())
+    w_norm_rel, w_worst = grad_gap(wit_grads, wit_norm, ref_grads, ref_norm)
+    witness = {
+        "losses": wit_losses, "grad_norm": wit_norm,
+        "grad_norm_rel_diff": w_norm_rel, "grad_worst_over_bar": w_worst,
+        "max_param_diff": param_gap(wit_p),
+        "class_maps_disagree_where_apart": float(
+            (wit_probs.argmax(-1) != own_classes)[own_apart].mean()),
+        "seconds": time.perf_counter() - t1}
+    log(f"  (b) the witness, one process through torch's own CUDA convs "
+        f"(cuDNN off): losses {wit_losses} vs cuDNN's {ref_losses}; first "
+        f"gradient norm {wit_norm} vs {ref_norm} ({w_norm_rel:.3g} "
+        f"relative); largest leaf difference {w_worst:.3g} of its bar; "
+        f"largest parameter difference after 3 steps "
+        f"{witness['max_param_diff']:.3g} (bound 2 x 3 x lr = {bound:g}); "
+        f"class maps differ on "
+        f"{witness['class_maps_disagree_where_apart']:.3%} of the pixels "
+        f"whose top two are > 1e-4 apart")
+    bad_witness = (w_norm_rel > NORM_RTOL or w_worst > 1
+                   or witness["max_param_diff"] > bound)
+    rows = []
+    for name, r in res.items():
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"], ref_losses)]
+        norm_rel, worst = grad_gap(r["grads"], r["grad_norms"][0],
+                                   ref_grads, ref_norm)
+        ref.restore_checkpoint(r["checkpoint"])
+        got = {n: p.detach().cpu().numpy()
+               for n, p in ref.state.params.items()}
+        restored = all(hashlib.sha256(v.tobytes()).hexdigest()
+                       == r["param_digests"][n] for n, v in got.items())
+        diff = param_gap(got)
+        # the world's class maps against this process's from the same
+        # (restored) parameters, and against its own steps'
+        probs = ref.predict_probs(x[:7])
+        srt = np.sort(probs, axis=-1)
+        apart = srt[..., -1] - srt[..., -2] > 1e-4
+        classes = probs.argmax(-1)
+        maps = bool((r["predict"][apart] == classes[apart]).all())
+        own = float((r["predict"] != own_classes)[own_apart].mean())
+        ranks = [{"param_bytes": k["param_bytes"],
+                  "moment_bytes": k["moment_bytes"],
+                  "step_ms": k["step_ms"],
+                  "sharded": sorted(set(k["sharded"].values())),
+                  "n_sharded": len(k["sharded"]),
+                  "checkpoint_equal": k["checkpoint_equal"]}
+                 for k in r["ranks"]]
+        row = {"regime": name, "mesh": r["mesh"], "losses": r["losses"],
+               "one_process_losses": ref_losses, "loss_rel_diff": rel,
+               "grad_norm": r["grad_norms"][0],
+               "grad_norm_rel_diff": norm_rel,
+               "grad_worst_over_bar": worst,
+               "max_param_diff": diff, "checkpoint_restores_here": restored,
+               "class_maps_equal_where_apart": maps,
+               "apart_share": float(apart.mean()),
+               "class_maps_disagree_own_steps": own,
+               "regime_seconds": r["ranks"][0]["seconds"], "ranks": ranks}
+        rows.append(row)
+        log(f"  (b) gloo world of 4 on the card, {name}: losses "
+            f"{r['losses']} vs one process {ref_losses} (largest relative "
+            f"difference {max(rel):.3g}); first gradient norm "
+            f"{r['grad_norms'][0]} ({norm_rel:.3g} relative), largest leaf "
+            f"difference {worst:.3g} of its bar; largest parameter "
+            f"difference {diff:.3g} (bound {bound:g}); its checkpoint "
+            f"restores here bitwise: {restored}; class maps equal to this "
+            f"process's from the same parameters where the top two are "
+            f"apart ({apart.mean():.1%} of pixels): {maps}; against its "
+            f"own steps' they differ on {own:.3%} of those pixels; "
+            f"{r['ranks'][0]['seconds']:.1f} s in the world")
+        for i, k in enumerate(ranks):
+            log(f"    rank {i}: parameters {k['param_bytes'] / 2**20:.1f} "
+                f"MiB, Adam moments {k['moment_bytes'] / 2**20:.1f} MiB, "
+                f"steps {', '.join(f'{v:.1f}' for v in k['step_ms'])} ms, "
+                f"{k['n_sharded']} leaves sharded over {k['sharded']}, "
+                f"checkpoint restored in the world bitwise: "
+                f"{k['checkpoint_equal']}")
+        if (max(rel) > 1e-4 or norm_rel > NORM_RTOL or worst > 1
+                or diff > bound or not restored or not maps
+                or not all(k["checkpoint_equal"] for k in ranks)):
+            raise AssertionError(f"world regime {name} failed: {row}")
+    if bad_witness:
+        raise AssertionError(f"the witness is outside the bars the world "
+                             f"is held to: {witness}")
+    del ref
+    fs = [row for row in rows if row["regime"] == "fsdp 4x1"][0]
+    dp = [row for row in rows if row["regime"] == "dp 4x1"][0]
+    if not fs["ranks"][0]["param_bytes"] < dp["ranks"][0]["param_bytes"]:
+        raise AssertionError("FSDP stored no less than DP a rank")
+    out["world_of_four"] = rows
+    out["witness"] = witness
+    out["world_of_four_seconds"] = world_s
+    out["seconds"] = out["world_of_one_seconds"] + (
+        time.perf_counter() - t0)
+    log(f"  phase 14: {out['seconds']:.1f} s (world of one "
+        f"{out['world_of_one_seconds']:.1f} s, world of four "
+        f"{world_s:.1f} s with its spawn)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4069,6 +4358,12 @@ def main() -> int:
         t0 = time.perf_counter()
         hdf5 = hdf5_phase(smi, os.path.join(work, "hdf5"), share)
         log(f"  hdf5_phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for c in kernels.COUNTERS:
+            c.reset()
+        world = parallel_phase(smi, os.path.join(work, "parallel"), share)
+        world["launches"] = {c.name: c.count for c in kernels.COUNTERS}
+        log(f"  parallel_phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4084,7 +4379,8 @@ def main() -> int:
                 "8": remote["launches"][c.name],
                 "10": safe["launches"][c.name],
                 "12": containers["launches"][c.name],
-                "13": hdf5["launches"][c.name]},
+                "13": hdf5["launches"][c.name],
+                "14": world["launches"][c.name]},
             "equal": all(r["equal"] for r in cases),
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "ms": main_case["ms"], "wrapper_ms": main_case["wrapper_ms"],
@@ -4102,6 +4398,7 @@ def main() -> int:
     log(json.dumps({"orbax": orbax_ck}))
     log(json.dumps({"containers": containers}))
     log(json.dumps({"hdf5": hdf5}))
+    log(json.dumps({"parallel": world}))
     log(f"seconds {time.perf_counter() - t_start:.1f}; runs "
         f"{json.dumps(runs)}")
     log(f"{smi}")

@@ -42,8 +42,15 @@ through the port's own codecs (``raster/``), so the default ``train
 --mode rgbraw`` reads PNG/JPEG records; JPEG 2000 decodes and encodes
 through the port's own codec too, so ``ingest-safe`` walks Sentinel-2
 ``.SAFE`` trees and JP2 chips take every path a GeoTIFF takes. What is
-not ported raises NotImplementedError naming its ROADMAP queue 1 item:
-``--n-model``, ``--spatial`` and ``--fsdp`` (item 8). predict, eval and
+not ported raises NotImplementedError naming its ROADMAP queue 1 item.
+train, eval and predict join a ``torch.distributed`` world when the
+environment names one (torchrun's variables, or the JAX package's
+``DLSEG_NUM_PROCESSES``, ``DLSEG_PROCESS_ID`` and
+``COORDINATOR_ADDRESS``): ``torchrun --nproc-per-node N -m
+dl_image_segmentation_tpu_torch.cli train ...`` trains data parallel
+over N cards, with ``--n-model``, ``--spatial`` and ``--fsdp`` as in the
+JAX package (``--device cpu`` runs the world over gloo); only the
+primary rank writes checkpoints and outputs and prints. predict, eval and
 serve take ``--quantize int8|int8-static`` (the U-Net only); int8-static
 calibrates on ``--calibrate-records`` (``--calibrate-batches`` batches)
 or else on the first batch it infers.
@@ -138,9 +145,20 @@ def cmd_convert(args) -> int:
     return 0
 
 
+def _join_world(args):
+    """Join the world the environment names (a no-op in one process);
+    returns the print of this rank: ``print`` on the primary, a no-op on
+    the others."""
+    from .parallel import initialize, is_primary
+    initialize(device=args.device)
+    return print if is_primary() else (lambda *a, **k: None)
+
+
 def cmd_train(args) -> int:
     from .pipeline.input import DevicePrefetcher, TFRecordFeed
     from .train.trainer import TrainConfig, Trainer
+
+    print = _join_world(args)  # only the primary prints
 
     cfg = TrainConfig(num_classes=args.classes,
                       in_channels=args.channels,
@@ -202,12 +220,16 @@ def cmd_train(args) -> int:
         remaining = max(0, args.steps - done_already)
     # scale="raw": the feed keeps the SOURCE dtype (4x less host copy
     # and H2D traffic for uint8); the step scales on the card
+    # in a world every rank reads every shard, so each holds the same
+    # global batches of --batch-size (the feed's order does not depend on
+    # its threads); place_batch keeps this rank's rows (and band)
     feed = TFRecordFeed(args.records, args.mode,
                         batch_size=args.batch_size,
                         image_size=args.image_size,
                         shuffle_buffer=args.shuffle_buffer,
                         num_workers=args.workers,
-                        scale="raw", verify_crc=args.verify_crc)
+                        scale="raw", verify_crc=args.verify_crc,
+                        per_host=False)
 
     def maybe_save():
         # skip when this step is already on disk (e.g. a fully-resumed
@@ -217,8 +239,9 @@ def cmd_train(args) -> int:
             saved = trainer.save_managed(manager)
             print(f"managed checkpoint saved at step {saved}")
 
+    from .parallel import is_primary
     mlog = open(args.metrics_log, "a", buffering=1) \
-        if args.metrics_log else None
+        if args.metrics_log and is_primary() else None
 
     def log_metrics(step, **kv):
         # one JSON object per line, appended (resumes continue the same
@@ -235,7 +258,8 @@ def cmd_train(args) -> int:
                              batch_size=args.batch_size,
                              image_size=args.image_size,
                              num_workers=args.workers, repeat=False,
-                             scale="raw", verify_crc=args.verify_crc)
+                             scale="raw", verify_crc=args.verify_crc,
+                             per_host=False)
         out = trainer.evaluate(efeed.batches(),
                                max_batches=args.eval_max_batches)
         print(f"val step {step}: loss={out['loss']:.4f} "
@@ -248,9 +272,11 @@ def cmd_train(args) -> int:
         if args.scan_steps > 0:
             # device-resident pool mode: K steps per dispatch, one host
             # sync a dispatch (train/pool.py)
+            from .parallel import batch_sharding
             from .train.pool import DeviceDataPool
-            pool = DeviceDataPool.from_feed(feed.batches(), args.pool_size,
-                                            device=trainer.device)
+            pool = DeviceDataPool.from_feed(
+                feed.batches(), args.pool_size, device=trainer.device,
+                sharding=batch_sharding(trainer.mesh))
             refresh = feed.batches()
             out = None
             while remaining > 0:
@@ -283,19 +309,28 @@ def cmd_train(args) -> int:
                 from .ops.augment import augment_pairs
                 from .train.trainer import normalize_images
                 agen = torch.Generator(device=trainer.device)
-            with DevicePrefetcher(feed.batches(), trainer.place_batch,
+
+                def place(images, labels):
+                    # the whole global batch: augmented, then cut
+                    return (torch.from_numpy(images).to(trainer.device),
+                            torch.from_numpy(labels).to(trainer.device))
+            with DevicePrefetcher(feed.batches(),
+                                  place if do_augment else
+                                  trainer.place_batch,
                                   device=trainer.device) as pf:
                 it = iter(pf)
                 for step in range(remaining):
                     images, labels = next(it)
                     if do_augment:
-                        # on-device augmentation of the placed batch, its
+                        # on-device augmentation of the global batch, its
                         # draws seeded from (seed, global step) as the
                         # JAX package folds the step into its key (a
-                        # resumed run draws what an unbroken one would).
-                        # Photometric ops act on [0,1] images, so integer
-                        # feeds normalize first (the step's normalize
-                        # passes floats through).
+                        # resumed run draws what an unbroken one would,
+                        # and every rank of a world draws the same);
+                        # then this rank's rows and band. Photometric
+                        # ops act on [0,1] images, so integer feeds
+                        # normalize first (the step's normalize passes
+                        # floats through).
                         if photometric:
                             images = normalize_images(images)
                         agen.manual_seed((cfg.seed << 32)
@@ -307,6 +342,7 @@ def cmd_train(args) -> int:
                             invert_prob=args.augment_invert,
                             brightness=args.augment_brightness,
                             contrast=args.augment_contrast)
+                        images, labels = trainer.place_batch(images, labels)
                     metrics = trainer.train_step(images, labels)
                     if step % args.log_every == 0 or step == remaining - 1:
                         stats = trainer.throughput_stats()
@@ -342,7 +378,8 @@ def cmd_train(args) -> int:
 
 
 def _inference_trainer(args, **extra):
-    """Trainer of predict / eval / serve, restored from --checkpoint."""
+    """Trainer of predict / eval / serve, restored from --checkpoint (in
+    a world, a data-parallel trainer over its ranks)."""
     from .train.trainer import TrainConfig, Trainer
     cfg = TrainConfig(num_classes=args.classes, in_channels=args.channels,
                       base_features=args.features, levels=args.levels,
@@ -394,7 +431,14 @@ def cmd_predict(args) -> int:
     from .raster.geotiff import read_geotiff, write_geotiff
     from .serve import scale_image
 
+    print = _join_world(args)  # only the primary prints
     trainer = _inference_trainer(args)
+    # in a world every rank infers (the forwards are collectives) and
+    # only the primary writes
+    from .parallel import is_primary
+    if not is_primary():
+        def write_geotiff(*a, **k):
+            return None
     if args.geotiff:
         # whole-raster sliding-window inference: --out is ONE GeoTIFF
         from .pipeline.window import predict_windowed
@@ -429,9 +473,10 @@ def cmd_predict(args) -> int:
               f"{'probability' if args.probs else 'class'} map to "
               f"{args.out}")
         return 0
-    storage.makedirs(args.out, exist_ok=True)
+    if is_primary():
+        storage.makedirs(args.out, exist_ok=True)
     if args.records:
-        return _predict_from_records(args, trainer)
+        return _predict_from_records(args, trainer, write_geotiff, print)
     if not args.images:
         print("predict needs --images DIR, --records GLOB or "
               "--geotiff FILE", file=sys.stderr)
@@ -468,14 +513,16 @@ def cmd_eval(args) -> int:
     """mIoU / accuracy / loss over TFRecord shards with a checkpoint."""
     from .pipeline.input import TFRecordFeed
 
+    print = _join_world(args)  # only the primary prints
     trainer = _inference_trainer(args, label_nodata=args.nodata)
-    # source-dtype batches; the card normalizes
+    # source-dtype batches; the card normalizes. Every rank of a world
+    # reads the same batches: evaluate shards each over the mesh
     feed = TFRecordFeed(args.records, args.mode,
                         batch_size=args.batch_size,
                         image_size=args.image_size,
                         shuffle_buffer=1, num_workers=args.workers,
                         repeat=False, scale="raw",
-                        verify_crc=args.verify_crc)
+                        verify_crc=args.verify_crc, per_host=False)
     out = trainer.evaluate(feed.batches(), max_batches=args.max_batches)
 
     def _round(v):
@@ -668,7 +715,7 @@ def cmd_map(args) -> int:
     return 0
 
 
-def _predict_from_records(args, trainer) -> int:
+def _predict_from_records(args, trainer, write_geotiff, print) -> int:
     """predict --records: inference straight from TFRecord shards. Output
     rasters are named from each record's identifier (`:` -> `#`, like
     the chip writer) and georeferenced from tile-key or `name|gt|crs`
@@ -679,7 +726,6 @@ def _predict_from_records(args, trainer) -> int:
     from . import storage
     from .geo.georef import georef_from_identifier
     from .pipeline.input import PARSE_FNS
-    from .raster.geotiff import write_geotiff
     from .records.tfrecord import read_records
     from .serve import scale_image
 
@@ -1019,14 +1065,18 @@ def main(argv=None) -> int:
     tr.add_argument("--steps", type=int, default=100)
     tr.add_argument("--nodata", type=int, default=255)
     tr.add_argument("--n-model", type=int, default=1,
-                    help="model-axis sharding; >1 raises (ROADMAP queue 1 "
-                         "item 8)")
+                    help="model-axis size of the mesh over the world's "
+                         "ranks (channel tensor parallelism; the world "
+                         "must hold a multiple of it)")
     tr.add_argument("--spatial", action="store_true",
-                    help="spatially partitioned convs; raises (ROADMAP "
-                         "queue 1 item 8)")
+                    help="shard the image height over the model axis "
+                         "(halo-exchanging convs) instead of conv "
+                         "channels; the U-Net")
     tr.add_argument("--fsdp", action="store_true",
-                    help="sharded parameter and optimizer storage; raises "
-                         "(ROADMAP queue 1 item 8)")
+                    help="store large conv kernels and their Adam moments "
+                         "sharded over the data axis (gathered before "
+                         "use, gradients reduce-scattered; ~n_data-fold "
+                         "less parameter and optimizer memory a rank)")
     tr.add_argument("--s2d", type=int, default=0, help=_S2D_HELP)
     tr.add_argument("--remat", action="store_true",
                     help="rematerialise activations in the backward "

@@ -21,8 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import (GN_EPS, conv_same, group_norm, lecun_normal_,
-                     resize_bilinear, resize_flops)
+from .layers import (GN_EPS, call_layer, conv_same, group_norm,
+                     lecun_normal_, resize_bilinear, resize_flops)
 
 __all__ = ["ASPP", "ConvBNAct", "DeepLabLite"]
 
@@ -150,6 +150,6 @@ class DeepLabLite(nn.Module):
         # ceil(h / 2))
         x = resize_bilinear(x, low.shape[2], low.shape[3]).to(dt)
         x = self.fuse(torch.cat([x, self.low(low, dt)], dim=1), dt)
-        logits = F.conv2d(x.float(), self.head.weight, self.head.bias)
+        logits = call_layer(self.head, x.float(), F.conv2d)
         return resize_bilinear(logits, h, w)
 

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["GN_EPS", "LN_EPS", "conv_same", "gelu", "group_norm",
+__all__ = ["GN_EPS", "LN_EPS", "call_layer", "conv_same", "gelu", "group_norm",
            "layer_norm", "lecun_normal_", "linear", "pad_same",
            "resize_bilinear", "resize_flops", "same_pads"]
 
@@ -120,29 +120,43 @@ def _conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride=1,
     return F.conv2d(x, w, b, **kw)
 
 
+def call_layer(layer: nn.Module, x: torch.Tensor, fn) -> torch.Tensor:
+    """``fn(x, weight, bias)``, the op of ``layer`` on its parameters. A
+    layer that ``parallel/spmd.py:shard_model`` sharded carries its
+    wrapper as ``layer.spmd``, which runs ``fn`` on the gathered kernel,
+    this rank's output channels, or a height band with its halo rows."""
+    spmd = layer.__dict__.get("spmd")
+    if spmd is None:
+        return fn(x, layer.weight, layer.bias)
+    return spmd(x, fn)
+
+
 def conv_same(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype,
               stride: int = 1, dilation: int = 1) -> torch.Tensor:
     """flax ``nn.Conv(padding="SAME")`` of ``conv``'s kernel and bias in
-    the compute dtype (params stay float32)."""
+    the compute dtype (params stay float32); a depthwise kernel (one
+    input channel a group) takes a group per input channel."""
     k = conv.weight.shape[-1]
-    return _conv2d(pad_same(x.to(dtype), k, stride, dilation),
-                   conv.weight.to(dtype), conv.bias.to(dtype), stride=stride,
-                   dilation=dilation, groups=conv.groups)
+    return call_layer(
+        conv, pad_same(x.to(dtype), k, stride, dilation),
+        lambda x, w, b: _conv2d(x, w.to(dtype), b.to(dtype), stride=stride,
+                                dilation=dilation,
+                                groups=x.shape[1] // w.shape[1]))
 
 
 def linear(dense: nn.Linear, x: torch.Tensor, dtype: torch.dtype
            ) -> torch.Tensor:
     """flax ``nn.Dense`` in the compute dtype (params stay float32)."""
-    return F.linear(x.to(dtype), dense.weight.to(dtype),
-                    dense.bias.to(dtype))
+    return call_layer(dense, x.to(dtype), lambda x, w, b: F.linear(
+        x, w.to(dtype), b.to(dtype)))
 
 
 def group_norm(norm: nn.GroupNorm, x: torch.Tensor, dtype: torch.dtype
                ) -> torch.Tensor:
     """flax ``nn.GroupNorm``: float32 statistics and normalisation, the
     output in the compute dtype."""
-    y = F.group_norm(x.float(), norm.num_groups, norm.weight, norm.bias,
-                     norm.eps)
+    y = call_layer(norm, x.float(), lambda x, w, b: F.group_norm(
+        x, norm.num_groups, w, b, norm.eps))
     return y.to(dtype)
 
 

@@ -41,7 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import GN_EPS, _conv2d, group_norm, lecun_normal_
+from .layers import (GN_EPS, _conv2d, call_layer, group_norm,
+                     lecun_normal_)
 from .quant import Int8Conv
 
 __all__ = ["ConvBlock", "UNet", "space_to_depth", "depth_to_space",
@@ -73,8 +74,8 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype,
         # SAME padding on the int8 tensor: the zeros the float path pads
         # quantize to zeros
         return conv.quantized(x, dtype)
-    return _conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
-                   stride=stride, padding=padding)
+    return call_layer(conv, x.to(dtype), lambda x, w, b: _conv2d(
+        x, w.to(dtype), b.to(dtype), stride=stride, padding=padding))
 
 
 def _upsample(up: nn.ConvTranspose2d, x: torch.Tensor,
@@ -86,10 +87,12 @@ def _upsample(up: nn.ConvTranspose2d, x: torch.Tensor,
     backward-data pass, some of whose algorithms cuDNN documents as
     non-deterministic (atomic adds): a served chip's class map must equal
     ``predict``'s bit for bit."""
-    cin, cout, kh, kw = up.weight.shape
-    w = up.weight.permute(1, 2, 3, 0).reshape(cout * kh * kw, cin, 1, 1)
-    b = up.bias.repeat_interleave(kh * kw)
-    return F.pixel_shuffle(_conv2d(x, w.to(dtype), b.to(dtype)), kh)
+    def fn(x, w, b):
+        cin, cout, kh, kw = w.shape
+        w = w.permute(1, 2, 3, 0).reshape(cout * kh * kw, cin, 1, 1)
+        b = b.repeat_interleave(kh * kw)
+        return F.pixel_shuffle(_conv2d(x, w.to(dtype), b.to(dtype)), kh)
+    return call_layer(up, x, fn)
 
 
 def _conv_layer(cin: int, cout: int, k: int, stride: int, quant):
@@ -185,6 +188,17 @@ class UNet(nn.Module):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
 
+    def spatial_layers(self):
+        """The (3x3 SAME conv, GroupNorm) pairs whose windows and
+        statistics cross the image height, which a step with the height
+        sharded into bands replaces (``parallel/spmd.py:shard_model``).
+        The 2x2 stride-2 down convs, the upsamplers and the 1x1 head stay
+        local to a band whose height is a multiple of ``s2d * 2 **
+        levels``."""
+        for blk in (*self.down_blocks, self.bottom, *self.up_blocks):
+            yield blk.conv0, blk.norm0
+            yield blk.conv1, blk.norm1
+
     def flops(self, height: int, width: int) -> int:
         """Floating-point operations (2 per multiply-add) of the convs,
         transposed convs and head of one forward on one (height, width)
@@ -237,7 +251,7 @@ class UNet(nn.Module):
             x = _upsample(up, x, dt)
             x = x[:, :, :skip.shape[2], :skip.shape[3]]
             x = block(torch.cat([x, skip.to(dt)], dim=1))
-        logits = _conv2d(x.float(), self.head.weight, self.head.bias)
+        logits = call_layer(self.head, x.float(), _conv2d)
         if self.s2d > 1:
             logits = depth_to_space(logits, self.s2d)
         return logits

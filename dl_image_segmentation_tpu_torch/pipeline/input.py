@@ -1,6 +1,9 @@
 """Training feed: sharded TFRecords -> parse -> batch -> device prefetch.
 
-A port of the JAX package's ``pipeline/input.py`` for one process.
+A port of the JAX package's ``pipeline/input.py``. In a
+``torch.distributed`` world each rank reads its own round-robin share of
+the shards (``host_shard_files``, as the JAX package deals them over its
+processes).
 :class:`TFRecordFeed` yields numpy (images, labels) batches with the same
 shard order, interleave and shuffle buffer (``np.random.RandomState``
 seeded as there), so the same shards and seed give the same batches
@@ -37,9 +40,16 @@ PARSE_FNS = {
 
 
 def host_shard_files(files: Sequence[str]) -> List[str]:
-    """This process's shards: with one process, every file, sorted (the
-    JAX package deals them round-robin over its processes)."""
-    return sorted(files)
+    """This rank's slice of the shard list, round-robin by rank over the
+    sorted files (every file outside a world).
+
+    Whole shards are dealt, so with ``repeat=False`` ranks may yield
+    unequal batch counts when shard record counts differ: fine for
+    training (repeating feeds); ``Trainer.evaluate`` stops every rank at
+    the shortest."""
+    from ..parallel.distributed import rank, world_size
+    n, i = world_size(), rank()
+    return [f for k, f in enumerate(sorted(files)) if k % n == i]
 
 
 class TFRecordFeed:
@@ -51,8 +61,13 @@ class TFRecordFeed:
     multiplier, ``"raw"`` = the parsed dtype untouched (for device pools;
     the trainer scales on the card). tifarr and tifraw parse to float32
     raw DNs, which pass every scale setting unscaled. ``verify_crc``
-    checks each frame's CRCs while feeding. ``per_host`` is accepted as
-    the JAX package accepts it; with one process it changes nothing."""
+    checks each frame's CRCs while feeding. ``per_host`` (the default)
+    reads this rank's ``host_shard_files``, as the JAX package deals
+    shards over its processes. ``Trainer.place_batch`` takes the global
+    batch on every rank of a world (and keeps this rank's rows), so a
+    trainer's feed there reads every shard (``per_host=False``): the
+    stream is in record order whatever ``num_workers``, so every rank
+    reads the same batches."""
 
     def __init__(self, shard_pattern, parse_mode: str, batch_size: int,
                  image_size: Optional[int] = None,
@@ -73,6 +88,9 @@ class TFRecordFeed:
         if not files:
             raise FileNotFoundError(f"no shards match {shard_pattern!r}")
         self.files = host_shard_files(files) if per_host else list(files)
+        if not self.files:
+            raise RuntimeError("this host received zero shards; use more "
+                               "shards than hosts")
         self.parse = PARSE_FNS[parse_mode]
         self.parse_mode = parse_mode
         self.batch_size = batch_size
@@ -115,12 +133,18 @@ class TFRecordFeed:
                 return
 
     def _parsed_stream(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """Records parsed on ``num_workers`` threads, through the shuffle
-        buffer."""
+        """Records parsed on ``num_workers`` threads, in record order,
+        through the shuffle buffer: the same shards and seed give the
+        same stream whatever the thread count and timing, so the ranks of
+        a world that read the same shards hold the same batches."""
         recs = self._record_stream()
-        out_q: "queue.Queue" = queue.Queue(maxsize=self.num_workers * 8)
+        # records taken but not yet passed on: bounds the reorder buffer
+        window = self.num_workers * 8
+        slots = threading.Semaphore(window)
+        out_q: "queue.Queue" = queue.Queue(maxsize=window + self.num_workers)
         stop = threading.Event()
         lock = threading.Lock()
+        taken = [0]
 
         def put(item) -> bool:
             # gives up once the consumer is gone, so no worker is left
@@ -136,11 +160,15 @@ class TFRecordFeed:
         def worker():
             try:
                 while not stop.is_set():
+                    if not slots.acquire(timeout=0.5):
+                        continue
                     with lock:
                         try:
                             rec = next(recs)
                         except StopIteration:
                             break
+                        seq = taken[0]
+                        taken[0] += 1
                     try:
                         img, lbl, _ident = self.parse(rec)
                     except Exception:  # skip corrupt records, keep feeding
@@ -155,9 +183,11 @@ class TFRecordFeed:
                                 f"with parse_mode={self.parse_mode!r}; "
                                 "wrong storage mode for these shards?"))
                             return
+                        if not put((seq, None)):
+                            return
                         continue
                     self._any_parse_success = True
-                    if not put((img, lbl)):
+                    if not put((seq, (img, lbl))):
                         return
             except BaseException as e:
                 # an IO error of the record stream (a truncated or
@@ -166,14 +196,10 @@ class TFRecordFeed:
                 return
             put(None)
 
-        threads = [threading.Thread(target=worker, daemon=True)
-                   for _ in range(self.num_workers)]
-        for t in threads:
-            t.start()
-        finished = 0
-        rng = np.random.RandomState(self.seed + 1)
-        buf: List[Tuple[np.ndarray, np.ndarray]] = []
-        try:
+        def in_order():
+            """The parsed records in record order (None for a skipped
+            one), each slot given back as its record passes."""
+            finished, nxt, pending = 0, 0, {}
             while finished < len(threads):
                 item = out_q.get()
                 if item is None:
@@ -181,6 +207,22 @@ class TFRecordFeed:
                     continue
                 if isinstance(item, BaseException):
                     raise item
+                pending[item[0]] = item[1]
+                while nxt in pending:
+                    yield pending.pop(nxt)
+                    nxt += 1
+                    slots.release()
+
+        threads = [threading.Thread(target=worker, daemon=True)
+                   for _ in range(self.num_workers)]
+        for t in threads:
+            t.start()
+        rng = np.random.RandomState(self.seed + 1)
+        buf: List[Tuple[np.ndarray, np.ndarray]] = []
+        try:
+            for item in in_order():
+                if item is None:
+                    continue
                 self.records_read += 1
                 if self.shuffle_buffer > 1:
                     buf.append(item)

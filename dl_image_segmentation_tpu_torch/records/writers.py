@@ -19,7 +19,11 @@ through the storage layer. Contracts kept:
   '{filename}|{geotransform}|{crs}';
 * a pair that fails to load is skipped with a message;
 * ``resume`` skips shards that exist (the writer renames or uploads a
-  shard into place only once it is complete).
+  shard into place only once it is complete);
+* ``host_index`` / ``host_count`` split one run over hosts (or ranks):
+  each takes a contiguous slice of the shuffled file list and the
+  matching range of shards, numbered globally, so the hosts' shards
+  together are the one-host run's.
 
 ``store_as_array=True`` stores decoded arrays (FloatList, the tifarr
 mode, or BytesList for uint8 pairs: rgbarr), ``False`` the file bytes
@@ -194,19 +198,22 @@ def _write_one_shard(writer, worker_index: int, img_files, lbl_files,
 
 def _worker(worker_index: int, ranges, name: str, img_files, lbl_files,
             out_dir: str, num_shards: int, loader: Callable,
-            store_as_array: bool, progress_every: int, resume: bool
+            store_as_array: bool, progress_every: int, resume: bool,
+            shard_base: int = 0, total_shards: Optional[int] = None
             ) -> Tuple[int, dict]:
     """Write this worker's contiguous range of shards; (examples written,
-    {skip reason: count})."""
+    {skip reason: count}). ``num_shards`` is this host's shard count;
+    ``shard_base`` / ``total_shards`` number them globally."""
+    total_shards = total_shards or num_shards
     shards_per_worker = num_shards // len(ranges)
     lo, hi = ranges[worker_index]
     shard_ranges = np.linspace(lo, hi, shards_per_worker + 1).astype(int)
     counter = 0
     skipped: dict = {}
     for s in range(shards_per_worker):
-        shard = worker_index * shards_per_worker + s
+        shard = shard_base + worker_index * shards_per_worker + s
         output_file = storage.join(out_dir,
-                                   shard_filename(name, shard, num_shards))
+                                   shard_filename(name, shard, total_shards))
         if resume and storage.exists(output_file):
             print(f"{datetime.now()} [worker {worker_index}]: shard "
                   f"{output_file} exists, skipping (resume)")
@@ -234,18 +241,35 @@ def _worker(worker_index: int, ranges, name: str, img_files, lbl_files,
 def _process_dataset(name: str, directory: str, out_directory: str,
                      num_shards: int, num_workers: int, loader: Callable,
                      store_as_array: bool, file_ext: Sequence[str],
-                     progress_every: int, resume: bool) -> int:
+                     progress_every: int, resume: bool, host_index: int = 0,
+                     host_count: int = 1) -> int:
     if num_shards % num_workers:
         raise ValueError("Num shards must be a multiple of num workers "
                          "(incl 1*)")
     img_files, lbl_files = _find_image_files(directory, file_ext)
+    total_shards, shard_base = num_shards, 0
+    if host_count > 1:
+        # this host's contiguous slice of the shuffled files and of the
+        # shards, numbered globally
+        if num_shards % host_count:
+            raise ValueError("num_shards must divide evenly across hosts")
+        n = len(img_files)
+        lo = n * host_index // host_count
+        hi = n * (host_index + 1) // host_count
+        img_files, lbl_files = img_files[lo:hi], lbl_files[lo:hi]
+        num_shards //= host_count
+        shard_base = num_shards * host_index
+        if num_shards % num_workers:
+            raise ValueError("per-host shard count must be a multiple of "
+                             "num workers")
     storage.makedirs(out_directory, exist_ok=True)
     spacing = np.linspace(0, len(img_files), num_workers + 1).astype(int)
     ranges = [[spacing[i], spacing[i + 1]] for i in range(num_workers)]
     print(f"Launching {num_workers} workers for spacings: {ranges}")
     sys.stdout.flush()
     args = (ranges, name, img_files, lbl_files, out_directory, num_shards,
-            loader, store_as_array, progress_every, resume)
+            loader, store_as_array, progress_every, resume, shard_base,
+            total_shards)
     # the worker count fixes which records go to which shard; the pool is
     # capped at the host's cores
     with ThreadPoolExecutor(min(num_workers, os.cpu_count() or 1)) as ex:
@@ -268,15 +292,19 @@ def process_dataset_mp(name: str, directory: str, out_directory: str,
                        dltile_from_filename: bool = True,
                        file_ext: str = "tif",
                        store_as_array: bool = True,
+                       host_index: int = 0, host_count: int = 1,
                        resume: bool = False) -> int:
     """GeoTIFF chip folder (``images/`` and ``labels/``) -> ``num_shards``
     TFRecord shards in ``out_directory``, written by ``num_proc`` worker
-    threads (default one a shard). Returns the examples written."""
+    threads (default one a shard of this host's). ``host_index`` /
+    ``host_count`` write this host's part of a run split over hosts.
+    Returns the examples written."""
     return _process_dataset(
-        name, directory, out_directory, num_shards, num_proc or num_shards,
+        name, directory, out_directory, num_shards,
+        num_proc or num_shards // host_count,
         functools.partial(_load_any,
                           dltile_from_filename=dltile_from_filename),
-        store_as_array, [file_ext], 100, resume)
+        store_as_array, [file_ext], 100, resume, host_index, host_count)
 
 
 def process_dataset_multithreaded(name: str, directory: str,
@@ -285,16 +313,20 @@ def process_dataset_multithreaded(name: str, directory: str,
                                   dltile_from_filename: bool = True,
                                   convert_png_to_jpg: bool = False,
                                   store_as_array: bool = False,
+                                  host_index: int = 0,
+                                  host_count: int = 1,
                                   resume: bool = False) -> int:
     """PNG/JPEG chip folder (``images/`` and ``labels/``, ``.png`` and
     ``.jpg`` files) -> ``num_shards`` TFRecord shards, written by
-    ``num_threads`` worker threads (default one a shard). Returns the
-    examples written."""
+    ``num_threads`` worker threads (default one a shard of this host's).
+    ``host_index`` / ``host_count`` as for ``process_dataset_mp``.
+    Returns the examples written."""
     return _process_dataset(
-        name, directory, out_directory, num_shards, num_threads or num_shards,
+        name, directory, out_directory, num_shards,
+        num_threads or num_shards // host_count,
         functools.partial(_load_mt, dltile_from_filename=dltile_from_filename,
                           png_to_jpg=convert_png_to_jpg),
-        store_as_array, ["png", "jpg"], 1000, resume)
+        store_as_array, ["png", "jpg"], 1000, resume, host_index, host_count)
 
 
 # the facade's names (the reference's dl_segmentation_utils/__init__.py)

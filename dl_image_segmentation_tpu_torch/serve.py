@@ -128,10 +128,19 @@ class PredictServer:
     batch window of ``max_wait_ms``; whatever arrived by then (capped
     at the batch size) rides one ``predict_both`` dispatch.
     Under load the window never idles -- a full batch closes
-    immediately -- so max_wait_ms bounds LATENCY, not throughput."""
+    immediately -- so max_wait_ms bounds LATENCY, not throughput. A
+    trainer on a mesh of more than one rank is refused: each dispatch is
+    a collective that every rank would have to enter with the same
+    requests (ROADMAP queue 1 item 15)."""
 
     def __init__(self, trainer, max_wait_ms: float = 5.0,
                  max_queue: int = 0):
+        mesh = getattr(trainer, "mesh", None)
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(
+                f"PredictServer on a mesh of {mesh.size} ranks is not "
+                "ported yet: ROADMAP queue 1 item 15 (the rest of "
+                "parallel/)")
         self.trainer = trainer
         self.batch_size = int(trainer.config.batch_size)
         self.max_wait = max_wait_ms / 1e3

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -102,12 +102,28 @@ def adamw_init(params: Dict[str, torch.Tensor]) -> AdamWState:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float
-                         ) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         groups: Optional[List] = None) -> torch.Tensor:
     """optax.clip_by_global_norm in place; returns the global norm (a
     device scalar: no sync). Below ``max_norm`` each gradient is divided
-    by 1 and multiplied by 1, which leaves it as it was."""
-    g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    by 1 and multiplied by 1, which leaves it as it was. ``groups``, one
+    per gradient, names the process group over which a sharded
+    gradient's shards add up to the whole (None: replicated): the sum of
+    squares of each is all-reduced over its group, so every shard counts
+    once and a replicated gradient once."""
+    norms = torch._foreach_norm(grads)
+    if groups is None or all(g is None for g in groups):
+        g_norm = torch.linalg.vector_norm(torch.stack(norms))
+    else:
+        from ..parallel.spmd import all_reduce
+        by_group: dict = {}
+        for n, g in zip(norms, groups):
+            by_group.setdefault(g, []).append(n)
+        total = None
+        for g, ns in by_group.items():
+            sq = all_reduce(torch.stack(ns).square().sum(), g)
+            total = sq if total is None else total + sq
+        g_norm = torch.sqrt(total)
     keep = g_norm < max_norm
     one = torch.ones((), dtype=g_norm.dtype, device=g_norm.device)
     torch._foreach_div_(grads, torch.where(keep, one, g_norm))

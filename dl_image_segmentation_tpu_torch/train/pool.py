@@ -6,6 +6,12 @@ pool is ~400 MB), batches are gathered on the device, and the pool is
 refreshed from the host feed between dispatches. Sampling is uniform
 with replacement; the indices are drawn by the caller (from a
 ``torch.Generator`` on the device, or replayed) and passed in.
+
+In a world, a pool given a data-axis sharding (``batch_sharding(mesh)``,
+as the JAX package's ``_rank_adapted`` places one sharding on the 4-D
+images and the 3-D labels alike) stores on each rank its contiguous
+slice of the examples; every rank is given the same host arrays.
+``take`` fetches the examples at global indices, wherever they live.
 """
 
 from __future__ import annotations
@@ -22,22 +28,66 @@ __all__ = ["DeviceDataPool", "sample_batch"]
 
 class DeviceDataPool:
     """images (N, H, W, C) and labels (N, H, W) on ``device`` (None =
-    the CUDA card), each in the dtype the source gave."""
+    the sharding's mesh's device, else the CUDA card), each in the dtype
+    the source gave; with a ``sharding`` over "data", this rank's rows
+    only (N must divide by the data axis)."""
 
-    def __init__(self, images: np.ndarray, labels: np.ndarray, device=None):
+    def __init__(self, images: np.ndarray, labels: np.ndarray, device=None,
+                 sharding=None):
+        self.sharding = None
+        self._rows = slice(0, len(images))
+        if sharding is not None and sharding.spec[:1] == ("data",) \
+                and sharding.mesh.shape["data"] > 1:
+            from ..parallel.sharding import shard_slice
+            self.sharding = sharding
+            self._rows = shard_slice(len(images), "data", sharding.mesh)
+        if device is None and sharding is not None:
+            device = sharding.mesh.device
         self.device = resolve_device(device)
-        self.images = torch.from_numpy(np.ascontiguousarray(images)).to(
-            self.device)
-        self.labels = torch.from_numpy(np.ascontiguousarray(labels)).to(
-            self.device)
+        self._size = len(images)
+        self.images = torch.from_numpy(np.ascontiguousarray(
+            images[self._rows])).to(self.device)
+        self.labels = torch.from_numpy(np.ascontiguousarray(
+            labels[self._rows])).to(self.device)
 
     @property
     def size(self) -> int:
-        return self.images.shape[0]
+        """The number of examples in the whole pool."""
+        return self._size
+
+    def take(self, idx: torch.Tensor):
+        """(images, labels int32) of the examples at the global indices
+        ``idx``. A sharded pool gathers them over "data": each rank
+        contributes the rows it holds of every index every rank asked
+        for (the draws are the same on every rank), and keeps its own."""
+        if self.sharding is None:
+            return sample_batch(self.images, self.labels, idx)
+        from ..parallel.spmd import all_gather
+        mesh = self.sharding.mesh
+        group = mesh.group("data")
+        everyone = all_gather(idx.unsqueeze(0), group, 0)
+        lo, n = self._rows.start, self.images.shape[0]
+        mine = (everyone >= lo) & (everyone < lo + n)
+        local = torch.where(mine, everyone - lo, 0).reshape(-1)
+        shape = everyone.shape
+
+        def held(pool):
+            rows = pool[local]
+            keep = mine.reshape(-1).reshape((-1,) + (1,) * (rows.ndim - 1))
+            return torch.where(keep, rows, torch.zeros_like(rows)).reshape(
+                shape + tuple(pool.shape[1:]))
+        d = mesh.coords[0]
+        owner = (everyone[d] // n).long()
+        out = []
+        for pool in (self.images, self.labels):
+            got = all_gather(held(pool).unsqueeze(0), group, 0)
+            out.append(got[owner, d, torch.arange(len(idx),
+                                                  device=idx.device)])
+        return out[0], out[1].to(torch.int32)
 
     @classmethod
     def from_feed(cls, batches: Iterator, n_examples: int,
-                  device=None) -> "DeviceDataPool":
+                  device=None, sharding=None) -> "DeviceDataPool":
         """Fill a pool of ``n_examples`` from a batch iterator (e.g. a
         TFRecordFeed with ``scale="raw"``, which keeps uint8 sources
         uint8: a float scale would quadruple the pool's memory)."""
@@ -52,7 +102,8 @@ class DeviceDataPool:
             raise ValueError("feed produced no batches; cannot build a "
                              "device data pool")
         return cls(np.concatenate(imgs)[:n_examples],
-                   np.concatenate(lbls)[:n_examples], device=device)
+                   np.concatenate(lbls)[:n_examples], device=device,
+                   sharding=sharding)
 
     def refresh(self, images: np.ndarray, labels: np.ndarray,
                 offset: int = 0) -> None:
@@ -67,11 +118,18 @@ class DeviceDataPool:
                 f"({self.size}); use a pool at least one refresh batch "
                 "deep or a smaller feed batch size")
         offset = max(0, min(int(offset), self.size - n))
+        # the part of [offset, offset + n) that this rank holds
+        lo = max(offset, self._rows.start)
+        hi = min(offset + n, self._rows.stop)
+        if hi <= lo:
+            return
         for dst, src in ((self.images, images), (self.labels, labels)):
-            host = torch.from_numpy(np.ascontiguousarray(src)).to(dst.dtype)
+            host = torch.from_numpy(np.ascontiguousarray(
+                src[lo - offset:hi - offset])).to(dst.dtype)
             if dst.is_cuda:
                 host = host.pin_memory()
-            dst[offset:offset + n].copy_(host, non_blocking=True)
+            dst[lo - self._rows.start:hi - self._rows.start].copy_(
+                host, non_blocking=True)
 
 
 def sample_batch(pool_images: torch.Tensor, pool_labels: torch.Tensor,

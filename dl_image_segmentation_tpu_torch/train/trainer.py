@@ -4,11 +4,21 @@ training from a device pool, evaluation, checkpoints, and inference
 (predict, predict_probs), float or int8 (the U-Net's ``quantize="int8"``
 and calibrated ``"int8-static"``, on the float model's parameters).
 
-A port of the JAX package's ``train/trainer.py`` for one device. The
-entry points run on the CUDA card unless the caller passes
-``device="cpu"``. Every forward and backward runs under
-``_forward_flags`` (cuDNN benchmark off, and TF32 off at fp32), so a
-training thread and a serving thread launch the same algorithms; the
+A port of the JAX package's ``train/trainer.py``. The entry points run
+on the CUDA card unless the caller passes ``device="cpu"``. In a
+``torch.distributed`` world (``parallel/``) the trainer runs on a
+("data", "model") mesh of the world's ranks, one device each, in the
+JAX package's four regimes: data parallel, channel tensor parallel
+(``n_model > 1``), spatial (``spatial=True``: the image height over
+"model", the U-Net) and FSDP (``fsdp=True``: large kernels and their
+Adam moments stored sharded over "data"), each computing what the
+one-process step computes. Every rank passes the same global batches;
+each keeps its rows (and band). The loss is the global masked mean: the
+valid-pixel count is summed over the ranks that hold other pixels, and
+each rank's gradient of its own pixels is summed after the backward.
+Every forward and backward runs under ``_forward_flags`` (cuDNN
+benchmark off, and TF32 off at fp32), so a training thread and a serving
+thread launch the same algorithms; the
 train step also takes cuDNN's deterministic algorithms, so two runs of
 the same steps end with the same parameters, as in the JAX package.
 ``remat=True`` recomputes the forward in the backward
@@ -24,6 +34,7 @@ checkpoints, single or in a managed directory, restore too
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import itertools
 import os
@@ -47,11 +58,14 @@ from ..models.quant import Int8Conv
 from ..models.segformer import SegFormerLite
 from ..models.unet import UNet, share_parameters
 from ..ops.augment import apply_augment, draw_augment
+from ..parallel.distributed import is_primary
+from ..parallel.sharding import make_mesh, shard_batch_local, shard_slice
+from ..parallel.spmd import (GradSync, all_gather, all_reduce, full_tensor,
+                             local_shard, norm_group, shard_model)
 from ..utils.profiling import duty
 from . import orbax
 from .optim import (AdamWState, adamw_init, adamw_update_,
                     clip_by_global_norm_, make_schedule)
-from .pool import sample_batch
 
 __all__ = ["CheckpointManager", "TrainConfig", "TrainState", "Trainer",
            "masked_miou", "masked_xent_loss", "normalize_images",
@@ -151,24 +165,32 @@ def masked_miou(pred: torch.Tensor, labels: torch.Tensor, num_classes: int,
 
 def masked_xent_loss(logits: torch.Tensor, labels: torch.Tensor,
                      nodata: int,
-                     class_weights: Optional[torch.Tensor] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     class_weights: Optional[torch.Tensor] = None,
+                     reduce=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Softmax cross-entropy over the pixels whose label is not
     ``nodata``; logits (..., K). Returns (mean loss, accuracy over valid
     pixels), float32. With ``class_weights`` (K,) the loss is
     sum(w[label] * nll) / sum(w[label]); a weight of 0 removes a class.
-    Accuracy stays unweighted."""
+    Accuracy stays unweighted. ``reduce`` sums a count over the ranks
+    that hold the batch's other pixels: the loss is then this rank's
+    numerator over the global denominator (the global mean's share of
+    this rank), and the accuracy global."""
     valid = labels != nodata
     safe = torch.where(valid, labels, 0).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
-    denom = valid.sum().clamp(min=1)
+    denom = valid.sum()
+    correct = (valid & (logits.argmax(-1) == safe)).sum()
+    if reduce is not None:
+        denom, correct = reduce(denom), reduce(correct)
+    denom = denom.clamp(min=1)
     if class_weights is not None:
         w = torch.where(valid, class_weights[safe], 0.0)
-        loss = -(w * ll).sum() / w.sum().clamp(min=1e-9)
+        wsum = w.sum() if reduce is None else reduce(w.sum())
+        loss = -(w * ll).sum() / wsum.clamp(min=1e-9)
     else:
         loss = -torch.where(valid, ll, 0.0).sum() / denom
-    acc = (valid & (logits.argmax(-1) == safe)).sum() / denom
+    acc = correct / denom
     return loss, acc
 
 
@@ -206,10 +228,7 @@ def _forward_flags(fp32: bool, deterministic: bool = False):
              matmul.allow_tf32) = saved
 
 
-_NOT_PORTED = {
-    "parallel": "model-axis, spatial and FSDP sharding are not ported "
-                "yet: ROADMAP queue 1 item 8 (parallel/)",
-}
+_ITEM_15 = "not ported yet: ROADMAP queue 1 item 15 (the rest of parallel/)"
 
 
 class CheckpointManager:
@@ -290,18 +309,22 @@ class CheckpointManager:
 
 
 class Trainer:
-    """Holds the model and its optimizer state on one device.
+    """Holds the model and its optimizer state on this rank's device.
 
-    ``Trainer(config, device=None)``: ``device=None`` is the CUDA card
-    (raises without one), ``device="cpu"`` the plain CPU run. Weights
-    are the seeded flax-scheme init (``config.seed``) until
-    ``load_flax_params``, a checkpoint, or ``model.load_state_dict``
-    replaces them. ``model`` trains; ``infer_model`` predicts and
-    evaluates: the model itself, or with ``quantize`` its int8 twin,
-    which holds the same parameter tensors (and, for ``int8-static``,
-    the calibrated ``act_amax`` buffers)."""
+    ``Trainer(config, device=None, mesh=None)``: ``device=None`` is the
+    rank's CUDA card (raises without one), ``device="cpu"`` the plain
+    CPU run; ``mesh=None`` is ``make_mesh(n_model=config.n_model)`` over
+    the world, or the one device outside a world. Weights are the
+    seeded flax-scheme init (``config.seed``, the same on every rank)
+    until ``load_flax_params``, a checkpoint, or
+    ``model.load_state_dict`` replaces them; on a mesh each parameter
+    the sharding rule shards holds this rank's shard
+    (``self.shardings``), and its Adam moments follow. ``model`` trains;
+    ``infer_model`` predicts and evaluates: the model itself, or with
+    ``quantize`` its int8 twin, which holds the same parameter tensors
+    (and, for ``int8-static``, the calibrated ``act_amax`` buffers)."""
 
-    def __init__(self, config: TrainConfig, device=None,
+    def __init__(self, config: TrainConfig, device=None, mesh=None,
                  _variant: Optional[Tuple[int, int]] = None):
         # _variant: the (s2d, model_features) a checkpoint migration
         # rebuilds as (_try_other_s2d_variant); not a public knob
@@ -330,10 +353,6 @@ class Trainer:
             raise ValueError(
                 f"quantize={config.quantize!r} currently supports "
                 f"model='unet' only (got {config.model!r})")
-        if config.n_model > 1 or config.spatial or config.fsdp:
-            raise NotImplementedError(
-                f"n_model={config.n_model}, spatial={config.spatial}, "
-                f"fsdp={config.fsdp}: " + _NOT_PORTED["parallel"])
         self._s2d_auto = config.s2d == 0 and _variant is None
         self.s2d, self.model_features = _variant or resolve_s2d(config)
         if self.s2d > 1 and config.model != "unet":
@@ -342,8 +361,29 @@ class Trainer:
         if self.s2d > 1 and config.image_size % self.s2d:
             raise ValueError(f"image_size {config.image_size} must divide "
                              f"by s2d {self.s2d}")
-        self.device = resolve_device(device)
-        self.model = self._build(False).to(self.device).eval()
+        self.mesh = mesh if mesh is not None else make_mesh(
+            n_model=config.n_model, device=device)
+        self.device = (self.mesh.device if device is None
+                       else resolve_device(device))
+        self._spatial = config.spatial and self.mesh.shape["model"] > 1
+        model = self._build(False)
+        if self._spatial:
+            self._check_spatial(model)
+        # the full-shape model (on the meta device in a world) through
+        # which flax trees and checkpoints map to parameter names
+        self._template = model
+        self.shardings = None
+        if self.mesh.size > 1:
+            self._template = copy.deepcopy(model).to("meta")
+            self.shardings = shard_model(model, self.mesh, config)
+            if config.quantize != "none" and (self._spatial or any(
+                    not s.is_fully_replicated
+                    for s in self.shardings.values())):
+                raise NotImplementedError(
+                    f"quantize={config.quantize!r} with sharded layers "
+                    f"(n_model={config.n_model}, spatial={config.spatial},"
+                    f" fsdp={config.fsdp}): " + _ITEM_15)
+        self.model = model.to(self.device).eval()
         self.infer_model = self.model
         if config.quantize != "none":
             # the int8 twin computes on the float model's parameter
@@ -356,6 +396,16 @@ class Trainer:
         self._calibrated = False
         params = dict(self.model.named_parameters())
         self.state = TrainState(0, params, adamw_init(params))
+        self._grad_sync = self._norm_groups = self._loss_group = None
+        if self.shardings is not None:
+            self._grad_sync = GradSync(self.mesh, self.shardings,
+                                       self._spatial)
+            groups = [norm_group(self.shardings[n]) for n in params]
+            if any(g is not None for g in groups):
+                self._norm_groups = groups
+            # the ranks whose pixels are the batch's others
+            self._loss_group = self.mesh.group(
+                "world" if self._spatial else "data")
         self.schedule = make_schedule(config)
         self._class_weights = (
             torch.tensor(config.class_weights, dtype=torch.float32,
@@ -366,6 +416,26 @@ class Trainer:
         self.wall_start = None
         self.examples_seen = 0
         self.scan_losses: List[float] = []
+        # the last step's global gradient norm before clipping (a device
+        # scalar; None without clipping). The clipped gradients stay in
+        # each parameter's .grad until the next step
+        self.grad_norm: Optional[torch.Tensor] = None
+
+    def _check_spatial(self, model: torch.nn.Module) -> None:
+        """A spatial step needs a model that names its ``spatial_layers``
+        (the U-Net), with every level's down conv and upsample local to a
+        band: each band's height a multiple of s2d * 2 ** levels."""
+        cfg, n = self.config, self.mesh.shape["model"]
+        if not hasattr(model, "spatial_layers"):
+            raise NotImplementedError(
+                f"spatial=True over {n} model ranks for model="
+                f"{cfg.model!r}: " + _ITEM_15)
+        unit = self.s2d * 2 ** cfg.levels
+        if cfg.image_size % n or (cfg.image_size // n) % unit:
+            raise NotImplementedError(
+                f"spatial=True: image_size {cfg.image_size} over {n} model "
+                f"ranks gives bands of {cfg.image_size / n:g} rows, not a "
+                f"multiple of s2d * 2**levels = {unit}: " + _ITEM_15)
 
     def _build(self, quant):
         """The config's model on the CPU, seeded init (``quant``: the
@@ -384,8 +454,14 @@ class Trainer:
     # -- state --------------------------------------------------------------
     def load_flax_params(self, params: Mapping) -> "Trainer":
         """Load the JAX package's flax param tree (nested dicts of numpy
-        arrays) into the model."""
-        params_from_flax(params, self.model)
+        arrays) into the model (each rank its shards)."""
+        if self.shardings is None:
+            params_from_flax(params, self.model)
+            return self
+        full = tensors_from_flax(params, self._template)
+        with torch.no_grad():
+            for n, t in self.state.params.items():
+                t.copy_(self._local(n, full[n]))
         return self
 
     def load_flax_quant(self, quant: Mapping) -> "Trainer":
@@ -401,8 +477,15 @@ class Trainer:
         """Continue a run of the JAX package: its optax AdamW state as
         numpy arrays becomes this trainer's optimizer state; the step is
         ``step``, or the state's count."""
-        self.state.opt_state = adamw_state_from_optax(
-            opt_state, self.model, self.device)
+        if self.shardings is None:
+            self.state.opt_state = adamw_state_from_optax(
+                opt_state, self.model, self.device)
+        else:
+            full = adamw_state_from_optax(opt_state, self._template)
+            self.state.opt_state = type(full)(
+                full.count,
+                *({n: self._local(n, t).to(self.device).contiguous()
+                   for n, t in d.items()} for d in (full.mu, full.nu)))
         self.state.step = (self.state.opt_state.count if step is None
                            else int(step))
         return self
@@ -410,13 +493,27 @@ class Trainer:
     # -- stepping -----------------------------------------------------------
     def place_batch(self, images, labels):
         """Host numpy batch -> (images, labels) tensors on the device:
-        pinned and copied with ``non_blocking`` on the card."""
-        def put(x):
-            t = torch.from_numpy(np.ascontiguousarray(x))
-            if self.device.type == "cuda":
-                t = t.pin_memory()
-            return t.to(self.device, non_blocking=True)
-        return put(images), put(labels)
+        this rank's rows (and, spatial, its band of image rows) of the
+        global batch, pinned and copied with ``non_blocking`` on the
+        card."""
+        return shard_batch_local(self.mesh, (images, labels),
+                                 spatial=self._spatial)
+
+    def _local(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a full tensor of parameter ``name``."""
+        if self.shardings is None:
+            return full
+        return local_shard(full, self.shardings[name])
+
+    def _full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The full tensor of this rank's shard of parameter ``name``
+        (every rank calls)."""
+        if self.shardings is None:
+            return t
+        return full_tensor(t, self.shardings[name])
+
+    def _count_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce(t, self._loss_group)
 
     def _step(self, images: torch.Tensor, labels: torch.Tensor):
         """Forward, backward and optimizer update on device tensors
@@ -436,27 +533,34 @@ class Trainer:
             # block, so the recompute takes the same algorithms
             logits = (_remat(self.model, x, use_reentrant=False)
                       if self.config.remat else self.model(x))
-            loss, acc = masked_xent_loss(logits.permute(0, 2, 3, 1), labels,
-                                         self.config.label_nodata,
-                                         self._class_weights)
+            loss, acc = masked_xent_loss(
+                logits.permute(0, 2, 3, 1), labels, self.config.label_nodata,
+                self._class_weights,
+                self._count_sum if self._loss_group is not None else None)
             loss.backward()
+        if self._grad_sync is not None:
+            self._grad_sync(st.params)
         grads = [p.grad for p in params]
         if self.config.grad_clip_norm > 0:
-            clip_by_global_norm_(grads, self.config.grad_clip_norm)
+            self.grad_norm = clip_by_global_norm_(
+                grads, self.config.grad_clip_norm, self._norm_groups)
         opt = st.opt_state
         opt.count = adamw_update_(
             params, grads, list(opt.mu.values()), list(opt.nu.values()),
             opt.count, self.schedule(opt.count), self.config.weight_decay)
         st.step += 1
-        return loss.detach(), acc
+        return all_reduce(loss.detach(), self._loss_group), acc
 
     def train_step_async(self, images, labels) -> Dict[str, torch.Tensor]:
         """One step without a host sync; returns the device metrics
         (read them only when reporting)."""
         if isinstance(images, np.ndarray):
+            n = images.shape[0]
             images, labels = self.place_batch(images, labels)
+        else:
+            n = images.shape[0] * self.mesh.shape["data"]
         loss, acc = self._step(normalize_images(images), labels)
-        self.examples_seen += images.shape[0]
+        self.examples_seen += n
         return {"loss": loss, "accuracy": acc}
 
     def train_step(self, images, labels) -> Dict[str, float]:
@@ -483,7 +587,9 @@ class Trainer:
 
         Each step draws the batch's pool indices (and, with ``augment``,
         the augmentation's draws) from a device ``torch.Generator``
-        seeded with ``seed``; ``draws`` replaces them with given draws,
+        seeded with ``seed`` (on a mesh every rank draws the global batch
+        and keeps its rows; a pool sharded over "data" fetches them
+        wherever they live); ``draws`` replaces them with given draws,
         one ``{"idx": (B,) indices, "augment": draw_augment's dict}`` per
         step. Every step's loss is appended to ``self.scan_losses``.
         ``refresh_feed`` yields (images, labels) host batches that
@@ -514,12 +620,16 @@ class Trainer:
                         gen, cfg.batch_size, geo, geo, geo,
                         cfg.augment_invert, cfg.augment_brightness,
                         cfg.augment_contrast) if augment else None)
-                images, labels = sample_batch(pool.images, pool.labels, idx)
+                rows = shard_slice(len(idx), "data", self.mesh)
+                images, labels = pool.take(idx[rows])
                 images = normalize_images(images)
                 if augment:
                     images, labels = apply_augment(
                         images, labels,
-                        {n: t.to(self.device) for n, t in aug.items()})
+                        {n: t[rows].to(self.device) for n, t in aug.items()})
+                if self._spatial:
+                    band = shard_slice(images.shape[1], "model", self.mesh)
+                    images, labels = images[:, band], labels[:, band]
                 loss, acc = self._step(images, labels)
                 losses.append(loss)
                 accs.append(acc)
@@ -635,6 +745,9 @@ class Trainer:
         image. Yields the logits of each chunk's real images. Uncalibrated
         int8-static first calibrates on a host batch of ``images``."""
         self._quant_arg(images if isinstance(images, np.ndarray) else None)
+        if self.mesh.size > 1:
+            yield from self._world_logits(images)
+            return
         x = self._to_device(images)
         bs = int(self.config.batch_size)
         for i in range(0, x.shape[0], bs):
@@ -644,6 +757,41 @@ class Trainer:
                 chunk = torch.cat([chunk, chunk.new_zeros(
                     (bs - n,) + tuple(chunk.shape[1:]))])
             yield self.logits(chunk)[:n]
+
+    def _world_logits(self, images):
+        """``_chunked_logits`` on a mesh: every rank passes the same
+        images; each chunk (batch_size rounded up to the data axis,
+        padded with zeros) is split into this rank's rows and band, and
+        the logits are gathered back, so every rank yields every
+        image's."""
+        if isinstance(images, torch.Tensor):
+            images = images.cpu().numpy()
+        nd = self.mesh.shape["data"]
+        bs = -(-int(self.config.batch_size) // nd) * nd
+        for i in range(0, images.shape[0], bs):
+            chunk = images[i:i + bs]
+            n = chunk.shape[0]
+            if n < bs:
+                chunk = np.concatenate([chunk, np.zeros(
+                    (bs - n,) + chunk.shape[1:], chunk.dtype)])
+            logits = self.logits(shard_batch_local(self.mesh, chunk,
+                                                   spatial=self._spatial))
+            if self._spatial:
+                logits = all_gather(logits, self.mesh.group("model"), 1)
+            yield all_gather(logits, self.mesh.group("data"), 0)[:n]
+
+    def _pad_to_data_axis(self, images: np.ndarray, labels: np.ndarray):
+        """A host batch padded to a multiple of the data axis, the padded
+        examples all zeros with ``label_nodata`` labels (they add nothing
+        to any masked sum), as the JAX package pads."""
+        pad = (-images.shape[0]) % self.mesh.shape["data"]
+        if pad:
+            images = np.concatenate([images, np.zeros(
+                (pad,) + images.shape[1:], images.dtype)])
+            labels = np.concatenate([labels, np.full(
+                (pad,) + labels.shape[1:], self.config.label_nodata,
+                labels.dtype)])
+        return images, labels
 
     def predict_both(self, images) -> Tuple[np.ndarray, np.ndarray]:
         """(class map int32 (N, H, W), probabilities float32 (N, H, W,
@@ -698,9 +846,13 @@ class Trainer:
         over an iterator of (images, labels), through ``infer_model``
         (uncalibrated int8-static calibrates on the first batch): the
         sums and the confusion matrix accumulate on the device over all
-        batches and are read once. (The JAX package pads each host batch
-        to its mesh's data axis with nodata labels; on one device that
-        is a no-op.)"""
+        batches and are read once. On a mesh every rank passes the same
+        host batches; each is padded to the data axis with nodata labels
+        (as the JAX package pads), each rank sums its rows (and band), the
+        sums are added over the ranks once at the end, and every rank
+        returns the same metrics. The ranks agree before each batch that
+        each of them has one, so iterators of unequal lengths stop at the
+        shortest instead of leaving a rank waiting in a collective."""
         if self.config.quantize == "int8-static" and not self._calibrated:
             # calibrate on the first batch; an empty iterable gives empty
             # metrics (the JAX package raises there)
@@ -713,16 +865,29 @@ class Trainer:
         cm = torch.zeros((K, K), dtype=torch.int64, device=self.device)
         sums = torch.zeros(3, dtype=torch.float64, device=self.device)
         n_batches = 0
-        for i, (images, labels) in enumerate(batches):
-            if max_batches is not None and i >= max_batches:
+        batches = iter(batches)
+        world = self.mesh.group("world")
+        while max_batches is None or n_batches < max_batches:
+            item = next(batches, None)
+            if world is not None:
+                have = torch.tensor([item is not None], dtype=torch.int32,
+                                    device=self.device)
+                if not all_reduce(have, world, torch.distributed.ReduceOp
+                                  .MIN).item():
+                    break
+            if item is None:
                 break
+            images, labels = item
             if isinstance(images, np.ndarray):
-                images, labels = self.place_batch(images, labels)
+                images, labels = self.place_batch(
+                    *self._pad_to_data_axis(images, labels))
             ls, cor, nv, c = self._eval_sums(images, labels)
             # float64 like the JAX package's host sum of float32 losses
             sums += torch.stack([ls.double(), cor.double(), nv.double()])
             cm += c
             n_batches += 1
+        sums = all_reduce(sums, self._loss_group)
+        cm = all_reduce(cm, self._loss_group)
         loss_sum, correct, n_valid = sums.tolist()
         total_cm = cm.cpu().numpy()
         tp = np.diag(total_cm).astype(np.float64)
@@ -765,10 +930,12 @@ class Trainer:
 
     # -- checkpoints ----------------------------------------------------------
     def _payload(self) -> dict:
+        """The state as full CPU tensors (on a mesh every rank calls: the
+        shards are gathered)."""
         st = self.state
 
         def cpu(d):
-            return {n: t.detach().cpu() for n, t in d.items()}
+            return {n: self._full(n, t.detach()).cpu() for n, t in d.items()}
         return {"params": cpu(st.params),
                 "opt_state": {"count": st.opt_state.count,
                               "mu": cpu(st.opt_state.mu),
@@ -776,21 +943,24 @@ class Trainer:
                 "step": st.step, "model": self.config.model}
 
     def _load_payload(self, payload: dict) -> None:
+        """Load full tensors; on a mesh each rank keeps its shards (the
+        restore re-shards onto the live mesh)."""
         st = self.state
+        shapes = {n: p.shape for n, p in self._template.named_parameters()}
         trees = [(payload["params"], st.params),
                  (payload["opt_state"]["mu"], st.opt_state.mu),
                  (payload["opt_state"]["nu"], st.opt_state.nu)]
         for src, dst in trees:
             bad = sorted(n for n in set(src) | set(dst)
                          if n not in src or n not in dst
-                         or src[n].shape != dst[n].shape)
+                         or src[n].shape != shapes[n])
             if bad:
                 raise ValueError(f"checkpoint does not match the model's "
                                  f"parameters: {bad[:4]}")
         with torch.no_grad():
             for src, dst in trees:
                 for n, t in dst.items():
-                    t.copy_(src[n])
+                    t.copy_(self._local(n, src[n]))
         st.opt_state.count = int(payload["opt_state"]["count"])
         st.step = int(payload["step"])
 
@@ -800,19 +970,17 @@ class Trainer:
         place. A gs:// / s3:// path is saved to a local file of the same
         name (torch names the archive's records after the file, so the
         object's bytes equal a local save's), then uploaded: one atomic
-        object creation."""
-        if storage.is_remote(path):
-            import tempfile
-            with tempfile.TemporaryDirectory() as d:
-                local = os.path.join(d, storage.basename(path))
-                self.save_checkpoint(local)
-                storage.upload_file(local, path)
-            return
-        path = os.path.abspath(path)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = f"{path}.tmp"
-        torch.save(self._payload(), tmp)
-        os.replace(tmp, path)
+        object creation. On a mesh every rank calls: the shards are
+        gathered, the primary writes the full arrays, and every rank
+        returns once the file is in place."""
+        payload = self._payload()
+        if is_primary():
+            _write_payload(payload, path)
+        self._barrier()
+
+    def _barrier(self) -> None:
+        if self.mesh.size > 1:
+            torch.distributed.barrier()
 
     def orbax_tree(self) -> dict:
         """The state as the JAX ``Trainer``'s checkpoint tree (flax
@@ -820,9 +988,13 @@ class Trainer:
         schedule, an int32 step), numpy arrays on the host: what
         ``train/orbax.py:write_checkpoint`` writes for the JAX package."""
         cfg = self.config
-        return {"params": flax_from_tensors(self.state.params, self.model),
+        full = self._payload()
+        opt = type(self.state.opt_state)(self.state.opt_state.count,
+                                         full["opt_state"]["mu"],
+                                         full["opt_state"]["nu"])
+        return {"params": flax_from_tensors(full["params"], self._template),
                 "opt_state": optax_from_adamw(
-                    self.state.opt_state, self.model, cfg.grad_clip_norm > 0,
+                    opt, self._template, cfg.grad_clip_norm > 0,
                     cfg.schedule == "cosine" or cfg.warmup_steps > 0),
                 "step": np.asarray(self.state.step, np.int32)}
 
@@ -830,8 +1002,8 @@ class Trainer:
         """Load a tree of ``orbax.read_checkpoint``; s2d migration as for
         ``.pt`` files."""
         try:
-            params = tensors_from_flax(tree["params"], self.model)
-            opt = adamw_state_from_optax(tree["opt_state"], self.model)
+            params = tensors_from_flax(tree["params"], self._template)
+            opt = adamw_state_from_optax(tree["opt_state"], self._template)
         except ValueError as e:
             if not self._try_other_s2d_variant(e):
                 raise
@@ -878,8 +1050,10 @@ class Trainer:
     def save_managed(self, manager: CheckpointManager) -> int:
         step = int(self.state.step)
         self.save_checkpoint(manager.path(step))
-        manager.prune()
-        manager.sync()
+        if is_primary():
+            manager.prune()
+            manager.sync()
+        self._barrier()
         return step
 
     def restore_latest(self, manager: CheckpointManager) -> Optional[int]:
@@ -914,6 +1088,24 @@ class Trainer:
               f"features={self.model_features} parameter tree "
               f"({type(err).__name__}); retrying as the s2d={s2d}/"
               f"features={feats} variant")
-        self.__init__(self.config, device=self.device, _variant=(s2d, feats))
+        self.__init__(self.config, device=self.device, mesh=self.mesh,
+                      _variant=(s2d, feats))
         self._s2d_untried = rest
         return True
+
+
+def _write_payload(payload: dict, path: str) -> None:
+    """``torch.save`` to ``path.tmp``, renamed into place; a gs:// / s3://
+    path through a local file of the same name, then uploaded."""
+    if storage.is_remote(path):
+        import tempfile
+        with tempfile.TemporaryDirectory() as d:
+            local = os.path.join(d, storage.basename(path))
+            _write_payload(payload, local)
+            storage.upload_file(local, path)
+        return
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)

@@ -407,12 +407,10 @@ def test_eval_predict_geotiff_and_serve(seq, tmp_path):
 
 
 NOT_PORTED = [
+    # ported (parallel/): in one process a model axis of 2 names the
+    # world it needs
     (["train", "--records", "x", "--mode", "tifarr", "--n-model", "2"],
-     NotImplementedError, "item 8"),
-    (["train", "--records", "x", "--mode", "tifarr", "--spatial"],
-     NotImplementedError, "item 8"),
-    (["train", "--records", "x", "--mode", "tifarr", "--fsdp"],
-     NotImplementedError, "item 8"),
+     ValueError, "needs a world of 2 processes"),
     # ported (JPEG 2000): a path without GRANULE/ is refused as the JAX
     # package refuses it
     (["ingest-safe", "--catalog", "c", "--safe", "s"], FileNotFoundError,
@@ -644,6 +642,32 @@ def test_train_remat_equals_train(seq, tmp_path):
     assert out["remat"][0] == out["plain"][0] and out["plain"][0]
     for n, p in out["plain"][1]["params"].items():
         assert torch.equal(out["remat"][1]["params"][n], p), n
+
+
+@pytest.mark.parametrize("flag", ["--spatial", "--fsdp"])
+def test_spatial_and_fsdp_train_like_plain_in_one_process(seq, tmp_path,
+                                                         flag):
+    """train --spatial and train --fsdp in one process (a mesh of one
+    rank: nothing to shard) log the losses of a plain train and save its
+    parameters, bitwise (replace the NOT_PORTED --spatial and --fsdp
+    cases)."""
+    work, _ = seq
+    out = {}
+    for name, extra in (("plain", []), ("flag", [flag])):
+        ckpt = str(tmp_path / f"{name}.pt")
+        rc, lines = run(tcli, ["train", "--records",
+                               os.path.join(work, "port-recs", "mumbai-*"),
+                               "--mode", "tifarr", *MODEL, "--steps", "2",
+                               "--log-every", "1", "--workers", "1",
+                               "--checkpoint", ckpt, "--device", "cpu",
+                               *extra])
+        assert rc == 0
+        out[name] = ([re.search(r"loss=\S+ acc=\S+", ln).group(0)
+                      for ln in lines if ln.startswith("step")],
+                     torch.load(ckpt, weights_only=True))
+    assert out["flag"][0] == out["plain"][0] and len(out["plain"][0]) == 2
+    for n, p in out["plain"][1]["params"].items():
+        assert torch.equal(out["flag"][1]["params"][n], p), n
 
 
 def test_orbax_checkpoints_through_the_cli(seq, tmp_path, monkeypatch):

@@ -525,3 +525,38 @@ def test_local_catalog_export_card_equals_cpu(tmp_path, batch_tiles):
             for n in sorted(os.listdir(os.path.join(folder, sub)))}
     assert len(trees["cpu"]) == 2 * len(jobs)
     assert trees["cuda"] == trees["cpu"]
+
+
+def test_nccl_world_of_one_bf16_step_is_the_plain_step(monkeypatch):
+    """A NCCL world of one (``initialize()`` from COORDINATOR_ADDRESS,
+    DLSEG_NUM_PROCESSES=1, DLSEG_PROCESS_ID=0; ``Trainer(mesh=None)``)
+    takes bf16 steps bitwise the plain trainer's at full width
+    (TrainConfig defaults with 10 classes, batch 8)."""
+    _need_card()
+    import socket
+    import torch.distributed as dist
+    from dl_image_segmentation_tpu_torch.parallel import initialize
+    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+    cfg = TrainConfig(num_classes=10, batch_size=8)
+    rng = np.random.RandomState(4)
+    x = rng.randint(0, 256, (8, 256, 256, 3)).astype(np.uint8)
+    y = rng.randint(0, 10, (8, 256, 256)).astype(np.int32)
+    y[:2] = 255
+    plain = Trainer(cfg)
+    want = [plain.train_step(x, y)["loss"] for _ in range(2)]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("COORDINATOR_ADDRESS", f"127.0.0.1:{port}")
+    monkeypatch.setenv("DLSEG_NUM_PROCESSES", "1")
+    monkeypatch.setenv("DLSEG_PROCESS_ID", "0")
+    initialize()
+    try:
+        assert dist.get_backend() == "nccl"
+        t = Trainer(cfg)
+        got = [t.train_step(x, y)["loss"] for _ in range(2)]
+    finally:
+        dist.destroy_process_group()
+    assert got == want
+    assert [n for n, p in plain.state.params.items()
+            if not torch.equal(t.state.params[n], p)] == []

@@ -252,9 +252,13 @@ def test_train_config_fields_equal_jax():
      "model='unet' only"),
     ({"model": "segformer", "quantize": "int8-static"}, ValueError,
      "model='unet' only"),
-    ({"n_model": 2}, NotImplementedError, "queue 1 item 8"),
-    ({"spatial": True}, NotImplementedError, "queue 1 item 8"),
-    ({"fsdp": True}, NotImplementedError, "queue 1 item 8"),
+    # parallel/ is ported: in one process a model axis names the world
+    # it needs, alone or with spatial or FSDP
+    ({"n_model": 2}, ValueError, "needs a world of 2 processes"),
+    ({"n_model": 3, "spatial": True}, ValueError,
+     "needs a world of 3 processes"),
+    ({"n_model": 4, "fsdp": True}, ValueError,
+     "needs a world of 4 processes"),
     ({"model": "resnet"}, ValueError, "unknown model"),
     ({"quantize": "int4"}, ValueError, "unknown quantize"),
     ({"precision": "fp16"}, ValueError, "unknown precision"),

@@ -367,7 +367,9 @@ print("ok", "PIL" in sys.modules)
             "records.parsers_tf", "utils.profiling", "utils.viz",
             "raster.cf", "raster.netcdf", "raster.vrt", "raster.envi",
             "raster.hdf4", "raster.grib", "raster.nitf",
-            "raster.gpkg_raster", "raster.hdf5")}
+            "raster.gpkg_raster", "raster.hdf5", "parallel",
+            "parallel.distributed", "parallel.sharding", "parallel.spmd",
+            "parallel.dryrun")}
         assert training <= set(mods), sorted(training - set(mods))
         code = f"""
 import sys, importlib, importlib.abc
