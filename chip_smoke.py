@@ -246,6 +246,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    parameters and Adam moments (FSDP's below DP's), step ms and the
    leaves TP and FSDP shard. No hand-written kernel is on this path.
 
+15. the JPEG, BMP and JPEG 2000 variants (``codec_variants_phase``,
+   after phase 9), on the committed fixtures of ``tests/data/{jpeg,bmp,
+   jp2}`` (128 px RGB chips and small edge cases): (a) each decodes on
+   the card's host bitwise to its ``.npz`` (the JAX package's decode,
+   written where PIL is), or raises its class and message prefix; the
+   block-smoothed progressive file is refused naming ROADMAP item 6;
+   (b) the six decodable RGB chips (progressive, arithmetic sequential
+   and progressive, lossless JPEG, RLE8 BMP, sYCC 4:2:0 JP2; the MT
+   engine lists .png/.jpg names and sniffs the container) with PNG
+   labels go through ``cli.main``: ``to-tfrecords --engine mt`` (rgbraw
+   payloads == the files, CRCs checked), the first rgbraw batch == the
+   ``.npz`` pixels, ``train`` from those shards at the TrainConfig
+   defaults with 4 classes and 128 px, 5 bf16 steps (finite, falling
+   loss); (c) a PredictServer on the card answers each variant as an
+   HTTP body with the class map of ``predict`` of its ``.npz`` pixels,
+   which is also its answer to a PNG body of those pixels, and a CMYK
+   JPEG body gets the JAX server's 400; (d) decode MP/s on one host
+   thread of each 128 px variant beside the baseline JPEG decode of the
+   same pixels (the port's quality-90 encode), the RLE8 chip also beside
+   an uncompressed 8-bit BMP of its indices, and a train step fed from
+   the variant shards (batch 32, bf16, ms). K1-K3 launch 0 times.
+
 The second-to-last line is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script
 exits non-zero and prints no result.
@@ -260,6 +282,7 @@ import math
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2403,6 +2426,221 @@ def codec_phase(smi, tmp, share):
     return out
 
 
+CODEC_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "data")
+# the decodable RGB chips of phase 15, as (folder, file)
+VARIANT_CHIPS = [("jpeg", "progressive.jpg"), ("jpeg", "arith.jpg"),
+                 ("jpeg", "arith-progressive.jpg"), ("jpeg", "lossless.jpg"),
+                 ("bmp", "rle8.bmp"), ("jp2", "sycc-420.jp2")]
+
+
+def codec_variants_phase(smi, tmp):
+    """Phase 15: the JPEG, BMP and JPEG 2000 variants (see the module
+    docstring), on the committed fixtures."""
+    import glob
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+    import torch
+    from dl_image_segmentation_tpu_torch import kernels
+    from dl_image_segmentation_tpu_torch.pipeline.input import TFRecordFeed
+    from dl_image_segmentation_tpu_torch.raster.image import (
+        decode_image, decode_image_bytes, encode_jpeg, encode_png)
+    from dl_image_segmentation_tpu_torch.records.proto import decode_example
+    from dl_image_segmentation_tpu_torch.records.tfrecord import read_records
+    from dl_image_segmentation_tpu_torch.serve import (
+        PredictServer, make_http_server, scale_image)
+    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+
+    log(f"phase 15: JPEG, BMP and JPEG 2000 variants ({smi})")
+    os.makedirs(tmp, exist_ok=True)
+    for c in kernels.COUNTERS:
+        c.reset()
+    out = {"seconds": {}, "card": smi}
+    secs = out["seconds"]
+    # (a) every fixture against its .npz
+    paths = sorted(p for sub in ("jpeg", "bmp", "jp2")
+                   for p in glob.glob(os.path.join(CODEC_DATA, sub, "*"))
+                   if not p.endswith((".npz", ".c")))
+    if len(paths) < 30:
+        raise AssertionError(f"{len(paths)} codec fixtures in {CODEC_DATA}")
+    decoded = refused = 0
+    for path in paths:
+        with open(path, "rb") as f:
+            data = f.read()
+        ref = np.load(path.rsplit(".", 1)[0] + ".npz")
+        name = os.path.basename(path)
+        try:
+            got, err = decode_image_bytes(data).array, None
+        except Exception as e:  # noqa: BLE001 -- the outcome is compared
+            got, err = None, (type(e).__name__, str(e).split(";")[0])
+        if name == "smoothing.jpg":
+            if err is None or err[0] != "UnsupportedFormatError" or \
+                    "item 6" not in err[1]:
+                raise AssertionError(f"{name}: {err}")
+            refused += 1
+        elif "array" in ref.files:
+            want = ref["array"]
+            if got is None or got.dtype != want.dtype or \
+                    not np.array_equal(got, want):
+                raise AssertionError(f"{name}: decode != its .npz ({err})")
+            decoded += 1
+        else:
+            want = (str(ref["error_class"]), str(ref["error_prefix"]))
+            if err != want:
+                raise AssertionError(f"{name}: {err} != the JAX outcome "
+                                     f"{want}")
+            refused += 1
+    out["fixtures"] = {"decoded": decoded, "refused": refused}
+    log(f"  {decoded} fixtures decode bitwise to their .npz, {refused} "
+        "raise the JAX package's class and prefix (one, block smoothing, "
+        "names item 6)")
+    # (b) a chip folder of the six RGB variants through cli.main
+    chips = os.path.join(tmp, "chips")
+    pix = {}
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(chips, sub))
+    rng = np.random.RandomState(15)
+    for i, (sub, name) in enumerate(VARIANT_CHIPS):
+        with open(os.path.join(CODEC_DATA, sub, name), "rb") as f:
+            data = f.read()
+        arr = np.load(os.path.join(CODEC_DATA, sub,
+                                   name.rsplit(".", 1)[0] + ".npz"))["array"]
+        stem = f"128#2#10.0#43#{i}#3512"
+        pix[stem.replace("#", ":")] = (name, data, arr)
+        lbl = np.zeros(arr.shape[:2], np.uint8)
+        lbl[arr[:, :, 0] > 128] = 1
+        lbl[arr[:, :, 1] > 128] += 2
+        for folder, body in (("images", data), ("labels", encode_png(lbl))):
+            with open(os.path.join(chips, folder, f"{stem}.jpg"), "wb") as f:
+                f.write(body)
+    shards = os.path.join(tmp, "shards")
+    cli_run(["to-tfrecords", "--name", "v", "--directory", chips, "--out",
+             shards, "--shards", "2", "--workers", "2", "--engine", "mt"],
+            secs, "to-tfrecords mt variants")
+    recs = [decode_example(r) for f in sorted(glob.glob(
+        os.path.join(shards, "v-*"))) for r in read_records(f,
+                                                            verify_crc=True)]
+    if len(recs) != len(VARIANT_CHIPS):
+        raise AssertionError(f"{len(recs)} records")
+    for d in recs:
+        key = d["identifier"].bytes_list[0].decode()
+        if d["image/image_data"].bytes_list[0] != pix[key][1]:
+            raise AssertionError(f"rgbraw {pix[key][0]}: payload != file")
+    pattern = os.path.join(shards, "v-*")
+    x, _ = next(iter(TFRecordFeed(pattern, "rgbraw", len(VARIANT_CHIPS),
+                                  image_size=128, scale="raw", seed=5,
+                                  num_workers=1, shuffle_buffer=1)))
+    want = sorted(a.astype(np.float32).tobytes() for _, _, a in pix.values())
+    got = sorted(np.asarray(x[i], np.float32).tobytes()
+                 for i in range(len(VARIANT_CHIPS)))
+    if got != want:
+        raise AssertionError("the first rgbraw batch != the .npz pixels")
+    mlog = os.path.join(tmp, "train.jsonl")
+    ckpt = os.path.join(tmp, "variants.pt")
+    cli_run(["train", "--records", pattern, "--classes", "4",
+             "--image-size", "128", "--steps", "5", "--log-every", "1",
+             "--workers", "1", "--metrics-log", mlog, "--checkpoint", ckpt],
+            secs, "train variants")
+    ls = [json.loads(ln)["loss"] for ln in open(mlog)]
+    if len(ls) != 5 or not all(math.isfinite(v) for v in ls) or \
+            not ls[-1] < ls[0]:
+        raise AssertionError(f"train from the variant shards: losses {ls}")
+    out["losses"] = ls
+    log(f"  to-tfrecords --engine mt: 6 rgbraw payloads == the files, CRCs "
+        f"checked; first batch == the .npz pixels; train (bf16, 128 px, 4 "
+        f"classes): loss {ls[0]:.4f} -> {ls[-1]:.4f} in 5 steps")
+    # (c) the variants as request bodies
+    trainer = Trainer(TrainConfig(num_classes=4, batch_size=8,
+                                  image_size=128))
+    trainer.restore_checkpoint(ckpt)
+    ps = PredictServer(trainer)
+    httpd = make_http_server("127.0.0.1", 0, ps)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}/predict"
+
+    def post(body):
+        req = urllib.request.Request(base, data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return np.load(io.BytesIO(r.read()))
+    try:
+        t0 = time.perf_counter()
+        names = [n for n, _, _ in pix.values()]
+        arrays = [a for _, _, a in pix.values()]
+        want = trainer.predict(np.stack([scale_image(a, "auto")
+                                         for a in arrays]))
+        for i, (name, data, arr) in enumerate(pix.values()):
+            got = post(data)
+            png = post(encode_png(arr))
+            if not (np.array_equal(got, want[i]) and
+                    np.array_equal(png, want[i])):
+                raise AssertionError(f"served {name} != predict of its "
+                                     ".npz pixels (or of its PNG body)")
+        with open(os.path.join(CODEC_DATA, "jpeg", "cmyk.jpg"), "rb") as f:
+            cmyk = f.read()
+        try:
+            post(cmyk)
+            raise AssertionError("a CMYK JPEG body was answered 200")
+        except urllib.error.HTTPError as e:
+            text = e.read()
+            if e.code != 400 or b"expected 3-band raster" not in text:
+                raise AssertionError(f"CMYK body: HTTP {e.code} {text!r}")
+        secs["serve 6 variants + 6 PNG + CMYK"] = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        thread.join(timeout=30)
+        ps.close()
+    del trainer, ps
+    torch.cuda.empty_cache()
+    log(f"  serve: {', '.join(names)} and PNG bodies of their pixels == "
+        "predict of the .npz pixels; CMYK JPEG -> 400 (as the JAX server)")
+    # (d) decode rates on one host thread
+    rates = {}
+    for name, data, arr in pix.values():
+        n, dt_ = rate(decode_image, [data], min_s=0.3)
+        base_jpg = encode_jpeg(arr, 90)
+        nb, dtb = rate(decode_image, [base_jpg], min_s=0.3)
+        mp = arr.shape[0] * arr.shape[1] / 1e6
+        rates[name] = {"mp_per_s": n * mp / dt_,
+                       "baseline_jpeg_q90_mp_per_s": nb * mp / dtb}
+        rates[name]["ratio"] = (rates[name]["mp_per_s"] /
+                                rates[name]["baseline_jpeg_q90_mp_per_s"])
+    # the RLE8 chip beside an uncompressed 8-bit BMP of its indices (the
+    # palette maps each index to one colour)
+    name, data, arr = next(v for v in pix.values() if v[0] == "rle8.bmp")
+    off = struct.unpack("<I", data[10:14])[0]
+    pal = np.frombuffer(data[54:off], np.uint8).reshape(-1, 4)[:, 2::-1]
+    keys = pal.astype(np.int64) @ np.array([65536, 256, 1])
+    order = np.argsort(keys)
+    flat = arr.reshape(-1, 3).astype(np.int64) @ np.array([65536, 256, 1])
+    idx = order[np.searchsorted(keys[order], flat)].astype(np.uint8)
+    h, w = arr.shape[:2]
+    body = np.flipud(idx.reshape(h, w)).tobytes()  # w % 4 == 0: no padding
+    raw8 = data[:2] + struct.pack("<I", off + len(body)) + data[6:30] + \
+        struct.pack("<I", 0) + data[34:off] + body
+    if not np.array_equal(decode_image(raw8), arr):
+        raise AssertionError("the uncompressed BMP of the RLE8 chip's "
+                             "indices decodes to other pixels")
+    n, dt_ = rate(decode_image, [raw8], min_s=0.3)
+    rates["rle8.bmp"]["uncompressed_8bit_bmp_mp_per_s"] = n * h * w / 1e6 / dt_
+    out["decode"] = rates
+    log("  decode MP/s on one host thread (128 px RGB; beside the baseline "
+        "q90 JPEG of the same pixels): " + "; ".join(
+            f"{k} {v['mp_per_s']:.2f} vs {v['baseline_jpeg_q90_mp_per_s']:.2f}"
+            f" ({v['ratio']:.2f}x)" for k, v in rates.items()) + "; RLE8 "
+        "beside its uncompressed 8-bit BMP "
+        f"{rates['rle8.bmp']['uncompressed_8bit_bmp_mp_per_s']:.2f}; {smi}")
+    out["fed_step_ms"] = fed_step_ms(pattern, "rgbraw", 128, steps=10)
+    log(f"  fed train step from the variant shards (batch 32, bf16, 128 "
+        f"px, 4 parse threads): {out['fed_step_ms']:.4f} ms; {smi}")
+    out["launches"] = {c.name: c.count for c in kernels.COUNTERS}
+    if any(out["launches"].values()):
+        raise AssertionError(f"phase 15 launched a kernel: {out['launches']}")
+    return out
+
+
 # A 64 x 48 RGB codestream PIL wrote with the 9/7 wavelet, the ICT and
 # one layer at rate 12 (OpenJPEG 2.5.4), and the SHA-256 of PIL's decode
 # of it: the float path's bits on the card's host, which has no PIL.
@@ -4346,6 +4584,9 @@ def main() -> int:
         codecs = codec_phase(smi, os.path.join(work, "codecs"), share)
         log(f"  codec_phase: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        variants = codec_variants_phase(smi, os.path.join(work, "variants"))
+        log(f"  codec_variants_phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         safe = safe_phase(smi, os.path.join(work, "safe"), share)
         log(f"  safe_phase: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -4380,7 +4621,8 @@ def main() -> int:
                 "10": safe["launches"][c.name],
                 "12": containers["launches"][c.name],
                 "13": hdf5["launches"][c.name],
-                "14": world["launches"][c.name]},
+                "14": world["launches"][c.name],
+                "15": variants["launches"][c.name]},
             "equal": all(r["equal"] for r in cases),
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "ms": main_case["ms"], "wrapper_ms": main_case["wrapper_ms"],
@@ -4394,6 +4636,7 @@ def main() -> int:
     log(json.dumps({"cli": cli}))
     log(json.dumps({"remote": remote}))
     log(json.dumps({"codecs": codecs}))
+    log(json.dumps({"codec_variants": variants}))
     log(json.dumps({"safe": safe}))
     log(json.dumps({"orbax": orbax_ck}))
     log(json.dumps({"containers": containers}))

@@ -18,7 +18,8 @@
 // on the reference grid, Annex B.12), precincts, every code-block style
 // flag (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM), derived and
 // expounded quantisation, the 5/3 and 9/7 inverse DWT with odd start
-// coordinates, RCT and ICT. Components must not be subsampled.
+// coordinates, RCT and ICT. Subsampled components (XRsiz/YRsiz > 1)
+// decode at their own extent through fc_j2k_decode_planes.
 //
 // Every size read from a header is checked before it is allocated or
 // indexed: request bodies are untrusted.
@@ -30,6 +31,11 @@
 //   fc_j2k_decode(cs, n, out, elem_size, out_elems, err, errlen) -> 0
 //     out is (height, width, components), each sample clamped to its
 //     component's range and stored in elem_size bytes (1, 2 or 4).
+//     Components must not be subsampled.
+//   fc_j2k_decode_planes(cs, n, out, elem_size, out_elems, err, errlen)
+//     -> 0: each component at its own extent (ceil(Xsiz / XRsiz) -
+//     ceil(XOsiz / XRsiz) by the same in y), one plane after the other,
+//     as above.
 
 #include <algorithm>
 #include <cmath>
@@ -1023,10 +1029,17 @@ struct Decoder {
             t.data.insert(t.data.end(), cs + r.pos, cs + data_end);
             ++t.parts;
             r.pos = part_end;
-            if (r.pos + 2 > n) break;  // no EOC: tolerated
+            if (psot == 0) break;  // the tile-part ran to the EOC
+            // opj_j2k_decode_tile reads the marker after a tile's data:
+            // fewer than 2 bytes there is "Stream too short", and a marker
+            // other than SOT or EOC is tolerated only as the last 2 bytes
+            if (r.pos + 2 > n) fail(kCorrupt, "Stream too short (no EOC after the last tile-part)");
             uint32_t m = r.u16();
             if (m == 0xFFD9) break;
-            if (m != 0xFF90) fail(kCorrupt, "expected SOT or EOC, found 0x%04x", m);
+            if (m != 0xFF90) {
+                if (r.pos == n) break;  // "Stream does not end with EOC", a warning
+                fail(kCorrupt, "expected SOT or EOC, found 0x%04x", m);
+            }
         }
         for (TileData& t : tiles) {
             if (!t.ppt_parts.empty()) {
@@ -1522,7 +1535,7 @@ struct Decoder {
 
     // --------------------------------------------------------- decode
 
-    void decode_tile(int tileno, uint8_t* out, int es) {
+    void decode_tile(int tileno, uint8_t* out, int es, bool planar = false) {
         TileData& td = tiles[tileno];
         if (!td.seen) fail(kCorrupt, "tile %d has no tile-part", tileno);
         const Coding& cd = td.coding;
@@ -1597,7 +1610,9 @@ struct Decoder {
                 if (idata[c].size() + fdata[c].size() != n0 ||
                     tcs[c].x1 - tcs[c].x0 != tcs[0].x1 - tcs[0].x0)
                     same = false;
-            if (same) {
+            // opj_tcd_mct_decode refuses components of other sizes
+            if (!same) fail(kCorrupt, "Tiles don't all have the same dimension (component transform)");
+            {
                 bool rev = cd.cc[0].qmfbid == 1;
                 for (int c = 1; c < 3; ++c)
                     if ((cd.cc[c].qmfbid == 1) != rev)
@@ -1627,9 +1642,12 @@ struct Decoder {
         }
         // DC level shift, clamp, store
         int W = int(img.xsiz - img.x0);
+        size_t plane_off = 0;
         for (int c = 0; c < ncomp; ++c) {
             const Comp& cp = img.comps[c];
             TileComp& tc = tcs[c];
+            const int64_t cx0 = ceildiv(img.x0, cp.dx), cy0 = ceildiv(img.y0, cp.dy);
+            const int64_t cw = ceildiv(img.xsiz, cp.dx) - cx0, ch = ceildiv(img.ysiz, cp.dy) - cy0;
             int w = int(tc.x1 - tc.x0), h = int(tc.y1 - tc.y0);
             int64_t lo, hi, shift;
             if (cp.sgnd) {
@@ -1643,7 +1661,8 @@ struct Decoder {
             }
             bool rev = cd.cc[c].qmfbid == 1;
             for (int y = 0; y < h; ++y) {
-                size_t orow = size_t(tc.y0 - img.y0 + y) * W + size_t(tc.x0 - img.x0);
+                size_t orow = planar ? plane_off + size_t(tc.y0 - cy0 + y) * cw + size_t(tc.x0 - cx0)
+                                     : size_t(tc.y0 - img.y0 + y) * W + size_t(tc.x0 - img.x0);
                 for (int x = 0; x < w; ++x) {
                     int64_t v;
                     if (rev) {
@@ -1655,7 +1674,7 @@ struct Decoder {
                         else v = int64_t(std::lrint(f)) + shift;
                     }
                     v = std::max(lo, std::min(hi, v));
-                    size_t oi = (orow + x) * ncomp + c;
+                    size_t oi = planar ? orow + x : (orow + x) * ncomp + c;
                     if (es == 1) out[oi] = uint8_t(v);
                     else if (es == 2) {
                         uint16_t s = uint16_t(v);
@@ -1666,6 +1685,7 @@ struct Decoder {
                     }
                 }
             }
+            plane_off += size_t(cw) * size_t(ch);
         }
     }
 
@@ -1728,6 +1748,34 @@ int fc_j2k_decode(const uint8_t* cs, uint64_t n, void* out, int elem_size, uint6
                                     (unsigned long long)out_elems, (unsigned long long)need);
         if (elem_size != 1 && elem_size != 2 && elem_size != 4) fail(kCorrupt, "element size %d", elem_size);
         for (size_t t = 0; t < d.tiles.size(); ++t) d.decode_tile(int(t), static_cast<uint8_t*>(out), elem_size);
+        return 0;
+    } catch (const J2KError& e) {
+        return report(e, err, errlen);
+    } catch (const std::bad_alloc&) {
+        return report(J2KError{"out of memory", kCorrupt}, err, errlen);
+    } catch (const std::length_error&) {
+        return report(J2KError{"size out of range", kCorrupt}, err, errlen);
+    }
+}
+
+// Each component at its own extent, one plane after the other (the
+// samples fc_j2k_decode gives, for subsampled files too).
+int fc_j2k_decode_planes(const uint8_t* cs, uint64_t n, void* out, int elem_size, uint64_t out_elems,
+                         char* err, int errlen) {
+    try {
+        Decoder d;
+        d.cs = cs;
+        d.n = size_t(n);
+        d.parse();
+        uint64_t need = 0;
+        for (const Comp& c : d.img.comps)
+            need += uint64_t(ceildiv(d.img.xsiz, c.dx) - ceildiv(d.img.x0, c.dx)) *
+                    uint64_t(ceildiv(d.img.ysiz, c.dy) - ceildiv(d.img.y0, c.dy));
+        if (out_elems != need) fail(kCorrupt, "output holds %llu samples, image %llu",
+                                    (unsigned long long)out_elems, (unsigned long long)need);
+        if (elem_size != 1 && elem_size != 2 && elem_size != 4) fail(kCorrupt, "element size %d", elem_size);
+        for (size_t t = 0; t < d.tiles.size(); ++t)
+            d.decode_tile(int(t), static_cast<uint8_t*>(out), elem_size, true);
         return 0;
     } catch (const J2KError& e) {
         return report(e, err, errlen);

@@ -1,20 +1,27 @@
-// Baseline JPEG decoder and encoder, built with g++ at first use and
+// JPEG decoder and baseline encoder, built with g++ at first use and
 // called through ctypes (raster/jpeg.py), which releases the GIL.
 //
 // Both follow libjpeg-turbo's default paths step for step, so that the
-// decoder's pixels equal those of PIL's default decode (libjpeg-turbo:
+// decoder's pixels equal those of PIL's default decode (libjpeg-turbo 3:
 // islow IDCT, fancy upsampling, integer YCbCr->RGB) bit for bit, and the
 // encoder's bytes equal PIL's `save(format="JPEG", quality=q)`:
 //
 //   decode  markers as jdmarker.c reads them (fill bytes, APP0 JFIF and
-//           APP14 Adobe detection, DRI/RSTn and jpeg_resync_to_restart),
-//           Huffman decoding as jdhuff.c (standard tables for a missing
-//           table 0/1, zeros after an early marker), jidctint.c's
-//           jpeg_idct_islow with its range-limit table, the upsampler
-//           jdsample.c:jinit_upsampler picks per component (h2v1, h1v2 and
-//           h2v2 triangle filters, box replication) with jdmainct.c's
-//           edge rows, jdcolor.c's tables, and the colour space guess of
-//           jdapimin.c:default_decompress_parms.
+//           APP14 Adobe detection, DRI/RSTn and jpeg_resync_to_restart,
+//           DAC), Huffman decoding as jdhuff.c (its 57-bit read-ahead and
+//           8-bit lookahead, standard tables for a missing table 0/1,
+//           zeros after an early marker), progressive scans as jdphuff.c
+//           (DC first and refine, AC first and refine with EOB runs),
+//           arithmetic decoding as jdarith.c (T.81 Annex D's QM coder,
+//           sequential and progressive, statistics reset at restarts),
+//           lossless frames as jdlhuff.c, jddiffct.c and jdlossls.c
+//           (predictors 1-7, point transform, restarts at MCU rows),
+//           jidctint.c's jpeg_idct_islow with its range-limit table, the
+//           upsampler jdsample.c:jinit_upsampler picks per component
+//           (h2v1, h1v2 and h2v2 triangle filters, box replication; box
+//           only for lossless frames) with jdmainct.c's edge rows,
+//           jdcolor.c's tables (YCbCr->RGB, YCCK->CMYK), and the colour
+//           space guess of jdapimin.c:default_decompress_parms.
 //   encode  jcparam.c's quality scaling with force_baseline, jccolor.c's
 //           RGB->YCbCr tables, jcsample.c's h2v2 downsampler with its
 //           alternating bias and jcprepct.c's edge replication,
@@ -23,11 +30,14 @@
 //           jccoefct.c's dummy blocks, and jchuff.c's standard tables,
 //           byte stuffing and 1-bit padding; markers in jcmarker.c's order.
 //
-// Scope of the decoder: SOF0/SOF1, 8-bit, 1 or 3 components, any
-// sampling factors libjpeg-turbo accepts, one or several sequential
-// scans. Progressive, arithmetic, lossless, hierarchical and 12-bit
-// frames and 2 or 4 components return kUnsupported. Every read is
-// bounded by the data length.
+// Scope of the decoder: what PIL opens, 8-bit frames of 1, 3 or 4
+// components (SOF0-3, SOF9, SOF10), any sampling factors libjpeg-turbo
+// accepts. Where PIL refuses a file, so does the decoder, with kCorrupt:
+// other precisions, 2 or more than 4 components, hierarchical frames,
+// arithmetic lossless, colour conversion of a lossless frame, and an
+// arithmetic scan past the 64 KiB blocks PIL feeds libjpeg. A
+// progressive file that libjpeg-turbo would block-smooth returns
+// kUnsupported. Every read is bounded by the data length.
 
 #include <algorithm>
 #include <cstdint>
@@ -164,7 +174,7 @@ struct HuffTable {          // jdhuff.c d_derived_tbl
     JLONG valoffset[18];
 };
 
-bool derive(HuffTable& t, bool is_dc) {
+bool derive(HuffTable& t, bool is_dc, bool lossless = false) {
     int huffsize[257];
     unsigned huffcode[257];
     int p = 0;
@@ -196,9 +206,9 @@ bool derive(HuffTable& t, bool is_dc) {
     }
     t.valoffset[17] = 0;
     t.maxcode[17] = 0xFFFFFL;
-    if (is_dc)
+    if (is_dc)  // 0..15 in lossy frames, 0..16 in lossless ones
         for (int i = 0; i < numsymbols; ++i)
-            if (t.huffval[i] > 15) return false;
+            if (t.huffval[i] > (lossless ? 16 : 15)) return false;
     return true;
 }
 
@@ -224,7 +234,86 @@ struct Component {
     int dw = 0, dh = 0;           // downsampled width / height
     std::vector<int16_t> coef;    // bw * bh blocks of 64, natural order
     int last_dc = 0;
+    int coef_bits[64];            // jdphuff.c: -1 until a scan sends it
+    // lossless: bw * bh samples, and the undifferencer's state
+    std::vector<uint8_t> samples;
+    std::vector<uint16_t> undiff;  // the previous row (jddiffct.c undiff_buf)
+    bool first_row = true;
+    // arithmetic decoding state of this component in the current scan
+    int dc_context = 0;
 };
+
+// jaricom.c: T.81 Table D.2, as (Qe << 16) | (Next_Index_MPS << 8) |
+// (Switch_MPS << 7) | Next_Index_LPS; the last entry is the fixed 0.5
+// estimate of T.851 that sign bits and refinements use
+#define V(i, a, b, c, d) ((JLONG(a) << 16) | (JLONG(c) << 8) | (JLONG(d) << 7) | (b))
+const JLONG kAritab[114] = {
+    V(0, 0x5a1d, 1, 1, 1),       V(1, 0x2586, 14, 2, 0),
+    V(2, 0x1114, 16, 3, 0),      V(3, 0x080b, 18, 4, 0),
+    V(4, 0x03d8, 20, 5, 0),      V(5, 0x01da, 23, 6, 0),
+    V(6, 0x00e5, 25, 7, 0),      V(7, 0x006f, 28, 8, 0),
+    V(8, 0x0036, 30, 9, 0),      V(9, 0x001a, 33, 10, 0),
+    V(10, 0x000d, 35, 11, 0),    V(11, 0x0006, 9, 12, 0),
+    V(12, 0x0003, 10, 13, 0),    V(13, 0x0001, 12, 13, 0),
+    V(14, 0x5a7f, 15, 15, 1),    V(15, 0x3f25, 36, 16, 0),
+    V(16, 0x2cf2, 38, 17, 0),    V(17, 0x207c, 39, 18, 0),
+    V(18, 0x17b9, 40, 19, 0),    V(19, 0x1182, 42, 20, 0),
+    V(20, 0x0cef, 43, 21, 0),    V(21, 0x09a1, 45, 22, 0),
+    V(22, 0x072f, 46, 23, 0),    V(23, 0x055c, 48, 24, 0),
+    V(24, 0x0406, 49, 25, 0),    V(25, 0x0303, 51, 26, 0),
+    V(26, 0x0240, 52, 27, 0),    V(27, 0x01b1, 54, 28, 0),
+    V(28, 0x0144, 56, 29, 0),    V(29, 0x00f5, 57, 30, 0),
+    V(30, 0x00b7, 59, 31, 0),    V(31, 0x008a, 60, 32, 0),
+    V(32, 0x0068, 62, 33, 0),    V(33, 0x004e, 63, 34, 0),
+    V(34, 0x003b, 32, 35, 0),    V(35, 0x002c, 33, 9, 0),
+    V(36, 0x5ae1, 37, 37, 1),    V(37, 0x484c, 64, 38, 0),
+    V(38, 0x3a0d, 65, 39, 0),    V(39, 0x2ef1, 67, 40, 0),
+    V(40, 0x261f, 68, 41, 0),    V(41, 0x1f33, 69, 42, 0),
+    V(42, 0x19a8, 70, 43, 0),    V(43, 0x1518, 72, 44, 0),
+    V(44, 0x1177, 73, 45, 0),    V(45, 0x0e74, 74, 46, 0),
+    V(46, 0x0bfb, 75, 47, 0),    V(47, 0x09f8, 77, 48, 0),
+    V(48, 0x0861, 78, 49, 0),    V(49, 0x0706, 79, 50, 0),
+    V(50, 0x05cd, 48, 51, 0),    V(51, 0x04de, 50, 52, 0),
+    V(52, 0x040f, 50, 53, 0),    V(53, 0x0363, 51, 54, 0),
+    V(54, 0x02d4, 52, 55, 0),    V(55, 0x025c, 53, 56, 0),
+    V(56, 0x01f8, 54, 57, 0),    V(57, 0x01a4, 55, 58, 0),
+    V(58, 0x0160, 56, 59, 0),    V(59, 0x0125, 57, 60, 0),
+    V(60, 0x00f6, 58, 61, 0),    V(61, 0x00cb, 59, 62, 0),
+    V(62, 0x00ab, 61, 63, 0),    V(63, 0x008f, 61, 32, 0),
+    V(64, 0x5b12, 65, 65, 1),    V(65, 0x4d04, 80, 66, 0),
+    V(66, 0x412c, 81, 67, 0),    V(67, 0x37d8, 82, 68, 0),
+    V(68, 0x2fe8, 83, 69, 0),    V(69, 0x293c, 84, 70, 0),
+    V(70, 0x2379, 86, 71, 0),    V(71, 0x1edf, 87, 72, 0),
+    V(72, 0x1aa9, 87, 73, 0),    V(73, 0x174e, 72, 74, 0),
+    V(74, 0x1424, 72, 75, 0),    V(75, 0x119c, 74, 76, 0),
+    V(76, 0x0f6b, 74, 77, 0),    V(77, 0x0d51, 75, 78, 0),
+    V(78, 0x0bb6, 77, 79, 0),    V(79, 0x0a40, 77, 48, 0),
+    V(80, 0x5832, 80, 81, 1),    V(81, 0x4d1c, 88, 82, 0),
+    V(82, 0x438e, 89, 83, 0),    V(83, 0x3bdd, 90, 84, 0),
+    V(84, 0x34ee, 91, 85, 0),    V(85, 0x2eae, 92, 86, 0),
+    V(86, 0x299a, 93, 87, 0),    V(87, 0x2516, 86, 71, 0),
+    V(88, 0x5570, 88, 89, 1),    V(89, 0x4ca9, 95, 90, 0),
+    V(90, 0x44d9, 96, 91, 0),    V(91, 0x3e22, 97, 92, 0),
+    V(92, 0x3824, 99, 93, 0),    V(93, 0x32b4, 99, 94, 0),
+    V(94, 0x2e17, 93, 86, 0),    V(95, 0x56a8, 95, 96, 1),
+    V(96, 0x4f46, 101, 97, 0),   V(97, 0x47e5, 102, 98, 0),
+    V(98, 0x41cf, 103, 99, 0),   V(99, 0x3c3d, 104, 100, 0),
+    V(100, 0x375e, 99, 93, 0),   V(101, 0x5231, 105, 102, 0),
+    V(102, 0x4c0f, 106, 103, 0), V(103, 0x4639, 107, 104, 0),
+    V(104, 0x415e, 103, 99, 0),  V(105, 0x5627, 105, 106, 1),
+    V(106, 0x50e7, 108, 107, 0), V(107, 0x4b85, 109, 103, 0),
+    V(108, 0x5597, 110, 109, 0), V(109, 0x504f, 111, 107, 0),
+    V(110, 0x5a10, 110, 111, 1), V(111, 0x5522, 112, 109, 0),
+    V(112, 0x59eb, 112, 111, 1), V(113, 0x5a1d, 113, 113, 0)};
+#undef V
+
+// PIL feeds libjpeg 64 KiB at a time (ImageFile.MAXBLOCK), and libjpeg's
+// arithmetic decoder cannot suspend (jdarith.c:get_byte): an arithmetic
+// scan that needs a byte past the data PIL has handed over so far fails
+// with "broken data stream". The port fails where PIL does.
+const uint64_t kPilBlock = 65536;
+
+enum Coding { kSeqHuff, kProgHuff, kLossless, kSeqArith, kProgArith };
 
 struct Decoder {
     const uint8_t* data;
@@ -236,6 +325,8 @@ struct Decoder {
     bool saw_sof = false, saw_jfif = false, saw_adobe = false;
     int adobe_transform = 0;
     int precision = 8, width = 0, height = 0, ncomp = 0;
+    int coding = kSeqHuff;
+    int unit = 8;                 // samples per block side (1: lossless)
     int max_h = 1, max_v = 1;
     int mcus_per_row = 0, mcu_rows = 0;
     int restart_interval = 0;
@@ -243,15 +334,41 @@ struct Decoder {
     uint16_t qt[4][64];
     bool qt_defined[4] = {false, false, false, false};
     HuffTable dc[4], ac[4];
+    // jdmarker.c: DAC conditioning, and its defaults
+    uint8_t arith_dc_L[16], arith_dc_U[16], arith_ac_K[16];
+    int scans = 0;
+    bool multi_scan = false;      // jdinput.c: has_multiple_scans
 
     // bit reader
     uint64_t bitbuf = 0;
     int bits_left = 0;
     bool insufficient = false;
 
+    // arithmetic decoder (jdarith.c)
+    JLONG ac_c = 0, ac_a = 0;
+    int ac_ct = 0;
+    uint8_t dc_stats[16][64], ac_stats[16][256];
+    uint8_t fixed_bin[1] = {113};  // jdarith.c: the fixed 0.5 estimate
+    uint64_t limit = kPilBlock;   // the bytes PIL has handed over
+    bool arith_short = false;     // an arithmetic scan ran past them
+
+    Decoder() {
+        for (int i = 0; i < 16; ++i) {
+            arith_dc_L[i] = 0;
+            arith_dc_U[i] = 1;
+            arith_ac_K[i] = 5;
+        }
+    }
+
     int fail(int code, const char* msg) {
         if (err.empty()) err = msg;
         return code;
+    }
+
+    // the marker reader suspends when PIL's data ends inside a marker
+    // segment; PIL then hands over its next 64 KiB
+    void touch(uint64_t end) {
+        while (end > limit) limit += kPilBlock;
     }
 
     // jdmarker.c:next_marker: skip to the next marker code. false when
@@ -274,13 +391,17 @@ struct Decoder {
         return true;
     }
 
-    // ---- bit reader (jdhuff.c jpeg_fill_bit_buffer semantics)
+    // ---- bit reader (jdhuff.c jpeg_fill_bit_buffer semantics). A fill
+    // reads ahead to 57 bits (MIN_GET_BITS of a 64-bit buffer) or to a
+    // marker, and runs when a code needs more bits than are buffered or
+    // fewer than 8 (HUFF_LOOKAHEAD) remain; where the data ends first,
+    // libjpeg suspends and PIL, with nothing more to hand over, reports a
+    // truncated file. Past a marker it reads zero bits.
     bool fill(int nbits) {
-        while (bits_left < nbits) {
-            int c = 0;
-            if (unread_marker == 0) {
+        if (unread_marker == 0) {
+            while (bits_left < 57) {
                 if (pos >= n) return false;
-                c = data[pos++];
+                int c = data[pos++];
                 if (c == 0xFF) {
                     do {
                         if (pos >= n) return false;
@@ -290,17 +411,18 @@ struct Decoder {
                         c = 0xFF;
                     } else {
                         unread_marker = c;
-                        continue;
+                        break;
                     }
                 }
                 bitbuf = (bitbuf << 8) | uint64_t(c);
                 bits_left += 8;
-            } else {
-                // past a marker: fake zero bits, as libjpeg does
-                insufficient = true;
-                bitbuf <<= 8;
-                bits_left += 8;
             }
+            if (unread_marker == 0) return true;
+        }
+        if (nbits > bits_left) {
+            insufficient = true;
+            bitbuf <<= 57 - bits_left;
+            bits_left = 57;
         }
         return true;
     }
@@ -313,9 +435,26 @@ struct Decoder {
         return true;
     }
 
+    // jdhuff.h HUFF_DECODE: an 8-bit lookahead, then jpeg_huff_decode
     inline bool decode_sym(const HuffTable& t, int& sym) {
-        int l = 1, code;
-        if (!get_bits(1, code)) return false;
+        int l = 1;
+        if (bits_left < 8) {
+            if (!fill(0)) return false;
+        }
+        if (bits_left >= 8) {
+            int look = int((bitbuf >> (bits_left - 8)) & 0xFF);
+            for (; l <= 8; ++l)
+                if (JLONG(look >> (8 - l)) <= t.maxcode[l]) break;
+            if (l <= 8) {
+                bits_left -= l;
+                JLONG idx = JLONG(look >> (8 - l)) + t.valoffset[l];
+                sym = (idx >= 0 && idx < 256) ? t.huffval[idx] : 0;
+                return true;
+            }
+            l = 9;  // a longer code: jpeg_huff_decode from 9 bits
+        }
+        int code;
+        if (!get_bits(l, code)) return false;
         while (l <= 16 && JLONG(code) > t.maxcode[l]) {
             int b;
             if (!get_bits(1, b)) return false;
@@ -361,10 +500,297 @@ struct Decoder {
         return true;
     }
 
+    // ---- progressive Huffman (jdphuff.c); kCorrupt on a DC overflow
+    int Ss = 0, Se = 63, Ah = 0, Al = 0;
+    unsigned eobrun = 0;
+
+    int dc_first(Component& c, int16_t* block) {
+        int s, r;
+        if (!decode_sym(dc[c.dc_tbl], s)) return kTruncated;
+        if (s) {
+            if (!get_bits(s, r)) return kTruncated;
+            s = extend(r, s);
+        }
+        if ((c.last_dc >= 0 && s > INT32_MAX - c.last_dc) ||
+            (c.last_dc < 0 && s < INT32_MIN - c.last_dc))
+            return fail(kCorrupt, "bogus DCT coefficient (DC overflow)");
+        s += c.last_dc;
+        c.last_dc = s;
+        block[0] = int16_t(unsigned(s) << Al);
+        return kOk;
+    }
+
+    bool dc_refine(int16_t* block) {
+        int b;
+        if (!get_bits(1, b)) return false;
+        if (b) block[0] = int16_t(block[0] | (1 << Al));
+        return true;
+    }
+
+    bool ac_first(const HuffTable& t, int16_t* block) {
+        if (eobrun > 0) { --eobrun; return true; }
+        for (int k = Ss; k <= Se; ++k) {
+            int s, r;
+            if (!decode_sym(t, s)) return false;
+            r = s >> 4;
+            s &= 15;
+            if (s) {
+                k += r;
+                int v;
+                if (!get_bits(s, v)) return false;
+                block[kNatural[k]] = int16_t(unsigned(extend(v, s)) << Al);
+            } else if (r == 15) {
+                k += 15;
+            } else {
+                eobrun = 1u << r;
+                if (r) {
+                    if (!get_bits(r, r)) return false;
+                    eobrun += r;
+                }
+                --eobrun;
+                break;
+            }
+        }
+        return true;
+    }
+
+    bool ac_refine(const HuffTable& t, int16_t* block) {
+        const int p1 = 1 << Al, m1 = int(unsigned(-1) << Al);
+        int k = Ss;
+        auto correct = [&](int16_t& coef) -> bool {
+            int b;
+            if (!get_bits(1, b)) return false;
+            if (b && (coef & p1) == 0)
+                coef = int16_t(coef >= 0 ? coef + p1 : coef + m1);
+            return true;
+        };
+        if (eobrun == 0) {
+            for (; k <= Se; ++k) {
+                int s, r;
+                if (!decode_sym(t, s)) return false;
+                r = s >> 4;
+                s &= 15;
+                if (s) {
+                    int b;
+                    if (!get_bits(1, b)) return false;
+                    s = b ? p1 : m1;
+                } else if (r != 15) {
+                    eobrun = 1u << r;
+                    if (r) {
+                        if (!get_bits(r, r)) return false;
+                        eobrun += r;
+                    }
+                    break;
+                }
+                do {
+                    int16_t& coef = block[kNatural[k]];
+                    if (coef != 0) {
+                        if (!correct(coef)) return false;
+                    } else if (--r < 0) {
+                        break;
+                    }
+                    ++k;
+                } while (k <= Se);
+                if (s) block[kNatural[k]] = int16_t(s);
+            }
+        }
+        if (eobrun > 0) {
+            for (; k <= Se; ++k) {
+                int16_t& coef = block[kNatural[k]];
+                if (coef != 0 && !correct(coef)) return false;
+            }
+            --eobrun;
+        }
+        return true;
+    }
+
+    // ---- arithmetic decoding (jdarith.c); an error sets ac_ct = -1
+    int arith_byte() {
+        if (pos >= limit || pos >= n) {
+            arith_short = true;   // libjpeg: JERR_CANT_SUSPEND
+            return 0;
+        }
+        return data[pos++];
+    }
+
+    int arith_decode(uint8_t* st) {
+        while (ac_a < 0x8000L) {
+            if (--ac_ct < 0) {
+                int d;
+                if (unread_marker) {
+                    d = 0;
+                } else {
+                    d = arith_byte();
+                    if (d == 0xFF) {
+                        do d = arith_byte();
+                        while (d == 0xFF && !arith_short);
+                        if (d == 0) {
+                            d = 0xFF;
+                        } else {
+                            unread_marker = d;
+                            d = 0;
+                        }
+                    }
+                }
+                ac_c = (ac_c << 8) | d;
+                if ((ac_ct += 8) < 0)
+                    if (++ac_ct == 0) ac_a = 0x8000L;
+            }
+            ac_a <<= 1;
+        }
+        int sv = *st;
+        JLONG qe = kAritab[sv & 0x7F];
+        uint8_t nl = uint8_t(qe & 0xFF);
+        qe >>= 8;
+        uint8_t nm = uint8_t(qe & 0xFF);
+        qe >>= 8;
+        JLONG temp = ac_a - qe;
+        ac_a = temp;
+        temp <<= ac_ct;
+        if (ac_c >= temp) {
+            ac_c -= temp;
+            if (ac_a < qe) {
+                ac_a = qe;
+                *st = uint8_t((sv & 0x80) ^ nm);
+            } else {
+                ac_a = qe;
+                *st = uint8_t((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            }
+        } else if (ac_a < 0x8000L) {
+            if (ac_a < qe) {
+                *st = uint8_t((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            } else {
+                *st = uint8_t((sv & 0x80) ^ nm);
+            }
+        }
+        return sv >> 7;
+    }
+
+    // Figures F.19-F.24: a DC difference with its conditioning; false on
+    // a magnitude overflow
+    bool arith_dc_diff(Component& c, int& v) {
+        int tbl = c.dc_tbl;
+        uint8_t* st = dc_stats[tbl] + c.dc_context;
+        v = 0;
+        if (arith_decode(st) == 0) {
+            c.dc_context = 0;
+            return true;
+        }
+        int sign = arith_decode(st + 1);
+        st += 2 + sign;
+        int m = arith_decode(st);
+        if (m != 0) {
+            st = dc_stats[tbl] + 20;
+            while (arith_decode(st)) {
+                if ((m <<= 1) == 0x8000) return false;
+                st += 1;
+            }
+        }
+        if (m < int((1L << arith_dc_L[tbl]) >> 1))
+            c.dc_context = 0;
+        else if (m > int((1L << arith_dc_U[tbl]) >> 1))
+            c.dc_context = 12 + sign * 4;
+        else
+            c.dc_context = 4 + sign * 4;
+        v = m;
+        st += 14;
+        while (m >>= 1)
+            if (arith_decode(st)) v |= m;
+        v += 1;
+        if (sign) v = -v;
+        return true;
+    }
+
+    // AC coefficients Ss..Se of a first (or sequential) pass; false on
+    // a spectral or magnitude overflow
+    bool arith_ac(int tbl, int16_t* block, int from, int to, int shift) {
+        for (int k = from; k <= to; ++k) {
+            uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+            if (arith_decode(st)) break;
+            while (arith_decode(st + 1) == 0) {
+                st += 3;
+                if (++k > to) return false;
+            }
+            int sign = arith_decode(fixed_bin);
+            st += 2;
+            int m = arith_decode(st);
+            if (m != 0 && arith_decode(st)) {
+                m <<= 1;
+                st = ac_stats[tbl] + (k <= arith_ac_K[tbl] ? 189 : 217);
+                while (arith_decode(st)) {
+                    if ((m <<= 1) == 0x8000) return false;
+                    st += 1;
+                }
+            }
+            int v = m;
+            st += 14;
+            while (m >>= 1)
+                if (arith_decode(st)) v |= m;
+            v += 1;
+            if (sign) v = -v;
+            block[kNatural[k]] = int16_t(unsigned(v) << shift);
+        }
+        return true;
+    }
+
+    bool arith_ac_refine(int tbl, int16_t* block) {
+        const int p1 = 1 << Al, m1 = int(unsigned(-1) << Al);
+        int kex;
+        for (kex = Se; kex > 0; --kex)
+            if (block[kNatural[kex]]) break;
+        for (int k = Ss; k <= Se; ++k) {
+            uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+            if (k > kex && arith_decode(st)) break;
+            for (;;) {
+                int16_t& coef = block[kNatural[k]];
+                if (coef) {
+                    if (arith_decode(st + 2))
+                        coef = int16_t(coef < 0 ? coef + m1 : coef + p1);
+                    break;
+                }
+                if (arith_decode(st + 1)) {
+                    coef = int16_t(arith_decode(fixed_bin) ? m1 : p1);
+                    break;
+                }
+                st += 3;
+                if (++k > Se) return false;
+            }
+        }
+        return true;
+    }
+
+    void arith_reset(Component* const* sc, int ns) {
+        for (int i = 0; i < ns; ++i) {
+            Component& c = *sc[i];
+            if (coding != kProgArith || (Ss == 0 && Ah == 0)) {
+                memset(dc_stats[c.dc_tbl], 0, 64);
+                c.last_dc = 0;
+                c.dc_context = 0;
+            }
+            if (coding != kProgArith || Ss) memset(ac_stats[c.ac_tbl], 0, 256);
+        }
+        ac_c = 0;
+        ac_a = 0;
+        ac_ct = -16;
+    }
+
     // jdmarker.c:read_restart_marker + jpeg_resync_to_restart
     bool process_restart(int& next_restart) {
         bits_left = 0;
-        if (unread_marker == 0 && !next_marker()) return false;
+        if (unread_marker == 0) {
+            uint64_t from = pos;
+            if (!next_marker()) return false;
+            if (coding == kSeqArith || coding == kProgArith) {
+                // inside an arithmetic scan PIL cannot hand over more data
+                if (pos > limit) {
+                    pos = from;
+                    arith_short = true;
+                    return false;
+                }
+            }
+        }
         if (unread_marker == 0xD0 + next_restart) {
             unread_marker = 0;
         } else {
@@ -398,20 +824,32 @@ struct Decoder {
         ncomp = data[pos + 5];
         pos += 6;
         if (saw_sof) return fail(kCorrupt, "duplicate SOF marker");
-        if (marker != 0xC0 && marker != 0xC1)
-            return fail(kUnsupported, "not a baseline or extended sequential "
-                        "Huffman frame (progressive, lossless, hierarchical "
-                        "or arithmetic-coded)");
+        // PIL opens 8-bit frames of 1, 3 or 4 components, and libjpeg
+        // decodes none of the hierarchical frames or arithmetic lossless
         if (precision != 8)
-            return fail(kUnsupported, "a sample precision other than 8 bits");
-        if (height <= 0 || width <= 0 || ncomp <= 0)
+            return fail(kCorrupt, "a sample precision other than 8 bits "
+                        "(PIL: cannot handle it)");
+        if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+            return fail(kCorrupt, "a JPEG of neither 1, 3 nor 4 components "
+                        "(PIL: cannot handle it)");
+        switch (marker) {
+            case 0xC0: case 0xC1: coding = kSeqHuff; break;
+            case 0xC2: coding = kProgHuff; break;
+            case 0xC3: coding = kLossless; break;
+            case 0xC9: coding = kSeqArith; break;
+            case 0xCA: coding = kProgArith; break;
+            case 0xCB:
+                return fail(kCorrupt, "arithmetic-coded lossless frame "
+                            "(libjpeg: arithmetic coding is not implemented)");
+            default:
+                return fail(kCorrupt, "hierarchical (differential) frame "
+                            "(libjpeg: unsupported marker type)");
+        }
+        unit = coding == kLossless ? 1 : 8;
+        if (height <= 0 || width <= 0)
             return fail(kCorrupt, "empty JPEG image (DNL not supported)");
         if (length - 8 != ncomp * 3)
             return fail(kCorrupt, "bogus SOF marker length");
-        if (ncomp != 1 && ncomp != 3)
-            return fail(kUnsupported, ncomp == 4
-                        ? "4-component (CMYK / YCCK) JPEG"
-                        : "a JPEG of neither 1 nor 3 components");
         if (pos + 3 * uint64_t(ncomp) > n) return fail(kTruncated, "truncated SOF");
         for (int ci = 0; ci < ncomp; ++ci) {
             c = data[pos];
@@ -428,6 +866,7 @@ struct Decoder {
             comp[ci].h = (data[pos + 1] >> 4) & 15;
             comp[ci].v = data[pos + 1] & 15;
             comp[ci].tq = data[pos + 2];
+            for (int k = 0; k < 64; ++k) comp[ci].coef_bits[k] = -1;
             pos += 3;
             if (comp[ci].h < 1 || comp[ci].h > 4 || comp[ci].v < 1 ||
                 comp[ci].v > 4)
@@ -446,12 +885,13 @@ struct Decoder {
             if (comp[ci].h > max_h) max_h = comp[ci].h;
             if (comp[ci].v > max_v) max_v = comp[ci].v;
         }
-        mcus_per_row = (width + 8 * max_h - 1) / (8 * max_h);
-        mcu_rows = (height + 8 * max_v - 1) / (8 * max_v);
+        const int u = unit;
+        mcus_per_row = (width + u * max_h - 1) / (u * max_h);
+        mcu_rows = (height + u * max_v - 1) / (u * max_v);
         for (int ci = 0; ci < ncomp; ++ci) {
             Component& c = comp[ci];
-            c.width_in_blocks = int((JLONG(width) * c.h + 8 * max_h - 1) / (8 * max_h));
-            c.height_in_blocks = int((JLONG(height) * c.v + 8 * max_v - 1) / (8 * max_v));
+            c.width_in_blocks = int((JLONG(width) * c.h + u * max_h - 1) / (u * max_h));
+            c.height_in_blocks = int((JLONG(height) * c.v + u * max_v - 1) / (u * max_v));
             c.dw = int((JLONG(width) * c.h + max_h - 1) / max_h);
             c.dh = int((JLONG(height) * c.v + max_v - 1) / max_v);
             c.bw = mcus_per_row * c.h;
@@ -505,6 +945,55 @@ struct Decoder {
         return kOk;
     }
 
+    // jdmarker.c:get_dac
+    int read_dac(int length) {
+        uint64_t end = pos + length;
+        while (pos + 2 <= end) {
+            int index = data[pos], val = data[pos + 1];
+            pos += 2;
+            if (index >= 32) return fail(kCorrupt, "bogus DAC index");
+            if (index >= 16) {
+                arith_ac_K[index - 16] = uint8_t(val);
+            } else {
+                arith_dc_L[index] = uint8_t(val & 0x0F);
+                arith_dc_U[index] = uint8_t(val >> 4);
+                if (arith_dc_L[index] > arith_dc_U[index])
+                    return fail(kCorrupt, "bogus DAC value");
+            }
+        }
+        if (pos != end) return fail(kCorrupt, "bogus DAC marker length");
+        return kOk;
+    }
+
+    int huff_table(bool is_dc, int tbl) {
+        HuffTable& t = is_dc ? dc[tbl] : ac[tbl];
+        if (!t.defined) {
+            if (tbl > 1) return fail(kCorrupt, "Huffman table not defined");
+            std_table(t, is_dc, tbl);
+        }
+        if (!derive(t, is_dc, is_dc && coding == kLossless))
+            return fail(kCorrupt, "bogus Huffman table definition");
+        return kOk;
+    }
+
+    // jdphuff.c / jdarith.c start_pass: the progression checks, and the
+    // coefficient bits each scan leaves behind
+    int progressive_pass(Component* const* sc, int ns) {
+        bool bad = false;
+        if (Ss == 0) {
+            if (Se != 0) bad = true;
+        } else {
+            if (Ss > Se || Se > 63) bad = true;
+            if (ns != 1) bad = true;
+        }
+        if (Ah != 0 && Al != Ah - 1) bad = true;
+        if (Al > 13) bad = true;
+        if (bad) return fail(kCorrupt, "invalid progressive parameters");
+        for (int i = 0; i < ns; ++i)
+            for (int k = Ss; k <= Se; ++k) sc[i]->coef_bits[k] = Al;
+        return kOk;
+    }
+
     // one scan: returns kOk with the marker that ended it in unread_marker
     int read_scan(int length) {
         if (!saw_sof) return fail(kCorrupt, "SOS before SOF");
@@ -513,6 +1002,8 @@ struct Decoder {
         int ns = data[pos];
         if (length != ns * 2 + 4 || ns < 1 || ns > 4)
             return fail(kCorrupt, "bogus SOS marker length");
+        const bool arith = coding == kSeqArith || coding == kProgArith;
+        const bool progressive = coding == kProgHuff || coding == kProgArith;
         Component* sc[4];
         int ids[4];
         for (int i = 0; i < ns; ++i) {
@@ -531,35 +1022,61 @@ struct Decoder {
             if (!sc[i]) return fail(kCorrupt, "invalid component ID in SOS");
             sc[i]->dc_tbl = (t >> 4) & 15;
             sc[i]->ac_tbl = t & 15;
-            if (sc[i]->dc_tbl > 3 || sc[i]->ac_tbl > 3)
+            if (!arith && (sc[i]->dc_tbl > 3 || sc[i]->ac_tbl > 3))
                 return fail(kCorrupt, "bogus Huffman table index");
         }
-        pos = end;  // Ss, Se, Ah/Al: a sequential scan reads all 64
+        // jdinput.c: a second scan in a file whose first one held every
+        // component is an error (JERR_EOI_EXPECTED)
+        if (scans > 0 && !multi_scan) return fail(kCorrupt, "EOI expected");
+        Ss = data[pos + 1 + 2 * ns];
+        Se = data[pos + 2 + 2 * ns];
+        Ah = data[pos + 3 + 2 * ns] >> 4;
+        Al = data[pos + 3 + 2 * ns] & 15;
+        pos = end;
+        if (scans++ == 0) multi_scan = ns < ncomp || progressive;
         int blocks_in_mcu = 0;
         for (int i = 0; i < ns; ++i) {
             Component& c = *sc[i];
             blocks_in_mcu += ns == 1 ? 1 : c.h * c.v;
-            if (c.coef.empty()) c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
-            if (!c.latched) {
+            if (coding == kLossless) {
+                if (c.samples.empty())
+                    c.samples.assign(size_t(c.width_in_blocks) * c.height_in_blocks, 0);
+            } else if (c.coef.empty()) {
+                c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+            }
+            if (!c.latched && coding != kLossless) {
                 if (!qt_defined[c.tq]) return fail(kCorrupt, "quantization table not defined");
                 for (int k = 0; k < 64; ++k) c.quant[k] = int16_t(qt[c.tq][k]);
-                c.latched = true;
             }
-            if (!dc[c.dc_tbl].defined) {
-                if (c.dc_tbl > 1) return fail(kCorrupt, "Huffman table not defined");
-                std_table(dc[c.dc_tbl], true, c.dc_tbl);
-            }
-            if (!ac[c.ac_tbl].defined) {
-                if (c.ac_tbl > 1) return fail(kCorrupt, "Huffman table not defined");
-                std_table(ac[c.ac_tbl], false, c.ac_tbl);
-            }
-            if (!derive(dc[c.dc_tbl], true) || !derive(ac[c.ac_tbl], false))
-                return fail(kCorrupt, "bogus Huffman table definition");
+            c.latched = true;
             c.last_dc = 0;
+            c.dc_context = 0;
         }
         if (blocks_in_mcu > 10) return fail(kCorrupt, "sampling factors too large");
+        if (progressive) {
+            int rc = progressive_pass(sc, ns);
+            if (rc != kOk) return rc;
+        }
+        for (int i = 0; i < ns && !arith; ++i) {
+            Component& c = *sc[i];
+            int rc = kOk;
+            if (coding == kSeqHuff) {
+                rc = huff_table(true, c.dc_tbl);
+                if (rc == kOk) rc = huff_table(false, c.ac_tbl);
+            } else if (coding == kLossless) {
+                rc = huff_table(true, c.dc_tbl);
+            } else if (Ss == 0) {
+                if (Ah == 0) rc = huff_table(true, c.dc_tbl);
+            } else {
+                rc = huff_table(false, c.ac_tbl);
+            }
+            if (rc != kOk) return rc;
+        }
         bits_left = 0;
         insufficient = false;
+        eobrun = 0;
+        if (arith) arith_reset(sc, ns);
+        if (coding == kLossless) return lossless_scan(sc, ns);
         int restarts_to_go = restart_interval, next_restart = 0;
         int rows, cols;
         if (ns == 1) {
@@ -571,31 +1088,235 @@ struct Decoder {
         }
         for (int my = 0; my < rows; ++my)
             for (int mx = 0; mx < cols; ++mx) {
-                if (restart_interval) {
-                    if (restarts_to_go == 0) {
-                        if (!process_restart(next_restart))
-                            return fail(kTruncated, "image file is truncated");
-                        for (int i = 0; i < ns; ++i) sc[i]->last_dc = 0;
-                        restarts_to_go = restart_interval;
+                if (restart_interval && restarts_to_go == 0) {
+                    if (!process_restart(next_restart)) {
+                        if (arith_short) return arith_broken();
+                        return fail(kTruncated, "image file is truncated");
                     }
+                    if (arith) arith_reset(sc, ns);
+                    for (int i = 0; i < ns; ++i) sc[i]->last_dc = 0;
+                    eobrun = 0;
+                    restarts_to_go = restart_interval;
                 }
-                if (!insufficient) {
-                    for (int i = 0; i < ns; ++i) {
-                        Component& c = *sc[i];
-                        int bh = ns == 1 ? 1 : c.v, bwn = ns == 1 ? 1 : c.h;
-                        for (int y = 0; y < bh; ++y)
-                            for (int x = 0; x < bwn; ++x) {
-                                int by = ns == 1 ? my : my * c.v + y;
-                                int bx = ns == 1 ? mx : mx * c.h + x;
-                                int16_t* blk = &c.coef[(size_t(by) * c.bw + bx) * 64];
-                                memset(blk, 0, 64 * sizeof(int16_t));
-                                if (!decode_block(c, blk))
-                                    return fail(kTruncated, "image file is truncated");
-                            }
-                    }
-                }
+                int rc = arith ? arith_mcu(sc, ns, my, mx) : huff_mcu(sc, ns, my, mx);
+                if (rc != kOk) return rc;
                 if (restart_interval) --restarts_to_go;
             }
+        return kOk;
+    }
+
+    int16_t* block_at(Component& c, int ns, int my, int mx, int y, int x) {
+        int by = ns == 1 ? my : my * c.v + y;
+        int bx = ns == 1 ? mx : mx * c.h + x;
+        return &c.coef[(size_t(by) * c.bw + bx) * 64];
+    }
+
+    int huff_mcu(Component* const* sc, int ns, int my, int mx) {
+        // DC refinements read zeros past a marker and change nothing;
+        // every other pass leaves the rest of the segment as it is
+        if (insufficient && !(coding == kProgHuff && Ss == 0 && Ah != 0))
+            return kOk;
+        for (int i = 0; i < ns; ++i) {
+            Component& c = *sc[i];
+            int nv = ns == 1 ? 1 : c.v, nh = ns == 1 ? 1 : c.h;
+            for (int y = 0; y < nv; ++y)
+                for (int x = 0; x < nh; ++x) {
+                    int16_t* blk = block_at(c, ns, my, mx, y, x);
+                    bool ok = true;
+                    if (coding == kSeqHuff) {
+                        memset(blk, 0, 64 * sizeof(int16_t));
+                        ok = decode_block(c, blk);
+                    } else if (Ss == 0 && Ah == 0) {
+                        int rc = dc_first(c, blk);
+                        if (rc == kCorrupt) return rc;
+                        ok = rc == kOk;
+                    } else if (Ss == 0) {
+                        ok = dc_refine(blk);
+                    } else if (Ah == 0) {
+                        ok = ac_first(ac[c.ac_tbl], blk);
+                    } else {
+                        ok = ac_refine(ac[c.ac_tbl], blk);
+                    }
+                    if (!ok) return fail(kTruncated, "image file is truncated");
+                }
+        }
+        return kOk;
+    }
+
+    int arith_broken() {
+        return fail(kCorrupt, "arithmetic-coded data past the end of the "
+                    "data or of the 64 KiB blocks PIL hands libjpeg, which "
+                    "cannot suspend there (PIL: broken data stream)");
+    }
+
+    int arith_mcu(Component* const* sc, int ns, int my, int mx) {
+        if (ac_ct == -1) return kOk;  // after a decoding error: nothing
+        const bool dc_refine_pass = coding == kProgArith && Ss == 0 && Ah != 0;
+        for (int i = 0; i < ns; ++i) {
+            Component& c = *sc[i];
+            int nv = ns == 1 ? 1 : c.v, nh = ns == 1 ? 1 : c.h;
+            for (int y = 0; y < nv; ++y)
+                for (int x = 0; x < nh; ++x) {
+                    int16_t* blk = block_at(c, ns, my, mx, y, x);
+                    bool ok = true;
+                    if (coding == kSeqArith) {
+                        memset(blk, 0, 64 * sizeof(int16_t));
+                        int v;
+                        ok = arith_dc_diff(c, v);
+                        if (ok) {
+                            c.last_dc = (c.last_dc + v) & 0xffff;
+                            blk[0] = int16_t(c.last_dc);
+                            ok = arith_ac(c.ac_tbl, blk, 1, 63, 0);
+                        }
+                    } else if (Ss == 0 && Ah == 0) {
+                        int v;
+                        ok = arith_dc_diff(c, v);
+                        if (ok) {
+                            c.last_dc = (c.last_dc + v) & 0xffff;
+                            blk[0] = int16_t(unsigned(c.last_dc) << Al);
+                        }
+                    } else if (dc_refine_pass) {
+                        if (arith_decode(fixed_bin))
+                            blk[0] = int16_t(blk[0] | (1 << Al));
+                    } else if (Ah == 0) {
+                        ok = arith_ac(c.ac_tbl, blk, Ss, Se, Al);
+                    } else {
+                        ok = arith_ac_refine(c.ac_tbl, blk);
+                    }
+                    if (arith_short) return arith_broken();
+                    if (!ok) {
+                        ac_ct = -1;
+                        if (!dc_refine_pass) return kOk;
+                    }
+                }
+        }
+        return kOk;
+    }
+
+    // ---- lossless (jdlhuff.c, jddiffct.c, jdlossls.c)
+    bool lossless_diff(const HuffTable& t, int& diff) {
+        int s;
+        if (!decode_sym(t, s)) return false;
+        if (s == 16) {
+            s = 32768;
+        } else if (s) {
+            int r;
+            if (!get_bits(s, r)) return false;
+            s = extend(r, s);
+        }
+        diff = s;
+        return true;
+    }
+
+    // one row of a component: undifference (predictor psv, or the first
+    // row's), then scale by the point transform into the sample plane
+    void undifference(Component& c, const int* diff, int row, int psv) {
+        const int w = c.width_in_blocks;
+        uint16_t* prev = c.undiff.data();
+        std::vector<uint16_t> cur(w);
+        if (c.first_row || psv == 1) {
+            int Ra = c.first_row ? 1 << (precision - Al - 1) : prev[0];
+            Ra = (diff[0] + Ra) & 0xFFFF;
+            cur[0] = uint16_t(Ra);
+            for (int x = 1; x < w; ++x) {
+                Ra = (diff[x] + Ra) & 0xFFFF;
+                cur[x] = uint16_t(Ra);
+            }
+        } else {
+            int Rb = prev[0];
+            int Ra = (diff[0] + Rb) & 0xFFFF;
+            cur[0] = uint16_t(Ra);
+            for (int x = 1; x < w; ++x) {
+                int Rc = Rb;
+                Rb = prev[x];
+                int p;
+                switch (psv) {
+                    case 2: p = Rb; break;
+                    case 3: p = Rc; break;
+                    case 4: p = Ra + Rb - Rc; break;
+                    case 5: p = Ra + ((Rb - Rc) >> 1); break;
+                    case 6: p = Rb + ((Ra - Rc) >> 1); break;
+                    default: p = (Ra + Rb) >> 1; break;
+                }
+                Ra = (diff[x] + p) & 0xFFFF;
+                cur[x] = uint16_t(Ra);
+            }
+        }
+        c.first_row = false;
+        memcpy(prev, cur.data(), size_t(w) * sizeof(uint16_t));
+        uint8_t* out = &c.samples[size_t(row) * w];
+        for (int x = 0; x < w; ++x) out[x] = uint8_t(unsigned(cur[x]) << Al);
+    }
+
+    int lossless_scan(Component* const* sc, int ns) {
+        if (Ss < 1 || Ss > 7 || Se != 0 || Ah != 0 || Al >= precision)
+            return fail(kCorrupt, "invalid lossless scan parameters");
+        for (int i = 0; i < ncomp; ++i) comp[i].first_row = true;
+        for (int i = 0; i < ns; ++i)
+            sc[i]->undiff.assign(size_t(sc[i]->width_in_blocks), 0);
+        const int cols = ns == 1 ? sc[0]->width_in_blocks : mcus_per_row;
+        // one iMCU row: v sample rows of every component in the scan
+        const int imcu_rows = ns == 1
+            ? (sc[0]->height_in_blocks + sc[0]->v - 1) / sc[0]->v : mcu_rows;
+        const int rows_per_restart = restart_interval / cols;
+        int rows_to_go = rows_per_restart, next_restart = 0;
+        std::vector<std::vector<int>> diffs(ns);
+        for (int i = 0; i < ns; ++i)
+            diffs[i].assign(size_t(sc[i]->v) * (ns == 1 ? cols : cols * sc[i]->h), 0);
+        for (int im = 0; im < imcu_rows; ++im) {
+            const bool last = im == imcu_rows - 1;
+            int mcu_rows_here = 1;
+            if (ns == 1) {
+                Component& c = *sc[0];
+                int lrh = c.height_in_blocks % c.v;
+                mcu_rows_here = last ? (lrh ? lrh : c.v) : c.v;
+            }
+            for (int yo = 0; yo < mcu_rows_here; ++yo) {
+                if (restart_interval && rows_to_go == 0) {
+                    if (!process_restart(next_restart))
+                        return fail(kTruncated, "image file is truncated");
+                    for (int i = 0; i < ncomp; ++i) comp[i].first_row = true;
+                    rows_to_go = rows_per_restart;
+                }
+                if (insufficient) {
+                    // out of data: zero differences, and the predictors
+                    // start over (the samples become the centre value)
+                    for (int i = 0; i < ns; ++i) {
+                        Component& c = *sc[i];
+                        int stride = ns == 1 ? cols : cols * c.h;
+                        int nrows = ns == 1 ? 1 : c.v;
+                        for (int r = 0; r < nrows; ++r)
+                            std::fill_n(&diffs[i][size_t(ns == 1 ? yo : r) * stride], stride, 0);
+                    }
+                    for (int i = 0; i < ncomp; ++i) comp[i].first_row = true;
+                } else {
+                    for (int mx = 0; mx < cols; ++mx)
+                        for (int i = 0; i < ns; ++i) {
+                            Component& c = *sc[i];
+                            const HuffTable& t = dc[c.dc_tbl];
+                            int nv = ns == 1 ? 1 : c.v, nh = ns == 1 ? 1 : c.h;
+                            int stride = ns == 1 ? cols : cols * c.h;
+                            for (int y = 0; y < nv; ++y)
+                                for (int x = 0; x < nh; ++x) {
+                                    int d;
+                                    if (!lossless_diff(t, d))
+                                        return fail(kTruncated, "image file is truncated");
+                                    int row = ns == 1 ? yo : y;
+                                    diffs[i][size_t(row) * stride + mx * nh + x] = d;
+                                }
+                        }
+                }
+                if (restart_interval) --rows_to_go;
+            }
+            for (int i = 0; i < ns; ++i) {
+                Component& c = *sc[i];
+                int stride = ns == 1 ? cols : cols * c.h;
+                int lrh = c.height_in_blocks % c.v;
+                int nrows = last ? (lrh ? lrh : c.v) : c.v;
+                for (int r = 0; r < nrows; ++r)
+                    undifference(c, &diffs[i][size_t(r) * stride], im * c.v + r, Ss);
+            }
+        }
         return kOk;
     }
 
@@ -607,11 +1328,14 @@ struct Decoder {
         bool saw_sos = false;
         for (;;) {
             if (unread_marker == 0 && !next_marker()) {
-                if (saw_sos) return kOk;  // all scans read, no EOI
+                // a file of several scans is read to its EOI before any
+                // line is output (jdapistd.c), so PIL needs the EOI
+                if (saw_sos && !multi_scan) return kOk;
                 return fail(kTruncated, "image file is truncated");
             }
             int m = unread_marker;
             unread_marker = 0;
+            touch(pos);
             if (m == 0xD8) return fail(kCorrupt, "unexpected SOI marker");
             if (m == 0xD9) {
                 if (!saw_sos) return fail(kCorrupt, "no image in the JPEG file");
@@ -624,6 +1348,7 @@ struct Decoder {
             length -= 2;
             if (pos + length > n && m != 0xDA)
                 return fail(kTruncated, "image file is truncated");
+            touch(pos + length);
             int rc = kOk;
             if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
                 pos -= 2;
@@ -633,6 +1358,8 @@ struct Decoder {
                 rc = read_dht(length);
             } else if (m == 0xDB) {
                 rc = read_dqt(length);
+            } else if (m == 0xCC) {
+                rc = read_dac(length);
             } else if (m == 0xDD) {
                 if (length != 2) return fail(kCorrupt, "bogus DRI marker length");
                 restart_interval = (data[pos] << 8) | data[pos + 1];
@@ -650,14 +1377,32 @@ struct Decoder {
                     adobe_transform = data[pos + 11];
                 }
                 pos += length;
-            } else if ((m >= 0xE1 && m <= 0xEF) || m == 0xFE || m == 0xDC ||
-                       m == 0xCC) {
-                pos += length;  // APPn, COM, DNL, DAC
+            } else if ((m >= 0xE1 && m <= 0xEF) || m == 0xFE || m == 0xDC) {
+                pos += length;  // APPn, COM, DNL
             } else {
                 return fail(kCorrupt, "unsupported JPEG marker");
             }
             if (rc != kOk) return rc;
         }
+    }
+
+    // jdcoefct.c:smoothing_ok: libjpeg-turbo smooths the blocks of a
+    // progressive file whose first coefficients are not all refined to
+    // the last bit. The port does not; it refuses those files.
+    bool smoothing_applies() const {
+        if (coding != kProgHuff && coding != kProgArith) return false;
+        static const int kSaved[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+        bool useful = false;
+        for (int ci = 0; ci < ncomp; ++ci) {
+            const Component& c = comp[ci];
+            if (!c.latched) return false;
+            for (int k : kSaved)
+                if (c.quant[k] == 0) return false;
+            if (c.coef_bits[0] < 0) return false;
+            for (int k = 1; k < 10; ++k)
+                if (c.coef_bits[k] != 0) useful = true;
+        }
+        return useful;
     }
 
     // jidctint.c:jpeg_idct_islow of one block into out (stride)
@@ -778,9 +1523,10 @@ struct Decoder {
         auto P = [&](int y, int x) -> int {
             return plane[size_t(y) * ps + x];
         };
+        const bool fancy = coding != kLossless;
         if (c.h == max_h && c.v == max_v) {
             for (int y = 0; y < H; ++y) memcpy(full + size_t(y) * W, plane + size_t(y) * ps, W);
-        } else if (c.h * 2 == max_h && c.v == max_v) {
+        } else if (c.h * 2 == max_h && c.v == max_v && fancy) {
             std::vector<uint8_t> row(2 * size_t(dw));
             for (int y = 0; y < H; ++y) {
                 if (dw > 2) {  // h2v1_fancy_upsample
@@ -798,7 +1544,7 @@ struct Decoder {
                 }
                 memcpy(full + size_t(y) * W, row.data(), W);
             }
-        } else if (c.h == max_h && c.v * 2 == max_v) {  // h1v2_fancy_upsample
+        } else if (c.h == max_h && c.v * 2 == max_v && fancy) {  // h1v2_fancy_upsample
             for (int y = 0; y < H; ++y) {
                 int r = y >> 1, v = y & 1;
                 int nb = v == 0 ? (r > 0 ? r - 1 : 0) : (r + 1 < dh ? r + 1 : dh - 1);
@@ -806,7 +1552,7 @@ struct Decoder {
                 for (int x = 0; x < W; ++x)
                     full[size_t(y) * W + x] = uint8_t((P(r, x) * 3 + P(nb, x) + bias) >> 2);
             }
-        } else if (c.h * 2 == max_h && c.v * 2 == max_v) {
+        } else if (c.h * 2 == max_h && c.v * 2 == max_v && fancy) {
             std::vector<int> cs(dw);
             std::vector<uint8_t> row(2 * size_t(dw));
             for (int y = 0; y < H; ++y) {
@@ -841,17 +1587,28 @@ struct Decoder {
     // samples of the frame into out (height x width x ncomp)
     int render(uint8_t* out) {
         init_tables();
+        if (smoothing_applies())
+            return fail(kUnsupported, "a progressive JPEG whose first "
+                        "coefficients are not all refined to the last bit, "
+                        "which libjpeg-turbo decodes with block smoothing");
         std::vector<std::vector<uint8_t>> fulls(ncomp);
         for (int ci = 0; ci < ncomp; ++ci) {
             Component& c = comp[ci];
             if (!c.latched)
                 return fail(kCorrupt, "a component appears in no scan");
-            int ps = c.width_in_blocks * 8;
-            std::vector<uint8_t> plane(size_t(ps) * c.height_in_blocks * 8);
-            for (int by = 0; by < c.height_in_blocks; ++by)
-                for (int bx = 0; bx < c.width_in_blocks; ++bx)
-                    idct_islow(&c.coef[(size_t(by) * c.bw + bx) * 64], c.quant,
-                               &plane[size_t(by) * 8 * ps + bx * 8], ps);
+            int ps;
+            std::vector<uint8_t> plane;
+            if (coding == kLossless) {
+                ps = c.width_in_blocks;
+                plane.swap(c.samples);
+            } else {
+                ps = c.width_in_blocks * 8;
+                plane.resize(size_t(ps) * c.height_in_blocks * 8);
+                for (int by = 0; by < c.height_in_blocks; ++by)
+                    for (int bx = 0; bx < c.width_in_blocks; ++bx)
+                        idct_islow(&c.coef[(size_t(by) * c.bw + bx) * 64], c.quant,
+                                   &plane[size_t(by) * 8 * ps + bx * 8], ps);
+            }
             fulls[ci].resize(size_t(width) * height);
             if (upsample(c, plane.data(), ps, fulls[ci].data()))
                 return fail(kCorrupt, "fractional sampling factors are not "
@@ -862,11 +1619,47 @@ struct Decoder {
             memcpy(out, fulls[0].data(), np);
             return kOk;
         }
+        const uint8_t *y = fulls[0].data(), *cb = fulls[1].data(), *cr = fulls[2].data();
+        if (coding == kLossless) {
+            // jdapimin.c guesses RGB (CMYK) for a lossless frame without
+            // markers, and libjpeg-turbo converts no colour there: YCbCr
+            // (a JFIF marker with 3 components, or an Adobe transform other
+            // than 0) or YCCK is an error
+            if ((ncomp == 3 && saw_jfif) || (saw_adobe && adobe_transform != 0))
+                return fail(kCorrupt, "colour conversion of a lossless frame "
+                            "(libjpeg-turbo: unsupported color conversion)");
+            for (size_t i = 0; i < np; ++i)
+                for (int c = 0; c < ncomp; ++c)
+                    out[ncomp * i + c] = ncomp == 4 ? uint8_t(255 - fulls[c][i])
+                                                    : fulls[c][i];
+            return kOk;
+        }
+        if (ncomp == 4) {
+            // jdcolor.c: YCCK (Adobe transform other than 0) -> CMYK, or
+            // CMYK as it is; PIL unpacks it inverted ("CMYK;I"), so YCC
+            // becomes RGB and K its complement
+            const uint8_t* k = fulls[3].data();
+            const bool ycck = saw_adobe && adobe_transform != 0;
+            for (size_t i = 0; i < np; ++i) {
+                uint8_t* o = out + 4 * i;
+                if (ycck) {
+                    int Y = y[i];
+                    o[0] = clamp255(Y + g_cr_r[cr[i]]);
+                    o[1] = clamp255(Y + int((g_cb_g[cb[i]] + g_cr_g[cr[i]]) >> 16));
+                    o[2] = clamp255(Y + g_cb_b[cb[i]]);
+                } else {
+                    o[0] = uint8_t(255 - y[i]);
+                    o[1] = uint8_t(255 - cb[i]);
+                    o[2] = uint8_t(255 - cr[i]);
+                }
+                o[3] = uint8_t(255 - k[i]);
+            }
+            return kOk;
+        }
         bool ycc;
         if (saw_jfif) ycc = true;
         else if (saw_adobe) ycc = adobe_transform != 0;
         else ycc = !(comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66);
-        const uint8_t *y = fulls[0].data(), *cb = fulls[1].data(), *cr = fulls[2].data();
         for (size_t i = 0; i < np; ++i) {
             if (ycc) {
                 int Y = y[i];

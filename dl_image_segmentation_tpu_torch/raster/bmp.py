@@ -14,9 +14,14 @@ RGB) returns:
   8 bits as ``c * 255 // max``; 24 bits BGR; 32 bits BGRX as RGB, or the
   BITFIELDS layouts PIL takes (RGBA when the alpha mask is set).
 
-RLE4 and RLE8 compression, which PIL decodes, raise
-:class:`BMPUnsupported` naming ROADMAP queue 1 item 6; what PIL refuses
-(other depths, compressions and bitfield layouts) raises
+RLE8 and RLE4 compression decode as PIL's ``BmpRleDecoder`` does: runs
+cut at the row's end, the end-of-line, end-of-bitmap and delta escapes
+(PIL reads a delta's two bytes and then two more, and moves by the
+second pair), absolute runs padded to a 16-bit word of the file, RLE4's
+high nibble first, rows bottom-up unless the height says top-down; data
+that ends before the image is full raises "not enough image data". The
+palette then maps the indices as for uncompressed files. What PIL
+refuses (other depths, compressions and bitfield layouts) raises
 :class:`BMPError`, as do truncated files.
 """
 
@@ -28,7 +33,7 @@ import numpy as np
 
 from .png import MAX_PIXELS
 
-__all__ = ["BMPError", "BMPUnsupported", "bmp_layout", "decode_bmp_array"]
+__all__ = ["BMPError", "bmp_layout", "decode_bmp_array"]
 
 _HEADERS = (12, 40, 52, 56, 64, 108, 124)
 # the 32-bit BITFIELDS masks (r, g, b, a) PIL takes
@@ -42,10 +47,6 @@ _MASKS32 = {
 
 class BMPError(ValueError):
     """A BMP that does not parse or decode."""
-
-
-class BMPUnsupported(BMPError):
-    """A BMP variant PIL decodes and the port does not."""
 
 
 def _parse(data: bytes) -> dict:
@@ -98,9 +99,10 @@ def _parse(data: bytes) -> dict:
                                                 (0x7C00, 0x3E0, 0x1F)))):
             raise BMPError("Unsupported BMP bitfields layout")
     elif comp in (1, 2):
-        raise BMPUnsupported(
-            "unsupported BMP variant: RLE compression. The port decodes "
-            "uncompressed and BITFIELDS BMPs; RLE is ROADMAP queue 1 item 6")
+        if bits > 8:
+            # PIL's RLE decoder hands its indices to a "P" raw decoder,
+            # which an RGB image refuses
+            raise BMPError(f"RLE compression of a {bits}-bit BMP")
     elif comp != 0:
         raise BMPError(f"Unsupported BMP compression ({comp})")
     f["palette"] = None
@@ -114,6 +116,9 @@ def _parse(data: bytes) -> dict:
         grey = all(pal[k * f["pad"]:k * f["pad"] + 3] == bytes([v]) * 3
                    for k, v in enumerate(indices))
         f["grey"] = grey
+        if comp in (1, 2) and grey and f["colors"] == 2:
+            # PIL's "1" image takes no "P" raw mode
+            raise BMPError("RLE compression of a black-and-white BMP")
         if not grey:
             t = np.frombuffer(pal[:len(pal) // f["pad"] * f["pad"]], np.uint8)
             f["palette"] = t.reshape(-1, f["pad"])[:256, 2::-1]
@@ -131,6 +136,68 @@ def bmp_layout(data: bytes):
     return f["width"], f["height"], 4 if f["alpha"] else 3, "uint8"
 
 
+def _rle_indices(data: bytes, f: dict) -> np.ndarray:
+    """(h, w) palette indices of an RLE8 or RLE4 bitmap, decoded as PIL's
+    ``BmpRleDecoder`` decodes them, top row first."""
+    w, h = f["width"], f["height"]
+    rle4 = f["compression"] == 2
+    pos = f["offset"]
+    n = len(data)
+    out = bytearray()
+    x = 0
+    need = w * h
+    while len(out) < need:
+        if pos + 2 > n:
+            break
+        count, byte = data[pos], data[pos + 1]
+        pos += 2
+        if count:
+            # encoded mode: a run, cut at the row's end
+            count = max(0, w - x) if x + count > w else count
+            if rle4:
+                pair = bytes([byte >> 4, byte & 15])
+                out += pair * (count // 2) + pair[:count % 2]
+            else:
+                out += bytes([byte]) * count
+            x += count
+        elif byte == 0:  # end of line
+            out += bytes(-len(out) % w)
+            x = 0
+        elif byte == 1:  # end of bitmap
+            break
+        elif byte == 2:  # delta: PIL reads two bytes, then moves by the
+            if pos + 2 > n:  # next two
+                break
+            pos += 2
+            if pos + 2 > n:
+                raise BMPError("not enough values to unpack (BMP RLE delta)")
+            right, up = data[pos], data[pos + 1]
+            pos += 2
+            out += bytes(right + up * w)
+            x = len(out) % w
+        else:  # absolute mode
+            if rle4:
+                take = data[pos:pos + byte // 2]
+                for b in take:
+                    out += bytes([b >> 4, b & 15])
+                short = len(take) < byte // 2
+                pos += len(take)
+            else:
+                take = data[pos:pos + byte]
+                out += take
+                short = len(take) < byte
+                pos += len(take)
+            if short:
+                break
+            x += byte
+            if pos % 2:  # word alignment, in the file's offsets
+                pos += 1
+    if len(out) < need:
+        raise BMPError("not enough image data (BMP RLE)")
+    rows = np.frombuffer(bytes(out[:need]), np.uint8).reshape(h, w)
+    return rows if f["top_down"] else rows[::-1]
+
+
 def decode_bmp_array(data: bytes) -> np.ndarray:
     """BMP bytes -> (H, W, B) array, as the JAX package decodes them."""
     f = _parse(data)
@@ -140,6 +207,13 @@ def decode_bmp_array(data: bytes) -> np.ndarray:
     if w * h > MAX_PIXELS:
         raise BMPError(f"image size ({w * h} pixels) exceeds the limit of "
                        f"{MAX_PIXELS} pixels (decompression bomb)")
+    if f["compression"] in (1, 2):
+        idx = _rle_indices(data, f)
+        if f["grey"]:
+            return np.ascontiguousarray(idx)[:, :, None]
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:len(f["palette"])] = f["palette"]
+        return lut[idx]
     stride = ((w * bits + 31) >> 3) & ~3
     row_bytes = (w * bits + 7) // 8
     need = f["offset"] + (h - 1) * stride + row_bytes

@@ -13,14 +13,20 @@ rasters (``gpkg_raster.py``), and HDF5 / NetCDF-4 with its own reader
 (``hdf5.py``), where the JAX package uses h5py. Decoded arrays equal the
 JAX package's, PIL's mode mapping included; the JPEG encoder's bytes
 equal PIL's. ``decode_image_bytes`` sniffs the container from its magic
-bytes, in the JAX package's order. The JPEG variants the decoder lacks
-and RLE BMPs raise :class:`UnsupportedFormatError` naming ROADMAP queue 1
-item 6; the parts of HDF5 the reader refuses (external storage, virtual
-datasets, external links, SOHM) name item 14.
+bytes, in the JAX package's order. JPEG covers what PIL opens
+(progressive, arithmetic-coded, lossless, CMYK/YCCK, see ``jpeg.py``),
+BMP its RLE8/RLE4 files, JPEG 2000 its subsampled and sYCC files; what
+PIL refuses raises :class:`CorruptRasterError`, as in the JAX package.
+A progressive JPEG that libjpeg-turbo block-smooths and HTJ2K raise
+:class:`UnsupportedFormatError` naming ROADMAP queue 1 item 6; the parts
+of HDF5 the reader refuses (external storage, virtual datasets, external
+links, SOHM) name item 14.
 
 ``sniff_image_info`` reads shape and dtype from headers without decoding
-pixels. Its JPEG sniffer is a copy of the JAX package's; for PNG, GIF
-and BMP it reports what the port's decoder returns, where the JAX
+pixels. For JPEG, PNG, GIF and BMP it reports what the port's decoder
+returns, or raises what it raises from the headers (a JPEG of another
+precision than 8 bits, of 2 components, hierarchical or arithmetic
+lossless: the JAX sniffer reports these), where the JAX
 package's sniffer does not in places (16-bit RGB(A) PNG: uint8, not
 uint16; 16-bit grey+alpha PNG: 4 bands, not 2; 1-bit grey PNG and
 black/white BMP: bool; BMP palettes that are grey but not the identity
@@ -32,12 +38,11 @@ inside its codestream, images the decoders refuse).
 
 from __future__ import annotations
 
-import struct
 from typing import Optional
 
 import numpy as np
 
-from .bmp import BMPUnsupported, bmp_layout, decode_bmp_array
+from .bmp import bmp_layout, decode_bmp_array
 from .envi import decode_envi, is_envi_header, sniff_envi_info
 from .geotiff import GeoTIFF, RasterInfo, decode_geotiff, decode_geotiff_info
 from .gif import decode_gif_array, gif_layout
@@ -47,7 +52,8 @@ from .hdf4 import decode_hdf4, is_hdf4, sniff_hdf4_info
 from .hdf5 import HDF5Unsupported, decode_hdf5, is_hdf5, sniff_hdf5_info
 from .jp2 import (JP2Unsupported, decode_jp2, is_jp2, palette_rgb,
                   sniff_jp2_info)
-from .jpeg import JPEGUnsupported, decode_jpeg_array, encode_jpeg_array
+from .jpeg import (JPEGUnsupported, decode_jpeg_array, encode_jpeg_array,
+                   jpeg_header)
 from .netcdf import decode_netcdf, is_netcdf_classic, sniff_netcdf_info
 from .nitf import decode_nitf, is_nitf, sniff_nitf_info
 from .png import decode_png_array, decoded_layout, encode_png_array, png_header
@@ -75,7 +81,7 @@ def _named(fmt: str, fn, *args, **kwargs):
         return fn(*args, **kwargs)
     except (CorruptRasterError, UnsupportedFormatError):
         raise
-    except (JPEGUnsupported, BMPUnsupported, JP2Unsupported,
+    except (JPEGUnsupported, JP2Unsupported,
             HDF5Unsupported) as e:
         raise UnsupportedFormatError(str(e)) from e
     except Exception as e:
@@ -138,10 +144,11 @@ def _container(data: bytes):
 
 
 def _three_d(arr: np.ndarray, what: str) -> np.ndarray:
-    # the JAX package asserts a 3-D result of at most 3 bands here
+    # the JAX package asserts a 3-D result of at most 3 bands here, so a
+    # CMYK JPEG or an RGBA PNG fails with its AssertionError
     if arr.ndim != 3 or arr.shape[2] > 3:
-        raise ValueError(f"{what} decoded to shape {arr.shape}: the chip "
-                         "codecs take at most 3 bands")
+        raise AssertionError(f"{what} decoded to shape {arr.shape}: the "
+                             "chip codecs take at most 3 bands")
     return arr
 
 
@@ -258,26 +265,9 @@ def _sniff_png(data: bytes) -> RasterInfo:
 
 
 def _sniff_jpeg(data: bytes) -> RasterInfo:
-    i = 2
-    n = len(data)
-    while i + 9 < n:
-        if data[i] != 0xFF:
-            i += 1
-            continue
-        marker = data[i + 1]
-        if marker == 0xFF:  # fill byte before a marker (spec-legal)
-            i += 1
-            continue
-        if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
-            i += 2
-            continue
-        (seglen,) = struct.unpack(">H", data[i + 2:i + 4])
-        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            h, w = struct.unpack(">HH", data[i + 5:i + 9])
-            return RasterInfo(width=w, height=h, count=data[i + 9],
-                              dtype="uint8")
-        i += 2 + seglen
-    raise ValueError("no JPEG SOF marker found")
+    # the decoder's own marker reader, up to the first scan
+    h, w, c = jpeg_header(data)
+    return RasterInfo(width=w, height=h, count=c, dtype="uint8")
 
 
 def _sniff_gif(data: bytes) -> RasterInfo:

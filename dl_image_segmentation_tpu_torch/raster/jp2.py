@@ -21,7 +21,13 @@ cast fails in the JAX package (numpy 2 refuses to clip PIL's array to a
 dtype whose range it cannot hold: signed files, and RGB or LA of more
 than 8 bits), the port returns the codestream's own samples in the SIZ
 dtype instead; ROADMAP queue 3 logs the difference. Subsampled
-components and sYCC files raise :class:`JP2Unsupported`.
+components (XRsiz/YRsiz > 1) decode at their own extent and are spread
+over the image grid as PIL's unpackers address OpenJPEG's tile buffer
+(a tile's width over the subsampling, rounded down, as the row stride
+and the component offset: odd extents come out skewed, as in PIL), and
+sYCC files (``colr`` 18) go through PIL's ``ImagingConvertYCbCr2RGB``
+tables, for 3 components and for 3 plus alpha. HTJ2K code-blocks raise
+:class:`JP2Unsupported`, naming ROADMAP queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -58,6 +64,9 @@ _DEC_SIGNATURES = {
     "fc_j2k_decode": (ctypes.c_int, [
         ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_uint64, ctypes.c_char_p, ctypes.c_int]),
+    "fc_j2k_decode_planes": (ctypes.c_int, [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_uint64, ctypes.c_char_p, ctypes.c_int]),
 }
 _ENC_SIGNATURES = {
     "fc_j2k_encode": (ctypes.c_int64, [
@@ -89,6 +98,8 @@ def _enc():
 def _raise(rc: int, err) -> None:
     msg = err.raw.split(b"\0", 1)[0].decode("ascii", "replace")
     if rc == _UNSUPPORTED:
+        if "HTJ2K" in msg:
+            msg += ". HTJ2K code-blocks are ROADMAP queue 1 item 6"
         raise JP2Unsupported(f"unsupported JPEG 2000 feature: {msg}")
     raise JP2Error(msg or f"corrupt JPEG 2000 codestream ({rc})")
 
@@ -220,8 +231,32 @@ _ENUMCS = {16: _SRGB, 17: _GRAY, 18: _SYCC, 12: _CMYK}
 _UNPACKERS = {
     ("L", _GRAY, 1): 8, ("P", _SRGB, 1): 8, ("PA", _SRGB, 2): 8,
     ("I;16", _GRAY, 1): 16, ("LA", _GRAY, 2): 8, ("RGB", _SRGB, 3): 8,
-    ("RGBA", _SRGB, 4): 8, ("CMYK", _CMYK, 4): 8,
+    ("RGBA", _SRGB, 4): 8, ("CMYK", _CMYK, 4): 8, ("RGB", _SYCC, 3): 8,
+    ("RGBA", _SYCC, 4): 8,
 }
+# the unpackers that take subsampled components
+_SUBSAMPLED = {("RGB", _SRGB, 3), ("RGB", _SYCC, 3), ("RGBA", _SRGB, 4),
+               ("RGBA", _SYCC, 4), ("CMYK", _CMYK, 4)}
+
+
+def _ycc_table(c: float) -> np.ndarray:
+    # ConvertYCbCr.c's tables: (int)(c * 64 * (i - 128) + 0.5)
+    return np.trunc(c * 64 * (np.arange(256) - 128) + 0.5).astype(np.int32)
+
+
+_R_CR, _G_CB, _G_CR, _B_CB = (_ycc_table(c) for c in (1.402, -0.34414,
+                                                      -0.71414, 1.772))
+
+
+def _ycbcr_to_rgb(ycc: np.ndarray) -> np.ndarray:
+    """PIL's ``ImagingConvertYCbCr2RGB`` on the first three uint8
+    channels; any fourth (alpha) passes through."""
+    y, cb, cr = (ycc[:, :, k].astype(np.int32) for k in range(3))
+    out = ycc.copy()
+    out[:, :, 0] = np.clip(y + (_R_CR[cr] >> 6), 0, 255)
+    out[:, :, 1] = np.clip(y + ((_G_CB[cb] + _G_CR[cr]) >> 6), 0, 255)
+    out[:, :, 2] = np.clip(y + (_B_CB[cb] >> 6), 0, 255)
+    return out
 
 
 def _pil_mode(data: bytes, csiz: int, prec0: int
@@ -344,6 +379,66 @@ def _decode_codestream(cs: bytes, w: int, h: int, comps) -> np.ndarray:
     return out
 
 
+def _decode_as_pil_addresses(cs: bytes, w: int, h: int,
+                              comps) -> np.ndarray:
+    """(H, W, C) samples of a file with subsampled components, each read
+    where PIL's Jpeg2KDecode.c unpackers read it. Per tile (in raster
+    order), OpenJPEG writes each component's tile plane at its own extent
+    into PIL's tile buffer, one after the other, in (prec + 7) // 8 bytes
+    a sample (4 for 3); the unpacker reads component n of pixel (x, y) of
+    a tile tw x th at byte sum_m csiz_m (tw / dx_m) (th / dy_m) + csiz_n
+    ((y / dy) (tw / dx) + x / dx), the divisions rounded down. Where that
+    runs past the tile's data it reads zeros: PIL zeroes the buffer, which
+    keeps the size of the largest tile so far. (Past that size PIL would
+    read other memory; the port repeats the buffer's last byte.)"""
+    csiz = [4 if (p + 7) // 8 == 3 else (p + 7) // 8 for p, _, _, _ in comps]
+    es = max(csiz)
+    signed = any(s for _, s, _, _ in comps)
+    dtype = np.dtype(f"{'i' if signed else 'u'}{es}")
+    (xsiz, ysiz, x0, y0, xt, yt, xt0, yt0) = struct.unpack(
+        ">8I", cs[8:40])
+    extents = [(-(-xsiz // dx) - -(-x0 // dx), -(-ysiz // dy) - -(-y0 // dy))
+               for _, _, dx, dy in comps]
+    flat = np.empty(sum(a * b for a, b in extents), dtype)
+    err = ctypes.create_string_buffer(256)
+    rc = _dec().fc_j2k_decode_planes(cs, len(cs), flat.ctypes.data, es,
+                                     flat.size, err, 256)
+    if rc:
+        _raise(rc, err)
+    planes, k = [], 0
+    for cw, ch in extents:
+        planes.append(flat[k:k + cw * ch].reshape(ch, cw))
+        k += cw * ch
+    out = np.zeros((h, w, len(comps)), np.uint32)
+    pbuf = np.zeros(0, np.uint8)
+    for q in range(-(-(ysiz - yt0) // yt)):
+        gy0, gy1 = max(yt0 + q * yt, y0), min(yt0 + (q + 1) * yt, ysiz)
+        for p in range(-(-(xsiz - xt0) // xt)):
+            gx0, gx1 = max(xt0 + p * xt, x0), min(xt0 + (p + 1) * xt, xsiz)
+            tw, th = gx1 - gx0, gy1 - gy0
+            parts = []
+            for n, ((_, _, dx, dy), plane) in enumerate(zip(comps, planes)):
+                ox, oy = -(-x0 // dx), -(-y0 // dy)
+                tile = plane[-(-gy0 // dy) - oy:-(-gy1 // dy) - oy,
+                             -(-gx0 // dx) - ox:-(-gx1 // dx) - ox]
+                parts.append(tile.astype(f"<u{csiz[n]}").view(
+                    np.uint8).ravel())
+            data = np.concatenate(parts)
+            pbuf = np.zeros(max(data.size, pbuf.size), np.uint8)
+            pbuf[:data.size] = data
+            yy, xx = np.mgrid[0:th, 0:tw]
+            off = 0
+            for n, (_, _, dx, dy) in enumerate(comps):
+                at = off + csiz[n] * ((yy // dy) * (tw // dx) + xx // dx)
+                word = np.zeros(at.shape, np.uint32)
+                for b in range(csiz[n]):
+                    word |= pbuf[np.minimum(at + b, pbuf.size - 1)].astype(
+                        np.uint32) << (8 * b)
+                out[gy0 - y0:gy1 - y0, gx0 - x0:gx1 - x0, n] = word
+                off += csiz[n] * (tw // dx) * (th // dy)
+    return out.astype(dtype)
+
+
 def _unpack(samples: np.ndarray, comps, bits: int) -> np.ndarray:
     """PIL's j2ku_* unpackers: each component read as unsigned in its
     (prec + 7) // 8 bytes, offset (signed: 2^(prec-1); shifted down: a
@@ -373,17 +468,25 @@ def decode_jp2(data: bytes) -> GeoTIFF:
         raise JP2Error(f"image size ({w * h} pixels) exceeds the limit of "
                        f"{MAX_PIXELS} pixels (decompression bomb)")
     mode, space, _ = _pil_mode(data, len(comps), comps[0][0])
+    sub = [dx != 1 or dy != 1 for _, _, dx, dy in comps]
     if space == _UNSPECIFIED:
-        space = _GRAY if len(comps) <= 2 else _SRGB
-    if any(dx != 1 or dy != 1 for _, _, dx, dy in comps):
-        raise JP2Unsupported("subsampled JPEG 2000 components")
-    if space == _SYCC:
-        raise JP2Unsupported("sYCC JPEG 2000 (PIL converts it to RGB)")
+        # Jpeg2KDecode.c: a codestream without a colour space whose first
+        # subsampled component is the second or third is sYCC
+        first = sub.index(True) if any(sub) else -1
+        space = (_GRAY if len(comps) <= 2 else
+                 _SYCC if first in (1, 2) else _SRGB)
+    subsampled = any(sub)
     bits = _UNPACKERS.get((mode, space, len(comps)))
-    if bits is None:
+    if bits is None or (subsampled and
+                        (mode, space, len(comps)) not in _SUBSAMPLED):
         raise JP2Error(f"no decoder for a {len(comps)}-component JPEG 2000 "
-                       f"file of mode {mode} (PIL: broken data stream)")
-    samples = _decode_codestream(cs, w, h, comps)
+                       f"file of mode {mode}"
+                       f"{' with subsampling' if subsampled else ''} "
+                       "(PIL: broken data stream)")
+    if subsampled:
+        samples = _decode_as_pil_addresses(cs, w, h, comps)
+    else:
+        samples = _decode_codestream(cs, w, h, comps)
     sniff = sniff_jp2_info(data)
     want = np.dtype(sniff.dtype)
     prec, sgnd = comps[0][0], comps[0][1]
@@ -395,6 +498,8 @@ def decode_jp2(data: bytes) -> GeoTIFF:
             # the JAX package's np.clip to the SIZ dtype raises here:
             # return the codestream's samples
             arr = samples.astype(want)
+    if space == _SYCC and arr.dtype == np.uint8:
+        arr = _ycbcr_to_rgb(arr)
     info = RasterInfo(width=w, height=h, count=arr.shape[2],
                       dtype=arr.dtype.name, geotransform=sniff.geotransform,
                       epsg=sniff.epsg, wkt=sniff.wkt, nodata=sniff.nodata)

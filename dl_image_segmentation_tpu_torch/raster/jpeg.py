@@ -1,4 +1,4 @@
-"""Baseline JPEG decoder and encoder of the port (no PIL).
+"""JPEG decoder and baseline encoder of the port (no PIL).
 
 The JAX package decodes and encodes JPEG through PIL, i.e. libjpeg-turbo
 at its defaults. The port's codec is ``csrc/host/jpeg.cc`` (built with
@@ -8,11 +8,21 @@ for bit PIL's (islow IDCT, fancy upsampling, integer YCbCr->RGB), its
 encode byte for byte ``Image.save(format="JPEG", quality=q)`` (JFIF
 1.01, 4:2:0 for RGB, standard Huffman tables, force_baseline).
 
-The decoder takes sequential Huffman frames (SOF0/SOF1) of 8-bit
-samples with 1 or 3 components, any sampling factors libjpeg-turbo
-accepts, restart intervals and fill bytes. Progressive, arithmetic-coded,
-lossless, hierarchical and 12-bit frames and CMYK/YCCK (4-component)
-files raise :class:`JPEGUnsupported`, which names ROADMAP queue 1 item 6;
+The decoder takes the 8-bit frames PIL opens: sequential (SOF0/SOF1)
+and progressive (SOF2) Huffman, sequential and progressive arithmetic
+coding (SOF9/SOF10, with DAC conditioning), and lossless Huffman
+(SOF3: predictors 1-7, point transform, restarts), of 1, 3 or 4
+components, any sampling factors libjpeg-turbo accepts, restart
+intervals and fill bytes. Four components decode to PIL's inverted CMYK
+(``CMYK;I``): CMYK as it is, YCCK (Adobe transform 2) through
+libjpeg-turbo's YCC->RGB. What PIL refuses the decoder refuses with a
+:class:`JPEGError` (a corrupt container in the JAX package too): sample
+precisions other than 8 bits, 2 or more than 4 components, hierarchical
+frames, arithmetic-coded lossless frames, an empty frame (DNL), and an
+arithmetic scan that runs past one of the 64 KiB blocks PIL feeds
+libjpeg. A progressive file that libjpeg-turbo would decode with block
+smoothing (its first coefficients not all refined to the last bit)
+raises :class:`JPEGUnsupported`, which names ROADMAP queue 1 item 6;
 truncated and corrupt files raise :class:`JPEGError`.
 """
 
@@ -62,9 +72,8 @@ def _raise(rc: int, err: bytes):
     msg = err.split(b"\0", 1)[0].decode("ascii", "replace")
     if rc == _UNSUPPORTED:
         raise JPEGUnsupported(
-            f"unsupported JPEG variant: {msg}. The port decodes baseline "
-            "and extended sequential Huffman JPEGs of 1 or 3 8-bit "
-            "components; the rest is ROADMAP queue 1 item 6")
+            f"unsupported JPEG variant: {msg}. Smoothing it as "
+            "libjpeg-turbo does is ROADMAP queue 1 item 6")
     raise JPEGError(msg or f"corrupt JPEG data ({rc})")
 
 
@@ -80,7 +89,8 @@ def jpeg_header(data: bytes):
 
 
 def decode_jpeg_array(data: bytes) -> np.ndarray:
-    """JPEG bytes -> (H, W, 1 or 3) uint8, as PIL decodes them."""
+    """JPEG bytes -> (H, W, 1, 3 or 4) uint8, as PIL decodes them (four
+    bands are PIL's inverted CMYK)."""
     h, w, c = jpeg_header(data)
     if h * w > MAX_PIXELS:
         raise JPEGError(f"image size ({h * w} pixels) exceeds the limit of "

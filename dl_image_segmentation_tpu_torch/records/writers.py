@@ -116,8 +116,9 @@ def _load_mt(path: str, dltile_from_filename: bool, png_to_jpg: bool,
         info = sniff_image_info(data)
         h, w, bands = info.height, info.width, info.count
         if bands > 3:
-            raise ValueError(f"{path}: {bands} bands; the MT engine takes "
-                             "at most 3")
+            # the JAX package asserts here
+            raise AssertionError(f"{path}: {bands} bands; the MT engine "
+                                 "takes at most 3")
     key = (_tile_key_from_filename(path) if dltile_from_filename
            else storage.basename(path))
     return (image if decode else data), h, w, bands, key

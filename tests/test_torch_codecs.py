@@ -19,6 +19,7 @@ seeded bytes go through ``decode_image_bytes`` of both packages:
 """
 
 import io
+import os
 import signal
 import struct
 import zlib
@@ -307,18 +308,29 @@ def test_png_to_jpeg_equals_jax():
 
 
 def test_jpeg_variants_raise_item_6():
+    """Named for the item-6 raise it pinned until the JPEG variants were
+    ported: the frames PIL refuses (12-bit, 16-bit lossless, hierarchical,
+    2 components) now raise the JAX package's CorruptRasterError with its
+    prefix, and the progressive and CMYK files it refused decode as PIL
+    does. ``test_torch_codec_variants.py`` holds the rest."""
     a = _image(np.random.RandomState(2), (24, 24), 3)
     progressive = pil_jpeg(a, quality=80, progressive=True)
-    with pytest.raises(timage.UnsupportedFormatError, match="item 6"):
-        timage.decode_image_bytes(progressive)
     cmyk = io.BytesIO()
     Image.fromarray(a).convert("CMYK").save(cmyk, format="JPEG")
-    with pytest.raises(timage.UnsupportedFormatError, match="item 6"):
-        timage.decode_image_bytes(cmyk.getvalue())
-    with pytest.raises(JPEGUnsupported):
-        from dl_image_segmentation_tpu_torch.raster.jpeg import \
-            decode_jpeg_array
-        decode_jpeg_array(progressive)
+    for data in (progressive, cmyk.getvalue()):
+        assert_same(*both_decode(data))
+    data_dir = os.path.join(os.path.dirname(__file__), "data", "jpeg")
+    for name in ("12bit", "lossless-16bit", "hierarchical", "2comp"):
+        with open(os.path.join(data_dir, f"{name}.jpg"), "rb") as f:
+            data = f.read()
+        with pytest.raises(timage.CorruptRasterError) as got:
+            timage.decode_image_bytes(data)
+        with pytest.raises(jimage.CorruptRasterError) as want:
+            jimage.decode_image_bytes(data)
+        assert str(got.value).split(";")[0] == \
+            str(want.value).split(";")[0] == \
+            "corrupt or unreadable image container"
+        assert "item 6" not in str(got.value)
     data = pil_jpeg(a, quality=80)
     with pytest.raises(timage.CorruptRasterError, match="truncated"):
         timage.decode_image_bytes(data[:len(data) // 2])
@@ -443,10 +455,24 @@ def test_bmp_decode_equals_jax(w, h):
 
 
 def test_bmp_rle_raises_item_6():
-    data = make_bmp(np.zeros((2, 2), int), 8,
-                    np.zeros((256, 3), int), compression=1)
-    with pytest.raises(timage.UnsupportedFormatError, match="item 6"):
-        timage.decode_image_bytes(data)
+    """Named for the item-6 raise it pinned until RLE BMPs were ported:
+    RLE8 and RLE4 bitmaps (runs, an absolute run, EOL and EOF) decode to
+    the JAX package's arrays (PIL's BmpRleDecoder)."""
+    rng = np.random.RandomState(6)
+    for bits, comp, body in (
+            (8, 1, bytes([3, 7, 0, 3, 1, 2, 250, 0]) + b"\0\0" +
+             bytes([6, 9]) + b"\0\1"),
+            (4, 2, bytes([5, 0x12, 0, 3, 0x34, 0]) + b"\0\0" +
+             bytes([9, 0xAB]) + b"\0\1")):
+        pal = rng.randint(0, 256, (1 << bits, 3))
+        data = bytearray(make_bmp(np.zeros((2, 6), int), bits, pal,
+                                  compression=comp))
+        off = struct.unpack("<I", data[10:14])[0]
+        data = bytes(data[:off]) + body
+        data = data[:2] + struct.pack("<I", len(data)) + data[6:]
+        got, want = both_decode(data)
+        assert_same(got, want)
+        assert got.shape == (2, 6, 3)
 
 
 # ------------------------------------------ the JAX sniffer's faults
