@@ -26,7 +26,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    CPU with the plain versions; the card's GeoTIFF bytes must equal the
    CPU's on each path, and the image chips must be equal across all
    four runs. Once for the Sentinel-2 cloud-masked median (260 px, 13
-   bands) and once for the nearest-date mosaic (RGB at 1.0 m). The
+   bands) and once for the nearest-date mosaic (RGB at 1.0 m). The CPU
+   runs (``cpu_exports``) go in a thread beside phase 2's build, which
+   leaves most of the host's cores idle, and end before phase 3. The
    launch counters are set to 0 just before the card's runs and read
    just after: every kernel must have been launched there;
 5. serving: the U-Net at full width (TrainConfig defaults with batch 8:
@@ -268,6 +270,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    an uncompressed 8-bit BMP of its indices, and a train step fed from
    the variant shards (batch 32, bf16, ms). K1-K3 launch 0 times.
 
+16. the formats PIL opens through ``decode_png`` / ``decode_jpeg``
+   (``pil_formats_phase``, after phase 15), on the committed fixtures of
+   ``tests/data/pil``: (a) each decodes on the card's host through both
+   functions bitwise to its ``.npz`` (the JAX package's ``decode_jpeg``:
+   array, dtype and byte order), or raises its class and message prefix
+   (WebP, TIFF, PPM, TGA, SGI, PCX, QOI, ICO/CUR, IM, XBM, DDS and one
+   refusal of each failure class); (b) the eight 128 px RGB chips (WebP
+   lossless and lossy, TIFF LZW and JPEG, PPM, TGA RLE, PCX, QOI) named
+   ``.jpg`` and ``.png`` with PNG labels through ``cli.main``:
+   ``to-tfrecords --engine mt --store-as-array`` (CRCs checked, each
+   record's pixels == the ``.npz``), ``train --mode rgbarr`` from those
+   shards at the TrainConfig defaults with 4 classes and 128 px, 5 bf16
+   steps (finite, falling loss); (c) decode MP/s on one host thread of
+   each 128 px chip through ``decode_jpeg`` beside the baseline JPEG of
+   the same pixels (the port's quality-90 encode). K1-K3 launch 0 times.
+
 The second-to-last line is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script
 exits non-zero and prints no result.
@@ -286,6 +304,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -689,7 +708,14 @@ def read_tree(folder):
     return out
 
 
-def export_phase(tmp, card):
+EXPORT_MODES = {"median": ("sentinel-2:L1C", S2_BANDS, 10.0, 0),
+                "nearest": ("airbus:oneatlas:phr:v2", "red green blue", 1.0,
+                            None)}
+
+
+def export_run(tmp, mode, device, batch):
+    """One run_export of phase 4's 32 tiles in ``mode`` on ``device``:
+    (the files it wrote, its run record)."""
     import torch
     from dl_image_segmentation_tpu_torch import kernels
     from dl_image_segmentation_tpu_torch.catalog import SyntheticCatalog
@@ -697,56 +723,77 @@ def export_phase(tmp, card):
         DLSampleCreationConfig, OGRLabelDataDesc)
     from dl_image_segmentation_tpu_torch.pipeline.export import run_export
 
+    product, bands, res, mcf = EXPORT_MODES[mode]
+    cfg = DLSampleCreationConfig(
+        260, 2, res, product, bands,
+        os.path.join(tmp, f"{mode}-{device}-{batch}"), "smoke",
+        OGRLabelDataDesc(os.path.join(tmp, f"{mode}.geojson"), 0, "cls"),
+        max_cloud_fraction=mcf, catalog=SyntheticCatalog())
+    jobs = cfg.create_tile_job_configs("aoi", 2020, dt.date(2020, 11, 1))
+    if len(jobs) != 32:
+        raise AssertionError(f"{mode}: {len(jobs)} tiles, not 32")
+    if device == "cuda":
+        torch.cuda.synchronize()
+        for c in kernels.COUNTERS:
+            c.reset()
+    t0 = time.perf_counter()
+    report = run_export(jobs, n_workers=8, progress=None,
+                        batch_tiles=batch, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not report.ok or report.attempts != 1:
+        raise AssertionError(f"{mode} {device} batch={batch}: failed "
+                             f"{report.failed}, attempts {report.attempts}")
+    run = {"mode": mode, "device": device, "batch_tiles": batch,
+           "tiles": len(jobs), "seconds": secs,
+           "tiles_per_s": len(jobs) / secs,
+           "launches": ({c.name: c.count for c in kernels.COUNTERS}
+                        if device == "cuda" else None),
+           "key": jobs[0].DLTILE.key}
+    return read_tree(jobs[0].OUTFOLDER), run
+
+
+def write_export_labels(tmp):
+    """Phase 4's label polygons, one file per mode."""
+    for mode, (_, _, res, _) in EXPORT_MODES.items():
+        write_labels(os.path.join(tmp, f"{mode}.geojson"), 43, res, 8, 4,
+                     1024, seed=11)
+
+
+def cpu_exports(tmp):
+    """Phase 4's CPU reference: each mode per tile and batched with the
+    plain versions, {(mode, batch): (files, run record)}. They touch
+    neither the card nor the launch counts, so ``main`` runs them in a
+    thread beside the build (their seconds are taken beside it)."""
+    return {(mode, batch): export_run(tmp, mode, "cpu", batch)
+            for mode in EXPORT_MODES for batch in (0, 16)}
+
+
+def export_phase(tmp, card, cpu_refs):
+    from dl_image_segmentation_tpu_torch import kernels
+
     log("phase 4: end to end")
     launches = {c.name: 0 for c in kernels.COUNTERS}
     runs = []
-    modes = [("median", "sentinel-2:L1C", S2_BANDS, 10.0, 0),
-             ("nearest", "airbus:oneatlas:phr:v2", "red green blue", 1.0,
-              None)]
-    for mode, product, bands, res, mcf in modes:
-        labels = write_labels(os.path.join(tmp, f"{mode}.geojson"), 43, res,
-                              8, 4, 1024, seed=11)
+    for mode in EXPORT_MODES:
         trees = {}
         for device, batch in (("cuda", 0), ("cuda", 16), ("cpu", 0),
                               ("cpu", 16)):
-            root = os.path.join(tmp, f"{mode}-{device}-{batch}")
-            cfg = DLSampleCreationConfig(
-                260, 2, res, product, bands, root, "smoke",
-                OGRLabelDataDesc(labels, 0, "cls"), max_cloud_fraction=mcf,
-                catalog=SyntheticCatalog())
-            jobs = cfg.create_tile_job_configs("aoi", 2020,
-                                               dt.date(2020, 11, 1))
-            if len(jobs) != 32:
-                raise AssertionError(f"{mode}: {len(jobs)} tiles, not 32")
             if device == "cuda":
-                torch.cuda.synchronize()
-                for c in kernels.COUNTERS:
-                    c.reset()
-            t0 = time.perf_counter()
-            report = run_export(jobs, n_workers=8, progress=None,
-                                batch_tiles=batch, device=device)
-            if device == "cuda":
-                torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            counts = {c.name: c.count for c in kernels.COUNTERS}
-            if device == "cuda":
-                for k, v in counts.items():
+                tree, run = export_run(tmp, mode, device, batch)
+                for k, v in run["launches"].items():
                     launches[k] += v
-            if not report.ok or report.attempts != 1:
-                raise AssertionError(f"{mode} {device} batch={batch}: "
-                                     f"failed {report.failed}, attempts "
-                                     f"{report.attempts}")
-            trees[(device, batch)] = read_tree(jobs[0].OUTFOLDER)
-            run = {"mode": mode, "device": device, "batch_tiles": batch,
-                   "tiles": len(jobs), "seconds": secs,
-                   "tiles_per_s": len(jobs) / secs,
-                   "launches": counts if device == "cuda" else None,
-                   "key": jobs[0].DLTILE.key}
+            else:
+                tree, run = cpu_refs[(mode, batch)]
+            trees[(device, batch)] = tree
             runs.append(run)
-            log(f"  {mode} {device} batch_tiles={batch}: {len(jobs)} tiles "
-                f"in {secs:.3f} s = {run['tiles_per_s']:.3f} tiles/s on "
-                f"{card if device == 'cuda' else 'the host CPU'}; launches "
-                f"{counts if device == 'cuda' else '-'}")
+            where = card if device == "cuda" else \
+                "the host CPU, beside the build"
+            log(f"  {mode} {device} batch_tiles={batch}: {run['tiles']} "
+                f"tiles in {run['seconds']:.3f} s = "
+                f"{run['tiles_per_s']:.3f} tiles/s on {where}; launches "
+                f"{run['launches'] or '-'}")
         for batch in (0, 16):
             ref, got = trees[("cpu", batch)], trees[("cuda", batch)]
             if len(ref) != 64:
@@ -2641,6 +2688,149 @@ def codec_variants_phase(smi, tmp):
     return out
 
 
+PIL_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "pil")
+PIL_CHIPS = ["chip128-webp-lossless.webp", "chip128-webp-lossy.webp",
+             "chip128-tiff-lzw.tif", "chip128-tiff-jpeg.tif",
+             "chip128-ppm.ppm", "chip128-tga-rle.tga", "chip128-pcx.pcx",
+             "chip128-qoi.qoi"]
+
+
+def _msg_prefix(msg):
+    return re.split(r"[(<]", msg)[0].strip()
+
+
+def pil_formats_phase(smi, tmp):
+    """Phase 16: the formats PIL opens, through ``decode_png`` and
+    ``decode_jpeg`` (see the module docstring), on the committed
+    fixtures."""
+    import glob
+    import torch
+    from dl_image_segmentation_tpu_torch import kernels
+    from dl_image_segmentation_tpu_torch.raster.image import (
+        decode_jpeg, decode_png, encode_jpeg, encode_png)
+    from dl_image_segmentation_tpu_torch.records.proto import decode_example
+    from dl_image_segmentation_tpu_torch.records.tfrecord import read_records
+
+    log(f"phase 16: the formats PIL opens, through decode_png / "
+        f"decode_jpeg ({smi})")
+    os.makedirs(tmp, exist_ok=True)
+    for c in kernels.COUNTERS:
+        c.reset()
+    out = {"seconds": {}, "card": smi}
+    secs = out["seconds"]
+    t0 = time.perf_counter()
+    # (a) every fixture against its .npz, through both functions
+    paths = sorted(p for p in glob.glob(os.path.join(PIL_DATA, "*"))
+                   if not p.endswith(".npz"))
+    if len(paths) < 100:
+        raise AssertionError(f"{len(paths)} fixtures in {PIL_DATA}")
+    decoded, refused = {}, {}
+    for path in paths:
+        with open(path, "rb") as f:
+            data = f.read()
+        ref = np.load(path.rsplit(".", 1)[0] + ".npz")
+        name = os.path.basename(path)
+        for fn in (decode_jpeg, decode_png):
+            try:
+                got, err = fn(data), None
+            except Exception as e:  # noqa: BLE001 -- compared below
+                got, err = None, (type(e).__name__, _msg_prefix(str(e)))
+            if "array" in ref.files:
+                want = ref["array"]
+                if got is None or got.dtype.str != want.dtype.str or \
+                        got.shape != want.shape or \
+                        got.tobytes() != want.tobytes():
+                    raise AssertionError(f"{name} ({fn.__name__}): decode "
+                                         f"!= its .npz ({err})")
+            else:
+                cls = str(ref["error_class"])
+                want = (cls, "" if cls == "AssertionError" else
+                        _msg_prefix(str(ref["error_prefix"])))
+                if err is None or (err[0], "" if err[0] == "AssertionError"
+                                   else err[1]) != want:
+                    raise AssertionError(f"{name} ({fn.__name__}): {err} != "
+                                         f"the JAX outcome {want}")
+        stem = name.split("-")[0]
+        bucket = decoded if "array" in ref.files else refused
+        bucket[stem] = bucket.get(stem, 0) + 1
+    out["fixtures"] = {"decoded": decoded, "refused": refused}
+    secs["fixtures"] = time.perf_counter() - t0
+    log(f"  {sum(decoded.values())} fixtures decode bitwise to their .npz "
+        f"through decode_jpeg and decode_png ({decoded}); "
+        f"{sum(refused.values())} raise the JAX package's class and prefix "
+        f"({refused})")
+    # (b) the 128 px chips through cli.main: MT engine, decode mode
+    chips = os.path.join(tmp, "chips")
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(chips, sub))
+    pix = {}
+    for i, name in enumerate(PIL_CHIPS):
+        with open(os.path.join(PIL_DATA, name), "rb") as f:
+            data = f.read()
+        arr = np.load(os.path.join(PIL_DATA, name.rsplit(".", 1)[0]
+                                   + ".npz"))["array"]
+        stem = f"128#2#10.0#43#{i}#3512"
+        ext = "png" if i % 2 else "jpg"
+        pix[stem.replace("#", ":")] = (name, data, arr)
+        lbl = np.zeros(arr.shape[:2], np.uint8)
+        lbl[arr[:, :, 0] > 128] = 1
+        lbl[arr[:, :, 1] > 128] += 2
+        for folder, body in (("images", data), ("labels", encode_png(lbl))):
+            with open(os.path.join(chips, folder, f"{stem}.{ext}"),
+                      "wb") as f:
+                f.write(body)
+    shards = os.path.join(tmp, "shards")
+    cli_run(["to-tfrecords", "--name", "p", "--directory", chips, "--out",
+             shards, "--shards", "2", "--workers", "2", "--engine", "mt",
+             "--store-as-array"], secs, "to-tfrecords mt --store-as-array")
+    recs = [decode_example(r) for f in sorted(glob.glob(
+        os.path.join(shards, "p-*"))) for r in read_records(f,
+                                                            verify_crc=True)]
+    if len(recs) != len(PIL_CHIPS):
+        raise AssertionError(f"{len(recs)} records of {len(PIL_CHIPS)}")
+    for d in recs:
+        key = d["identifier"].bytes_list[0].decode()
+        if d["image/image_data"].bytes_list[0] != pix[key][2].tobytes():
+            raise AssertionError(f"rgbarr {pix[key][0]}: record pixels != "
+                                 "its .npz")
+    pattern = os.path.join(shards, "p-*")
+    mlog = os.path.join(tmp, "train.jsonl")
+    cli_run(["train", "--records", pattern, "--mode", "rgbarr", "--classes",
+             "4", "--image-size", "128", "--steps", "5", "--log-every", "1",
+             "--workers", "1", "--metrics-log", mlog], secs,
+            "train rgbarr from the PIL-format chips")
+    ls = [json.loads(ln)["loss"] for ln in open(mlog)]
+    if len(ls) != 5 or not all(math.isfinite(v) for v in ls) or \
+            not ls[-1] < ls[0]:
+        raise AssertionError(f"train from the PIL-format shards: losses {ls}")
+    out["losses"] = ls
+    torch.cuda.empty_cache()
+    log(f"  to-tfrecords --engine mt --store-as-array: {len(recs)} records, "
+        f"CRCs checked, pixels == the .npz; train --mode rgbarr (bf16, 128 "
+        f"px, 4 classes): loss {ls[0]:.4f} -> {ls[-1]:.4f} in 5 steps")
+    # (c) decode rates on one host thread
+    rates = {}
+    for name, data, arr in pix.values():
+        n, dt_ = rate(decode_jpeg, [data], min_s=0.3)
+        base = encode_jpeg(arr, 90)
+        nb, dtb = rate(decode_jpeg, [base], min_s=0.3)
+        mp = arr.shape[0] * arr.shape[1] / 1e6
+        rates[name] = {"mp_per_s": n * mp / dt_,
+                       "baseline_jpeg_q90_mp_per_s": nb * mp / dtb}
+        rates[name]["ratio"] = (rates[name]["mp_per_s"] /
+                                rates[name]["baseline_jpeg_q90_mp_per_s"])
+    out["decode"] = rates
+    log("  decode_jpeg MP/s on one host thread (128 px RGB; beside the "
+        "baseline q90 JPEG of the same pixels): " + "; ".join(
+            f"{k} {v['mp_per_s']:.2f} vs {v['baseline_jpeg_q90_mp_per_s']:.2f}"
+            f" ({v['ratio']:.2f}x)" for k, v in rates.items()) + f"; {smi}")
+    out["launches"] = {c.name: c.count for c in kernels.COUNTERS}
+    if any(out["launches"].values()):
+        raise AssertionError(f"phase 16 launched a kernel: {out['launches']}")
+    return out
+
+
 # A 64 x 48 RGB codestream PIL wrote with the 9/7 wavelet, the ICT and
 # one layer at rate 12 (OpenJPEG 2.5.4), and the SHA-256 of PIL's decode
 # of it: the float path's bits on the card's host, which has no PIL.
@@ -4528,6 +4718,47 @@ def parallel_phase(smi, tmp, share):
     return out
 
 
+def build_export_phases(card):
+    """Phases 2-4: the build, with phase 4's CPU exports in a thread
+    beside it; each kernel against its plain version; the end-to-end
+    exports on the card, held against the CPU's."""
+    from dl_image_segmentation_tpu_torch import kernels
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    cpu_refs = {}
+
+    def cpu_side():
+        try:
+            cpu_refs.update(cpu_exports(tmp))
+        except BaseException as e:  # noqa: BLE001 -- raised after join
+            cpu_refs["error"] = e
+    cpu_thread = threading.Thread(target=cpu_side, name="cpu-exports")
+    try:
+        write_export_labels(tmp)
+        cpu_thread.start()
+        log("phase 2: build")
+        for name, (secs, text) in kernels.build_all().items():
+            n, spilled = spills(text)
+            log(f"  {name}: built in {secs:.1f} s (wall clock, parallel "
+                f"builds, phase 4's CPU exports beside them); {n} kernels, "
+                f"{len(spilled)} with spills or a stack frame")
+            for line in text.splitlines():
+                if "Used" in line or "spill" in line or "Compiling" in line:
+                    log("   ", line.strip())
+        t0 = time.perf_counter()
+        cpu_thread.join()
+        log(f"  phase 4's CPU exports ended {time.perf_counter() - t0:.1f} "
+            f"s after the build")
+        if "error" in cpu_refs:
+            raise cpu_refs["error"]
+        rows = kernel_phase()
+        launches, runs = export_phase(tmp, card, cpu_refs)
+    finally:
+        if cpu_thread.is_alive():
+            cpu_thread.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows, launches, runs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4550,21 +4781,7 @@ def main() -> int:
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    log("phase 2: build")
-    for name, (secs, text) in kernels.build_all().items():
-        n, spilled = spills(text)
-        log(f"  {name}: built in {secs:.1f} s (wall clock, parallel builds); "
-            f"{n} kernels, {len(spilled)} with spills or a stack frame")
-        for line in text.splitlines():
-            if "Used" in line or "spill" in line or "Compiling" in line:
-                log("   ", line.strip())
-
-    rows = kernel_phase()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        launches, runs = export_phase(tmp, card)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    rows, launches, runs = build_export_phases(card)
     results = []
     for phase in (serving_phase, training_phase):
         t0 = time.perf_counter()
@@ -4586,6 +4803,9 @@ def main() -> int:
         t0 = time.perf_counter()
         variants = codec_variants_phase(smi, os.path.join(work, "variants"))
         log(f"  codec_variants_phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        pil_formats = pil_formats_phase(smi, os.path.join(work, "pil"))
+        log(f"  pil_formats_phase: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         safe = safe_phase(smi, os.path.join(work, "safe"), share)
         log(f"  safe_phase: {time.perf_counter() - t0:.1f} s")
@@ -4622,7 +4842,8 @@ def main() -> int:
                 "12": containers["launches"][c.name],
                 "13": hdf5["launches"][c.name],
                 "14": world["launches"][c.name],
-                "15": variants["launches"][c.name]},
+                "15": variants["launches"][c.name],
+                "16": pil_formats["launches"][c.name]},
             "equal": all(r["equal"] for r in cases),
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "ms": main_case["ms"], "wrapper_ms": main_case["wrapper_ms"],
@@ -4637,6 +4858,7 @@ def main() -> int:
     log(json.dumps({"remote": remote}))
     log(json.dumps({"codecs": codecs}))
     log(json.dumps({"codec_variants": variants}))
+    log(json.dumps({"pil_formats": pil_formats}))
     log(json.dumps({"safe": safe}))
     log(json.dumps({"orbax": orbax_ck}))
     log(json.dumps({"containers": containers}))

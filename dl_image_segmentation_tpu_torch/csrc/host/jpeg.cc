@@ -1837,8 +1837,9 @@ void put_dht(BitWriter& w, int index, const uint8_t* bits, const uint8_t* vals) 
 
 extern "C" {
 
-// (height, width, components) of a JPEG from its markers up to the first
-// SOS. Returns 0 or an error code (-1 truncated, -2 corrupt,
+// (height, width, components, then each component's horizontal and
+// vertical sampling factors: 11 values) of a JPEG from its markers up to
+// the first SOS. Returns 0 or an error code (-1 truncated, -2 corrupt,
 // -3 unsupported) with a message in err.
 int fc_jpeg_header(const uint8_t* data, uint64_t n, int32_t* dims,
                    char* err, int errlen) {
@@ -1851,6 +1852,10 @@ int fc_jpeg_header(const uint8_t* data, uint64_t n, int32_t* dims,
     dims[0] = d.height;
     dims[1] = d.width;
     dims[2] = d.ncomp;
+    for (int c = 0; c < 4; ++c) {
+        dims[3 + 2 * c] = c < d.ncomp ? d.comp[c].h : 0;
+        dims[4 + 2 * c] = c < d.ncomp ? d.comp[c].v : 0;
+    }
     return kOk;
 }
 

@@ -31,6 +31,7 @@ import struct
 
 import numpy as np
 
+from .codec_errors import NotEnoughImageData, TruncatedData
 from .png import MAX_PIXELS
 
 __all__ = ["BMPError", "bmp_layout", "decode_bmp_array"]
@@ -49,16 +50,29 @@ class BMPError(ValueError):
     """A BMP that does not parse or decode."""
 
 
+class BMPRefused(BMPError):
+    """A header PIL's BMP opener refuses ("Unsupported BMP ...", its
+    OSError at open)."""
+
+
+class BMPTruncated(BMPError, TruncatedData):
+    """A BMP whose header or pixel data ends early."""
+
+
+class BMPNotEnoughData(BMPError, NotEnoughImageData):
+    """An RLE stream that ends before the image is whole."""
+
+
 def _parse(data: bytes) -> dict:
     if len(data) < 18 or data[:2] != b"BM":
         raise BMPError("not a BMP file")
     (offset,) = struct.unpack("<I", data[10:14])
     (hsize,) = struct.unpack("<I", data[14:18])
     if hsize not in _HEADERS:
-        raise BMPError(f"Unsupported BMP header type ({hsize})")
+        raise BMPRefused(f"Unsupported BMP header type ({hsize})")
     hdr = data[18:14 + hsize]
     if len(hdr) < hsize - 4:
-        raise BMPError("image file is truncated (BMP header)")
+        raise BMPTruncated("image file is truncated (BMP header)")
     f = {"offset": offset, "hsize": hsize, "alpha": False}
     if hsize == 12:
         f["width"], f["height"], _, f["bits"] = struct.unpack("<HHHH", hdr[:8])
@@ -78,12 +92,12 @@ def _parse(data: bytes) -> dict:
             else:
                 extra = data[14 + hsize:14 + hsize + 12]
                 if len(extra) < 12:
-                    raise BMPError("image file is truncated (BMP masks)")
+                    raise BMPTruncated("image file is truncated (BMP masks)")
                 masks = struct.unpack("<3I", extra) + (0,)
             f["masks"] = masks
     bits, comp = f["bits"], f["compression"]
     if bits not in (1, 4, 8, 16, 24, 32):
-        raise BMPError(f"Unsupported BMP pixel depth ({bits})")
+        raise BMPRefused(f"Unsupported BMP pixel depth ({bits})")
     f["colors"] = f["colors"] or (1 << bits)
     if offset == 14 + hsize and bits <= 8:
         f["offset"] = offset + 4 * f["colors"]
@@ -97,19 +111,19 @@ def _parse(data: bytes) -> dict:
         elif not ((bits == 24 and masks[:3] == (0xFF0000, 0xFF00, 0xFF)) or
                   (bits == 16 and masks[:3] in ((0xF800, 0x7E0, 0x1F),
                                                 (0x7C00, 0x3E0, 0x1F)))):
-            raise BMPError("Unsupported BMP bitfields layout")
+            raise BMPRefused("Unsupported BMP bitfields layout")
     elif comp in (1, 2):
         if bits > 8:
             # PIL's RLE decoder hands its indices to a "P" raw decoder,
             # which an RGB image refuses
             raise BMPError(f"RLE compression of a {bits}-bit BMP")
     elif comp != 0:
-        raise BMPError(f"Unsupported BMP compression ({comp})")
+        raise BMPRefused(f"Unsupported BMP compression ({comp})")
     f["palette"] = None
     f["grey"] = False
     if bits <= 8:
         if not 0 < f["colors"] <= 65536:
-            raise BMPError(f"Unsupported BMP Palette size ({f['colors']})")
+            raise BMPRefused(f"Unsupported BMP Palette size ({f['colors']})")
         pal_pos = 14 + hsize
         pal = data[pal_pos:pal_pos + f["pad"] * f["colors"]]
         indices = (0, 255) if f["colors"] == 2 else range(f["colors"])
@@ -170,7 +184,8 @@ def _rle_indices(data: bytes, f: dict) -> np.ndarray:
                 break
             pos += 2
             if pos + 2 > n:
-                raise BMPError("not enough values to unpack (BMP RLE delta)")
+                raise BMPTruncated(
+                    "not enough values to unpack (BMP RLE delta)")
             right, up = data[pos], data[pos + 1]
             pos += 2
             out += bytes(right + up * w)
@@ -193,7 +208,7 @@ def _rle_indices(data: bytes, f: dict) -> np.ndarray:
             if pos % 2:  # word alignment, in the file's offsets
                 pos += 1
     if len(out) < need:
-        raise BMPError("not enough image data (BMP RLE)")
+        raise BMPNotEnoughData("not enough image data (BMP RLE)")
     rows = np.frombuffer(bytes(out[:need]), np.uint8).reshape(h, w)
     return rows if f["top_down"] else rows[::-1]
 
@@ -218,7 +233,7 @@ def decode_bmp_array(data: bytes) -> np.ndarray:
     row_bytes = (w * bits + 7) // 8
     need = f["offset"] + (h - 1) * stride + row_bytes
     if need > len(data):
-        raise BMPError("image file is truncated (BMP pixel data)")
+        raise BMPTruncated("image file is truncated (BMP pixel data)")
     raw = data[f["offset"]:f["offset"] + h * stride]
     raw += bytes(h * stride - len(raw))  # the last row's padding
     rows = np.frombuffer(raw, np.uint8).reshape(h, stride)

@@ -99,15 +99,19 @@ class GeoTIFF:
 # Reader
 # ---------------------------------------------------------------------------
 
+def _ifd_value_bytes(buf, fmt, total, val_bytes, big=False):
+    """The ``total`` bytes of an entry's values: inline in its value
+    field ``val_bytes``, or at the offset the field holds (fewer where
+    the data ends first)."""
+    if total <= (8 if big else 4):
+        return val_bytes[:total]
+    (off,) = struct.unpack(fmt + ("Q" if big else "I"), val_bytes)
+    return buf[off:off + total]
+
+
 def _read_ifd_values(buf, fmt, ttype, count, val_bytes, big=False):
     ch, size = _FIELD_TYPES.get(ttype, ("B", 1))
-    total = size * count
-    inline = 8 if big else 4
-    if total <= inline:
-        raw = val_bytes[:total]
-    else:
-        (off,) = struct.unpack(fmt + ("Q" if big else "I"), val_bytes)
-        raw = buf[off:off + total]
+    raw = _ifd_value_bytes(buf, fmt, size * count, val_bytes, big)
     if ttype == 2:  # ASCII
         return raw.split(b"\x00")[0].decode("latin-1")
     if ttype in (5, 10):  # rational
@@ -149,24 +153,27 @@ def _parse_ifd(data: bytes):
                              f"(offset size {offsize})")
     else:
         raise ValueError("not a TIFF")
+    (ifd_off,) = struct.unpack(fmt + ("Q" if big else "I"),
+                               data[8:16] if big else data[4:8])
     tags: Dict[int, list] = {}
-    if big:
-        (ifd_off,) = struct.unpack(fmt + "Q", data[8:16])
-        (ntags,) = struct.unpack(fmt + "Q", data[ifd_off:ifd_off + 8])
-        for i in range(ntags):
-            p = ifd_off + 8 + i * 20
-            tid, ttype, cnt = struct.unpack(fmt + "HHQ", data[p:p + 12])
-            tags[tid] = _read_ifd_values(data, fmt, ttype, cnt,
-                                         data[p + 12:p + 20], big=True)
-    else:
-        (ifd_off,) = struct.unpack(fmt + "I", data[4:8])
-        (ntags,) = struct.unpack(fmt + "H", data[ifd_off:ifd_off + 2])
-        for i in range(ntags):
-            p = ifd_off + 2 + i * 12
-            tid, ttype, cnt = struct.unpack(fmt + "HHI", data[p:p + 8])
-            tags[tid] = _read_ifd_values(data, fmt, ttype, cnt,
-                                         data[p + 8:p + 12])
+    for tid, ttype, cnt, val_bytes in _ifd_entries(data, fmt, big, ifd_off):
+        tags[tid] = _read_ifd_values(data, fmt, ttype, cnt, val_bytes, big)
     return fmt, tags
+
+
+def _ifd_entries(data: bytes, fmt: str, big: bool, ifd_off: int):
+    """(tag, type, count, value field) of each entry of the IFD at
+    ``ifd_off``; ``struct.error`` where the data ends before an entry's
+    count, and a short value field where it ends inside it."""
+    count, head, field = (fmt + "Q", fmt + "HHQ", 8) if big else \
+        (fmt + "H", fmt + "HHI", 4)
+    p = ifd_off + struct.calcsize(count)
+    (ntags,) = struct.unpack(count, data[ifd_off:p])
+    for _ in range(ntags):
+        q = p + struct.calcsize(head)
+        tid, ttype, cnt = struct.unpack(head, data[p:q])
+        yield tid, ttype, cnt, data[q:q + field]
+        p = q + field
 
 
 def _geo_info_from_tags(tags, info: "RasterInfo") -> None:

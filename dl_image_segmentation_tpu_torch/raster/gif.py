@@ -24,6 +24,7 @@ import struct
 
 import numpy as np
 
+from .codec_errors import TruncatedData
 from .lzw import gif_lzw_decode_native
 from .png import MAX_PIXELS
 
@@ -32,6 +33,10 @@ __all__ = ["GIFError", "decode_gif_array", "gif_layout"]
 
 class GIFError(ValueError):
     """A GIF that does not parse or decode."""
+
+
+class GIFTruncated(GIFError, TruncatedData):
+    """A GIF whose colour table or image data ends early."""
 
 
 def _is_identity_ramp(table: bytes) -> bool:
@@ -45,7 +50,7 @@ def _table(data: bytes, pos: int, flags: int):
         return None, pos
     size = 3 << ((flags & 7) + 1)
     if pos + size > len(data):
-        raise GIFError("image file is truncated (colour table)")
+        raise GIFTruncated("image file is truncated (colour table)")
     return data[pos:pos + size], pos + size
 
 
@@ -98,7 +103,7 @@ def _first_frame(data: bytes):
             break
         else:
             raise GIFError(f"corrupt GIF block 0x{tag:02x}")
-    raise GIFError("image not found in GIF frame (truncated?)")
+    raise GIFTruncated("image not found in GIF frame (truncated?)")
 
 
 def _palette(f):
@@ -135,7 +140,7 @@ def decode_gif_array(data: bytes) -> np.ndarray:
         stream, _ = _sub_blocks(data, f["data_pos"])
         idx, got, ended = gif_lzw_decode_native(stream, f["min_size"], npix)
         if got < npix and not ended:
-            raise GIFError(f"image file is truncated ({got} of {npix} "
+            raise GIFTruncated(f"image file is truncated ({got} of {npix} "
                            "pixels)")
         frame = idx.reshape(fh, fw)
         if f["interlace"]:

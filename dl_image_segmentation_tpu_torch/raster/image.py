@@ -22,6 +22,13 @@ A progressive JPEG that libjpeg-turbo block-smooths and HTJ2K raise
 of HDF5 the reader refuses (external storage, virtual datasets, external
 links, SOHM) name item 14.
 
+``decode_png``, ``decode_jpeg`` and ``png_to_jpeg`` open the bytes as the
+JAX package's do, through PIL: ``pil_open.py`` walks PIL's openers and
+raises PIL's exception classes, and decodes TIFF as PIL reads it, WebP,
+PPM, TGA, SGI, PCX, QOI, ICO/CUR, IM, XBM, GBR and DDS besides the
+formats above; what PIL opens and the port does not decode names ROADMAP
+queue 1 item 16. ``decode_image_bytes`` keeps its dispatch.
+
 ``sniff_image_info`` reads shape and dtype from headers without decoding
 pixels. For JPEG, PNG, GIF and BMP it reports what the port's decoder
 returns, or raises what it raises from the headers (a JPEG of another
@@ -56,10 +63,13 @@ from .jpeg import (JPEGUnsupported, decode_jpeg_array, encode_jpeg_array,
                    jpeg_header)
 from .netcdf import decode_netcdf, is_netcdf_classic, sniff_netcdf_info
 from .nitf import decode_nitf, is_nitf, sniff_nitf_info
+from .pil_open import (DecompressionBombError, UnidentifiedImageError,
+                       UnsupportedFormat, pil_decode)
 from .png import decode_png_array, decoded_layout, encode_png_array, png_header
 from .vrt import decode_vrt, is_vrt, sniff_vrt_info
 
-__all__ = ["CorruptRasterError", "UnsupportedFormatError", "decode_image",
+__all__ = ["CorruptRasterError", "DecompressionBombError",
+           "UnidentifiedImageError", "UnsupportedFormatError", "decode_image",
            "decode_image_bytes", "decode_jpeg", "decode_png", "encode_jpeg",
            "encode_png", "png_to_jpeg", "sniff_image_info"]
 
@@ -154,20 +164,24 @@ def _three_d(arr: np.ndarray, what: str) -> np.ndarray:
 
 def _decode_any(data: bytes, what: str) -> np.ndarray:
     # the JAX package's decode_png and decode_jpeg open the bytes with
-    # PIL, which takes any image container it knows, whatever the name
-    codec = _decode_pixels(data)
-    if codec is None:
-        raise _unsupported(data)
-    return _three_d(_named(codec[0], codec[1], data), what)
+    # PIL, which takes any image container it knows, whatever the name,
+    # and lets its own exceptions out
+    try:
+        arr = pil_decode(data)
+    except UnsupportedFormat as e:
+        raise UnsupportedFormatError(str(e)) from e
+    return _three_d(arr, what)
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes (or JPEG, GIF, BMP) -> (H, W, B), at most 3 bands."""
+    """Image bytes of any format PIL opens -> (H, W, B), at most 3 bands;
+    PIL's exceptions where it fails (``pil_open.py``)."""
     return _decode_any(data, "PNG")
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes (or PNG, GIF, BMP) -> (H, W, B), at most 3 bands."""
+    """Image bytes of any format PIL opens -> (H, W, B), at most 3 bands;
+    PIL's exceptions where it fails (``pil_open.py``)."""
     return _decode_any(data, "JPEG")
 
 
@@ -182,9 +196,24 @@ def encode_jpeg(array: np.ndarray, quality: int = 100) -> bytes:
     return encode_jpeg_array(array, quality)
 
 
+# the PIL mode Image.fromarray gives an array, for the ones PIL's JPEG
+# writer refuses
+_FROMARRAY_MODES = {("<u2", 1): "I;16", (">u2", 1): "I;16B", ("<i4", 1): "I",
+                    ("<f4", 1): "F", ("|u1", 2): "LA", ("|u1", 4): "RGBA"}
+
+
 def png_to_jpeg(data: bytes, quality: int = 100) -> bytes:
-    """PNG -> JPEG transcode."""
-    return encode_jpeg(decode_png(data), quality=quality)
+    """Image bytes -> JPEG, as the JAX package transcodes them (PIL's
+    ``Image.fromarray(decode_png(data)).save(..., "JPEG")``): a bilevel
+    image is written as grey 0/255, the modes PIL's JPEG writer refuses
+    raise its ``OSError``."""
+    arr = decode_png(data)
+    if arr.dtype == bool:
+        arr = arr.view(np.uint8)
+    mode = _FROMARRAY_MODES.get((arr.dtype.str, arr.shape[2]))
+    if mode is not None:
+        raise OSError(f"cannot write mode {mode} as JPEG")
+    return encode_jpeg(arr, quality=quality)
 
 
 def _jp2_array(data: bytes) -> np.ndarray:

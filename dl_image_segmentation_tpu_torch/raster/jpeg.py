@@ -34,10 +34,11 @@ import os
 import numpy as np
 
 from .. import _build
+from .codec_errors import TruncatedData
 from .png import MAX_PIXELS
 
 __all__ = ["JPEGError", "JPEGUnsupported", "decode_jpeg_array",
-           "encode_jpeg_array", "jpeg_header"]
+           "encode_jpeg_array", "jpeg_frame", "jpeg_header"]
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "host", "jpeg.cc")
@@ -53,11 +54,15 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_uint64]),
 }
-_UNSUPPORTED = -3
+_TRUNCATED, _UNSUPPORTED = -1, -3
 
 
 class JPEGError(ValueError):
     """A JPEG that does not parse or decode (truncated or corrupt)."""
+
+
+class JPEGTruncated(JPEGError, TruncatedData):
+    """A JPEG whose markers or scan data end early."""
 
 
 class JPEGUnsupported(JPEGError):
@@ -74,18 +79,28 @@ def _raise(rc: int, err: bytes):
         raise JPEGUnsupported(
             f"unsupported JPEG variant: {msg}. Smoothing it as "
             "libjpeg-turbo does is ROADMAP queue 1 item 6")
+    if rc == _TRUNCATED:
+        raise JPEGTruncated(msg)
     raise JPEGError(msg or f"corrupt JPEG data ({rc})")
+
+
+def jpeg_frame(data: bytes):
+    """(height, width, [(h, v) sampling factors of each component]) of
+    the frame, from the markers before the first scan."""
+    dims = np.zeros(11, np.int32)
+    err = ctypes.create_string_buffer(256)
+    rc = _lib().fc_jpeg_header(data, len(data), dims.ctypes.data, err, 256)
+    if rc:
+        _raise(rc, err.raw)
+    return int(dims[0]), int(dims[1]), [
+        (int(dims[3 + 2 * c]), int(dims[4 + 2 * c])) for c in range(dims[2])]
 
 
 def jpeg_header(data: bytes):
     """(height, width, components) from the markers before the first
     scan."""
-    dims = np.zeros(3, np.int32)
-    err = ctypes.create_string_buffer(256)
-    rc = _lib().fc_jpeg_header(data, len(data), dims.ctypes.data, err, 256)
-    if rc:
-        _raise(rc, err.raw)
-    return int(dims[0]), int(dims[1]), int(dims[2])
+    h, w, sampling = jpeg_frame(data)
+    return h, w, len(sampling)
 
 
 def decode_jpeg_array(data: bytes) -> np.ndarray:

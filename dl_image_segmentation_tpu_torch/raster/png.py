@@ -20,11 +20,13 @@ grey+alpha 16-bit     uint8, 4 bands: grey, grey, grey, alpha (high
 RGBA 8 / 16-bit       uint8, 4 bands (16-bit: the high byte)
 ====================  =============================================
 
-Chunks are parsed here. The CRC of every chunk before the first IDAT is
-checked, as PIL checks it, and so is every IDAT's. IDAT chunks are
-joined and inflated with stdlib ``zlib``; the scanlines are unfiltered
-and de-interlaced (Adam7) in C++ (``csrc/host/png.cc``, built with g++
-into ``build/`` at first use and called through ctypes). The pixel
+Chunks are parsed here as PIL reads them: the CRC of every chunk before
+the first IDAT is checked, the IDAT chunks' are not (PIL's loader skips
+them), and the image data ends at the first chunk after it of another
+type. The IDAT chunks are joined and inflated with stdlib ``zlib``; the
+scanlines are unfiltered and de-interlaced (Adam7) in C++
+(``csrc/host/png.cc``, built with g++ into ``build/`` at first use and
+called through ctypes). The pixel
 count is capped from the header, before anything is allocated, at PIL's
 decompression-bomb limit.
 
@@ -44,6 +46,7 @@ import zlib
 import numpy as np
 
 from .. import _build
+from .codec_errors import TruncatedData, UnknownFilter
 
 __all__ = ["MAX_PIXELS", "PNGError", "decode_png_array", "decoded_layout",
            "encode_png_array", "png_header"]
@@ -71,6 +74,14 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
 
 class PNGError(ValueError):
     """A PNG that does not parse or decode."""
+
+
+class PNGTruncated(PNGError, TruncatedData):
+    """PNG image data that ends before the image is whole."""
+
+
+class PNGFilterError(PNGError, UnknownFilter):
+    """A scanline of a filter type past 4."""
 
 
 def _lib():
@@ -104,23 +115,36 @@ def decoded_layout(depth: int, ct: int):
     return (3 if ct == 3 else _CHANNELS[ct]), "uint8"
 
 
+_CID = frozenset(b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
+                 b"0123456789_")
+
+
 def _chunks(data: bytes):
-    """(type, body) of each chunk up to IEND or to the last whole chunk
-    of a truncated file (the decoder then finds its image data short);
-    checks the CRCs of every chunk before the first IDAT and of every
-    IDAT."""
+    """(type, body) of each chunk as PIL reads them, up to IEND or the
+    last whole chunk of a truncated file (the decoder then finds its
+    image data short). The CRCs of the chunks before the first IDAT are
+    checked; the IDAT chunks' are not, a truncated IDAT gives what the
+    file holds of it, and the image data ends at the first other chunk
+    (an invalid chunk type there is PIL's SyntaxError)."""
     pos = 8
     n = len(data)
     seen_idat = False
     while pos + 8 <= n:
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+        if seen_idat:
+            if not all(c in _CID for c in ctype):
+                raise SyntaxError(f"broken PNG file (chunk {ctype!r})")
+            if ctype != b"IDAT":
+                return
         end = pos + 8 + length
         if length >= 1 << 31 or end + 4 > n:
+            if ctype == b"IDAT":
+                yield ctype, data[pos + 8:end]
             return
         body = data[pos + 8:end]
         if ctype == b"IDAT":
             seen_idat = True
-        if not seen_idat or ctype == b"IDAT":
+        else:
             (crc,) = struct.unpack(">I", data[end:end + 4])
             if zlib.crc32(body, zlib.crc32(ctype)) != crc:
                 raise PNGError(f"broken PNG file (bad checksum in {ctype!r})")
@@ -128,6 +152,15 @@ def _chunks(data: bytes):
         if ctype == b"IEND":
             return
         pos = end + 4
+
+
+def _filter_error(raw: bytearray, stride: int, il: int):
+    """PIL unfilters the rows as the data comes: a whole row read so far
+    with a filter type past 4 fails before what comes after it."""
+    whole = len(raw) // stride * stride
+    if not il and whole and max(raw[:whole:stride]) > 4:
+        return PNGFilterError("unknown PNG filter type")
+    return None
 
 
 def decode_png_array(data: bytes) -> np.ndarray:
@@ -140,34 +173,42 @@ def decode_png_array(data: bytes) -> np.ndarray:
     lib = _lib()
     need = lib.fc_png_raw_size(w, h, depth, channels, il)
     inflater = zlib.decompressobj()
-    parts = []
-    got = 0
+    raw = bytearray()
     palette = None
-    for ctype, body in _chunks(data):
-        if ctype == b"PLTE":
-            palette = body
-        elif ctype == b"IDAT" and got < need:
-            try:
-                part = inflater.decompress(body, need - got)
-            except zlib.error as e:
-                raise PNGError(f"corrupt PNG image data: {e}") from e
-            parts.append(part)
-            got += len(part)
-        elif ctype == b"IEND":
-            break
-    if got < need:
-        raise PNGError(f"image file is truncated ({got} of {need} bytes of "
-                       "image data)")
+    stride = 1 + (w * channels * depth + 7) // 8
+    try:
+        for ctype, body in _chunks(data):
+            if ctype == b"PLTE":
+                palette = body
+            elif ctype == b"IDAT":
+                try:
+                    raw += inflater.decompress(body, need - len(raw))
+                except zlib.error as e:
+                    raise _filter_error(raw, stride, il) or PNGError(
+                        f"corrupt PNG image data: {e}") from e
+                if len(raw) >= need:
+                    break
+            elif ctype == b"IEND":
+                break
+    except SyntaxError as e:
+        bad = _filter_error(raw, stride, il)
+        if bad:
+            raise bad from e
+        raise
+    if len(raw) < need:
+        raise _filter_error(raw, stride, il) or PNGTruncated(
+            f"image file is truncated ({len(raw)} of {need} bytes of image "
+            "data)")
     if ct == 3 and (palette is None or not palette
                     or len(palette) % 3 or len(palette) > 768):
         raise PNGError("PNG palette missing or malformed")
-    raw = b"".join(parts)
+    raw = bytes(raw)
     samples = np.empty((h, w, channels),
                        np.uint16 if depth == 16 else np.uint8)
     rc = lib.fc_png_unfilter(raw, len(raw), w, h, depth, channels, il,
                              samples.ctypes.data)
     if rc == -1:
-        raise PNGError("unknown PNG filter type")
+        raise PNGFilterError("unknown PNG filter type")
     if rc:
         raise PNGError(f"PNG reconstruction failed ({rc})")
     if ct == 3:

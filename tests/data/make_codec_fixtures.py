@@ -16,6 +16,15 @@ The JPEG variants come from ``jpeg/jpeg_writer.c``, built here against
 does not write) and from byte edits (hierarchical, arithmetic lossless,
 DNL). RLE BMPs are encoded here. Subsampled and sYCC JPEG 2000 files,
 which PIL cannot write, go through ctypes into PIL's bundled OpenJPEG.
+
+``python tests/data/make_codec_fixtures.py pil`` writes ``tests/data/pil``
+instead: a small file of each format and mode PIL opens that the port's
+``decode_png`` / ``decode_jpeg`` decode (WebP, TIFF, PPM, TGA, SGI, PCX,
+QOI, ICO/CUR, IM, XBM, DDS), mostly PIL-written, a few written here
+(plain PNM, SGI RLE, baseline TIFFs PIL does not write, BC4 DDS, CUR),
+and refusals of each failure class, each beside an ``.npz`` of the JAX
+package's ``decode_jpeg`` outcome (the array, or the class name and
+message).
 """
 
 from __future__ import annotations
@@ -475,6 +484,358 @@ def jp2_fixtures(tmp: str):
     yield "grey-subsampled", enc([grey[::1, ::2, 0]], ((2, 1),), 16, 16, 2)
 
 
+# --------------------------------------------------- PIL's other formats
+
+
+def _pil(Image, im, fmt: str, **kw) -> bytes:
+    buf = io.BytesIO()
+    im.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def sgi_rle(planes: np.ndarray, bpc: int = 1) -> bytes:
+    """An RLE SGI file (PIL writes only raw ones): rows bottom-up, one
+    offset/length table entry a row and band."""
+    h, w, z = planes.shape
+    head = bytearray(512)
+    struct.pack_into(">HBBHHHH", head, 0, 474, 1, bpc, 3 if z > 1 else 2,
+                     w, h, z)
+    rows = []
+    for band in range(z):
+        for y in range(h):
+            row = planes[h - 1 - y, :, band]
+            out = bytearray()
+            x = 0
+            while x < w:
+                run = 1
+                while x + run < w and run < 126 and row[x + run] == row[x]:
+                    run += 1
+                if run > 2:
+                    out += _sgi_word(run, bpc) + _sgi_word(int(row[x]), bpc)
+                    x += run
+                    continue
+                lit = 1
+                while x + lit < w and lit < 126 and not (
+                        x + lit + 2 < w and row[x + lit] == row[x + lit + 1]
+                        == row[x + lit + 2]):
+                    lit += 1
+                out += _sgi_word(0x80 | lit, bpc)
+                for v in row[x:x + lit]:
+                    out += _sgi_word(int(v), bpc)
+                x += lit
+            out += _sgi_word(0, bpc)
+            rows.append(bytes(out))
+    n = len(rows)
+    offs, pos = [], 512 + 8 * n
+    for r in rows:
+        offs.append(pos)
+        pos += len(r)
+    table = struct.pack(f">{n}I", *offs) + struct.pack(
+        f">{n}I", *[len(r) for r in rows])
+    return bytes(head) + table + b"".join(rows)
+
+
+def _sgi_word(v: int, bpc: int) -> bytes:
+    return struct.pack(">H" if bpc == 2 else ">B", v)
+
+
+def plain_pnm(magic: bytes, a: np.ndarray, maxval: int = 255) -> bytes:
+    h, w = a.shape[:2]
+    head = magic + b"\n# a comment\n" + f"{w} {h}\n".encode()
+    if magic != b"P1":
+        head += f"{maxval}\n".encode()
+    body = " ".join(str(int(v)) for v in a.reshape(-1))
+    return head + body.encode() + b"\n"
+
+
+def tiff(a: np.ndarray, photometric: int, order: str = "<",
+         extra=None, sample_format: int = 1, tile=None,
+         orientation=None) -> bytes:
+    """A baseline uncompressed TIFF of ``a`` (H, W, B), one strip or
+    tiles, with the tags PIL reads to pick its mode."""
+    a = np.ascontiguousarray(a)
+    h, w, spp = a.shape
+    bps = a.dtype.itemsize * 8
+    data_blocks = []
+    if tile:
+        th, tw = tile
+        for y in range(0, h, th):
+            for x in range(0, w, tw):
+                blk = np.zeros((th, tw, spp), a.dtype)
+                part = a[y:y + th, x:x + tw]
+                blk[:part.shape[0], :part.shape[1]] = part
+                data_blocks.append(blk.astype(a.dtype.newbyteorder(
+                    order)).tobytes())
+    else:
+        data_blocks.append(a.astype(a.dtype.newbyteorder(order)).tobytes())
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bps] * spp),
+               (259, 3, [1]), (262, 3, [photometric]), (277, 3, [spp]),
+               (284, 3, [1]), (339, 3, [sample_format] * spp)]
+    if orientation:
+        entries.append((274, 3, [orientation]))
+    if extra is not None:
+        entries.append((338, 3, list(extra)))
+    head = (b"II*\0" if order == "<" else b"MM\0*")
+    pos = 8
+    blobs = b""
+    offsets = []
+    for blk in data_blocks:
+        offsets.append(pos + len(blobs))
+        blobs += blk
+    counts = [len(b) for b in data_blocks]
+    if tile:
+        entries += [(322, 4, [tile[1]]), (323, 4, [tile[0]]),
+                    (324, 4, offsets), (325, 4, counts)]
+    else:
+        entries += [(273, 4, offsets), (278, 4, [h]), (279, 4, counts)]
+    entries.sort()
+    ifd_at = 8 + len(blobs)
+    extra_at = ifd_at + 2 + 12 * len(entries) + 4
+    ifd = struct.pack(order + "H", len(entries))
+    tail = b""
+    for tag, typ, vals in entries:
+        size = 2 if typ == 3 else 4
+        raw = struct.pack(order + ("H" if typ == 3 else "I") * len(vals),
+                          *vals)
+        if len(raw) <= 4:
+            ifd += struct.pack(order + "HHI", tag, typ, len(vals)) + \
+                raw.ljust(4, b"\0")
+        else:
+            ifd += struct.pack(order + "HHII", tag, typ, len(vals),
+                               extra_at + len(tail))
+            tail += raw
+        del size
+    ifd += b"\0\0\0\0"
+    return head + struct.pack(order + "I", ifd_at) + blobs + ifd + tail
+
+
+def dds_bc4(h: int, w: int, rng) -> bytes:
+    """A DDS of BC4 blocks (FourCC ATI1; PIL writes no BC4)."""
+    head = bytearray(128)
+    head[:4] = b"DDS "
+    struct.pack_into("<7I", head, 4, 124, 0x1007, h, w, 0, 0, 0)
+    struct.pack_into("<4I", head, 76, 32, 0x4, struct.unpack(
+        "<I", b"ATI1")[0], 0)
+    blocks = ((h + 3) // 4) * ((w + 3) // 4)
+    return bytes(head) + rng.randint(0, 256, blocks * 8).astype(
+        np.uint8).tobytes()
+
+
+def pil_fixtures():
+    """One small PIL-made (or, where PIL writes none, hand-made) file of
+    each format and mode ``decode_png`` / ``decode_jpeg`` reach, odd
+    sizes and 1x1 among them, and refusals of each failure class."""
+    from PIL import Image
+    rng = np.random.RandomState(16)
+    rgb = chip(16, 21, 17)
+    grey = chip(17, 21, 17, 1)[:, :, 0]
+    rgba = np.dstack([rgb, chip(18, 21, 17, 1)])
+    sq = chip(20, 32, 32)
+    one = chip(21, 1, 1)
+    im, g = Image.fromarray(rgb), Image.fromarray(grey)
+    pal = im.convert("P", palette=Image.ADAPTIVE, colors=37)
+    i16 = Image.fromarray((grey.astype(np.uint16) * 257 + 3))
+    # WebP
+    yield "webp-lossless-rgb.webp", _pil(Image, im, "WEBP", lossless=True)
+    yield "webp-lossy-rgb.webp", _pil(Image, im, "WEBP", quality=80)
+    yield "webp-lossy-q10-32.webp", _pil(Image, Image.fromarray(sq), "WEBP",
+                                         quality=10)
+    yield "webp-lossy-1x1.webp", _pil(Image, Image.fromarray(one), "WEBP",
+                                      quality=90)
+    yield "webp-lossless-1x1.webp", _pil(Image, Image.fromarray(one), "WEBP",
+                                         lossless=True)
+    yield "webp-lossless-rgba.webp", _pil(Image, Image.fromarray(rgba),
+                                          "WEBP", lossless=True)
+    yield "webp-lossy-rgba.webp", _pil(Image, Image.fromarray(rgba), "WEBP",
+                                       quality=70)
+    yield "webp-icc.webp", _pil(Image, im, "WEBP", quality=60,
+                                icc_profile=b"\0" * 64)
+    frames = [Image.fromarray(chip(30 + k, 21, 17)) for k in range(3)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:],
+                   duration=50, quality=50)
+    yield "webp-animated.webp", buf.getvalue()
+    # TIFF
+    yield "tiff-raw-rgb.tif", _pil(Image, im, "TIFF")
+    yield "tiff-lzw-rgb.tif", _pil(Image, im, "TIFF", compression="tiff_lzw")
+    yield "tiff-deflate-grey.tif", _pil(Image, g, "TIFF",
+                                        compression="tiff_deflate")
+    yield "tiff-packbits-grey.tif", _pil(Image, g, "TIFF",
+                                         compression="packbits")
+    yield "tiff-jpeg-rgb.tif", _pil(Image, im, "TIFF", compression="jpeg",
+                                    quality=75)
+    yield "tiff-jpeg-ycbcr.tif", _pil(Image, im.convert("YCbCr"), "TIFF",
+                                      compression="jpeg", quality=75)
+    yield "tiff-jpeg-grey.tif", _pil(Image, g, "TIFF", compression="jpeg")
+    yield "tiff-bilevel.tif", _pil(Image, g.point(lambda v: 255 * (v > 128))
+                                   .convert("1"), "TIFF")
+    yield "tiff-miniswhite.tif", tiff(grey[:, :, None], 0)
+    yield "tiff-palette.tif", _pil(Image, pal, "TIFF")
+    yield "tiff-i16.tif", _pil(Image, i16, "TIFF")
+    yield "tiff-i16-bigendian.tif", tiff(np.asarray(i16)[:, :, None], 1, ">")
+    yield "tiff-int32.tif", _pil(Image, Image.fromarray(
+        grey.astype(np.int32) * 70000 - 5), "TIFF")
+    yield "tiff-int16.tif", tiff((grey.astype(np.int16) * 100 - 9000)
+                                 [:, :, None], 1, sample_format=2)
+    yield "tiff-float32.tif", _pil(Image, Image.fromarray(
+        grey.astype(np.float32) / 7), "TIFF")
+    yield "tiff-la.tif", _pil(Image, Image.fromarray(rgba[:, :, ::2]), "TIFF")
+    yield "tiff-cmyk.tif", _pil(Image, im.convert("CMYK"), "TIFF")
+    yield "tiff-rgb16.tif", tiff(rgb.astype(np.uint16) * 257, 2)
+    yield "tiff-tiled-rgb.tif", tiff(rgb, 2, tile=(16, 16))
+    yield "tiff-orientation-6.tif", tiff(rgb, 2, orientation=6)
+    yield "tiff-1x1.tif", _pil(Image, Image.fromarray(one), "TIFF")
+    from dl_image_segmentation_tpu.raster.geotiff import encode_geotiff
+    yield "tiff-chip-lzw-tiled-grey.tif", encode_geotiff(grey, tile_size=16)
+    yield "refuse-tiff-3band-uint16.tif", tiff(rgb.astype(np.uint16), 1)
+    yield "refuse-tiff-4band-no-extrasamples.tif", tiff(rgba, 1)
+    yield "refuse-tiff-13band.tif", encode_geotiff(
+        (chip(22, 8, 8, 13).astype(np.uint16) * 9), tile_size=16)
+    # PPM family
+    yield "ppm-rgb.ppm", _pil(Image, im, "PPM")
+    yield "ppm-grey.pgm", _pil(Image, g, "PPM")
+    yield "ppm-bilevel.pbm", _pil(Image, g.convert("1"), "PPM")
+    yield "ppm-16bit.pgm", _pil(Image, i16, "PPM")
+    yield "ppm-maxval-1000.pgm", b"P5 17 21 1000\n" + (
+        grey.astype(">u2") * 3).tobytes()
+    yield "ppm-maxval-15.ppm", b"P6\n17 21\n15\n" + (rgb // 17).tobytes()
+    yield "ppm-float.pfm", _pil(Image, Image.fromarray(
+        grey.astype(np.float32) / 3), "PPM")
+    yield "ppm-plain-p1.pbm", plain_pnm(b"P1", (grey > 128).astype(int))
+    yield "ppm-plain-p2.pgm", plain_pnm(b"P2", grey)
+    yield "ppm-plain-p3.ppm", plain_pnm(b"P3", rgb // 5, 51)
+    yield "ppm-1x1.ppm", _pil(Image, Image.fromarray(one), "PPM")
+    # TGA
+    yield "tga-rgb.tga", _pil(Image, im, "TGA")
+    yield "tga-rle-rgb.tga", _pil(Image, im, "TGA", compression="tga_rle")
+    yield "tga-palette.tga", _pil(Image, pal, "TGA")
+    yield "tga-grey.tga", _pil(Image, g, "TGA")
+    yield "tga-rle-grey.tga", _pil(Image, g, "TGA", compression="tga_rle")
+    yield "tga-la.tga", _pil(Image, Image.fromarray(rgba[:, :, ::2]), "TGA")
+    yield "tga-topleft.tga", _pil(Image, im, "TGA", orientation=1)
+    yield "tga-rgba.tga", _pil(Image, Image.fromarray(rgba), "TGA")
+    # SGI
+    yield "sgi-rgb.sgi", _pil(Image, im, "SGI")
+    yield "sgi-grey.bw", _pil(Image, g, "SGI")
+    yield "sgi-rgb-16bit.sgi", _pil(Image, im, "SGI", bpc=2)
+    yield "sgi-rle-rgb.sgi", sgi_rle(rgb)
+    yield "sgi-rle-grey-16bit.sgi", sgi_rle(
+        grey[:, :, None].astype(np.uint16) * 257, 2)
+    yield "sgi-rgba.sgi", _pil(Image, Image.fromarray(rgba), "SGI")
+    # PCX
+    yield "pcx-rgb.pcx", _pil(Image, im, "PCX")
+    yield "pcx-grey.pcx", _pil(Image, g, "PCX")
+    yield "pcx-palette.pcx", _pil(Image, pal, "PCX")
+    yield "pcx-bilevel.pcx", _pil(Image, g.convert("1"), "PCX")
+    # QOI
+    yield "qoi-rgb.qoi", _pil(Image, im, "QOI")
+    yield "qoi-rgba.qoi", _pil(Image, Image.fromarray(rgba), "QOI")
+    yield "qoi-1x1.qoi", _pil(Image, Image.fromarray(one), "QOI")
+    # ICO / CUR
+    sq_im = Image.fromarray(sq)
+    yield "ico-png.ico", _pil(Image, sq_im, "ICO", sizes=[(32, 32)])
+    yield "ico-sizes.ico", _pil(Image, sq_im, "ICO",
+                                sizes=[(16, 16), (24, 24), (32, 32)])
+    ico_bmp = _pil(Image, sq_im, "ICO", sizes=[(32, 32)],
+                   bitmap_format="bmp")
+    yield "ico-bmp.ico", ico_bmp
+    yield "ico-bmp-palette.ico", _pil(Image, sq_im.convert(
+        "P", palette=Image.ADAPTIVE, colors=16), "ICO", sizes=[(32, 32)],
+        bitmap_format="bmp")
+    yield "cur-bmp.cur", ico_bmp[:2] + b"\2" + ico_bmp[3:]
+    # IM
+    for mode, name in (("RGB", "rgb"), ("L", "grey"), ("P", "palette"),
+                       ("F", "float"), ("I", "int32"), ("LA", "la"),
+                       ("1", "bilevel")):
+        src = {"P": pal, "F": Image.fromarray(grey.astype(np.float32) / 3),
+               "I": Image.fromarray(grey.astype(np.int32) * 9),
+               "LA": Image.fromarray(rgba[:, :, ::2])}.get(mode)
+        yield f"im-{name}.im", _pil(Image, src or im.convert(mode), "IM")
+    yield "im-i16.im", _pil(Image, i16, "IM")
+    # XBM
+    yield "xbm-bilevel.xbm", _pil(Image, g.convert("1"), "XBM")
+    yield "xbm-hotspot.xbm", _pil(Image, g.convert("1"), "XBM",
+                                  hotspot=(3, 4))
+    # DDS
+    yield "dds-rgb.dds", _pil(Image, im, "DDS")
+    yield "dds-rgba.dds", _pil(Image, Image.fromarray(rgba), "DDS")
+    yield "dds-grey.dds", _pil(Image, g, "DDS")
+    yield "dds-la.dds", _pil(Image, Image.fromarray(rgba[:, :, ::2]), "DDS")
+    for fmt in ("DXT1", "DXT3", "DXT5", "BC2", "BC3"):
+        yield f"dds-{fmt.lower()}.dds", _pil(Image, Image.fromarray(rgba),
+                                            "DDS", pixel_format=fmt)
+    yield "dds-bc5.dds", _pil(Image, im, "DDS", pixel_format="BC5")
+    yield "dds-bc4.dds", dds_bc4(21, 17, rng)
+    # the other containers and codecs, and the failure classes
+    yield "png-rgb.png", _pil(Image, im, "PNG")
+    yield "jpeg-rgb.jpg", _pil(Image, im, "JPEG", quality=80)
+    yield "gif-rgb.gif", _pil(Image, im, "GIF")
+    yield "bmp-rgb.bmp", _pil(Image, im, "BMP")
+    png = _pil(Image, im, "PNG")
+    yield "refuse-truncated-png.png", png[:len(png) // 2]
+    jpg = _pil(Image, im, "JPEG", quality=80)
+    yield "refuse-truncated-jpeg.jpg", jpg[:len(jpg) // 2]
+    yield "refuse-jpeg-header-only.jpg", jpg[:20]
+    bmp = _pil(Image, im, "BMP")
+    yield "refuse-truncated-bmp.bmp", bmp[:len(bmp) // 2]
+    webp = _pil(Image, im, "WEBP", quality=80)
+    yield "refuse-truncated-webp.webp", webp[:len(webp) // 2]
+    yield "refuse-unidentified-random.bin", rng.randint(
+        0, 256, 300).astype(np.uint8).tobytes()
+    yield "refuse-unidentified-zeros.bin", bytes(64)
+    yield "refuse-unidentified-text.txt", b"hello, world\n" * 8
+    yield "refuse-bomb.ppm", b"P6 20000 20000 255\n" + bytes(16)
+    yield "refuse-maxval.pgm", b"P5 4 4 70000\n" + bytes(32)
+    yield "refuse-sgi-mode.sgi", bytes(bytearray(b"\x01\xda\x00\x01\x00\x05"
+                                                 ) + bytes(506))
+    yield "refuse-grib-stub.grb", b"GRIB\0\0\0\x01" + bytes(40)
+    two = _two_idat(png)
+    yield "refuse-png-bad-chunk.png", two[:two.index(b"IDAT", 60)] + \
+        b"I\x01AT" + two[two.index(b"IDAT", 60) + 4:]
+    # 128 px RGB chips of one field, a format each: the chip path's
+    # records, training and decode rates on the card's host
+    c128 = chip(160, noise=0.0)
+    big = Image.fromarray(c128)
+    yield "chip128-webp-lossless.webp", _pil(Image, big, "WEBP",
+                                             lossless=True)
+    yield "chip128-webp-lossy.webp", _pil(Image, big, "WEBP", quality=80)
+    yield "chip128-tiff-lzw.tif", _pil(Image, big, "TIFF",
+                                       compression="tiff_lzw")
+    yield "chip128-tiff-jpeg.tif", _pil(Image, big, "TIFF",
+                                        compression="jpeg", quality=90)
+    yield "chip128-ppm.ppm", _pil(Image, big, "PPM")
+    yield "chip128-tga-rle.tga", _pil(Image, big, "TGA",
+                                      compression="tga_rle")
+    yield "chip128-pcx.pcx", _pil(Image, big, "PCX")
+    yield "chip128-qoi.qoi", _pil(Image, big, "QOI")
+
+
+def _two_idat(png: bytes) -> bytes:
+    """The PNG with its image data split over two IDAT chunks."""
+    import zlib
+    i = png.index(b"IDAT") - 4
+    (n,) = struct.unpack(">I", png[i:i + 4])
+    body = png[i + 8:i + 8 + n]
+
+    def chunk(t, b):
+        return struct.pack(">I", len(b)) + t + b + struct.pack(
+            ">I", zlib.crc32(t + b))
+    return (png[:i] + chunk(b"IDAT", body[:n // 2])
+            + chunk(b"IDAT", body[n // 2:]) + png[i + 12 + n:])
+
+
+def jax_pil_outcome(data: bytes) -> dict:
+    """The JAX package's ``decode_jpeg`` (PIL's decode): the array, or
+    the class name and message of what it raises."""
+    from dl_image_segmentation_tpu.raster import image as jimage
+    try:
+        arr = jimage.decode_jpeg(data)
+    except Exception as e:  # noqa: BLE001 -- the outcome is the fixture
+        return {"error_class": np.array(type(e).__name__),
+                "error_prefix": np.array(str(e))}
+    return {"array": arr}
+
+
 # ------------------------------------------------------------- all
 
 
@@ -488,8 +849,25 @@ def jax_outcome(data: bytes) -> dict:
     return {"array": arr}
 
 
+def write_pil_fixtures():
+    """``tests/data/pil``: each file beside the JAX package's
+    ``decode_jpeg`` outcome."""
+    out = os.path.join(HERE, "pil")
+    os.makedirs(out, exist_ok=True)
+    for name, data in pil_fixtures():
+        path = os.path.join(out, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        np.savez_compressed(os.path.splitext(path)[0] + ".npz",
+                            **jax_pil_outcome(data))
+        print(path, len(data))
+
+
 def main():
     sys.path.insert(0, ROOT)
+    if sys.argv[1:] == ["pil"]:
+        write_pil_fixtures()
+        return
     with tempfile.TemporaryDirectory() as tmp:
         for sub, ext, gen in (("jpeg", "jpg", jpeg_fixtures(tmp)),
                               ("bmp", "bmp", bmp_fixtures()),

@@ -199,8 +199,16 @@ def test_png_bomb_cap_and_corruption_raise():
     bad_crc[30] ^= 1
     with pytest.raises(timage.CorruptRasterError, match="checksum"):
         timage.decode_image_bytes(bytes(bad_crc))
+    # a cut into the pixel data is truncated; one into the zlib stream's
+    # Adler-32 after the last row still decodes, as PIL (the JAX
+    # package's fallback) reads it
     with pytest.raises(timage.CorruptRasterError, match="truncated"):
-        timage.decode_image_bytes(good[:-20])
+        timage.decode_image_bytes(good[:-24])
+    with pytest.raises(Exception, match="truncated"):
+        jimage.decode_image_bytes(good[:-24])
+    np.testing.assert_array_equal(
+        timage.decode_image_bytes(good[:-20]).array,
+        jimage.decode_image_bytes(good[:-20]).array)
 
 
 # ---------------------------------------------------------------- JPEG
