@@ -220,16 +220,20 @@ def cmd_train(args) -> int:
         remaining = max(0, args.steps - done_already)
     # scale="raw": the feed keeps the SOURCE dtype (4x less host copy
     # and H2D traffic for uint8); the step scales on the card
-    # in a world every rank reads every shard, so each holds the same
+    # in a world every rank reads every shard, so each deals the same
     # global batches of --batch-size (the feed's order does not depend on
-    # its threads); place_batch keeps this rank's rows (and band)
+    # its threads) and decodes only its data rows of them; place_rows
+    # keeps its band. A pool (--scan-steps) holds the global examples
+    rows = (None if args.scan_steps > 0
+            else trainer.data_rows(args.batch_size))
     feed = TFRecordFeed(args.records, args.mode,
                         batch_size=args.batch_size,
                         image_size=args.image_size,
                         shuffle_buffer=args.shuffle_buffer,
                         num_workers=args.workers,
                         scale="raw", verify_crc=args.verify_crc,
-                        per_host=False)
+                        per_host=False, rows=rows)
+    place_feed = trainer.place_batch if rows is None else trainer.place_rows
 
     def maybe_save():
         # skip when this step is already on disk (e.g. a fully-resumed
@@ -254,14 +258,16 @@ def cmd_train(args) -> int:
     def run_eval(step):
         # a fresh non-repeating feed each time: the validation set is
         # read once, whole (dataset confusion-matrix mIoU)
+        erows = _eval_rows(trainer)
         efeed = TFRecordFeed(args.eval_records, args.mode,
                              batch_size=args.batch_size,
                              image_size=args.image_size,
                              num_workers=args.workers, repeat=False,
                              scale="raw", verify_crc=args.verify_crc,
-                             per_host=False)
+                             per_host=False, rows=erows)
         out = trainer.evaluate(efeed.batches(),
-                               max_batches=args.eval_max_batches)
+                               max_batches=args.eval_max_batches,
+                               rows=erows is not None)
         print(f"val step {step}: loss={out['loss']:.4f} "
               f"acc={out['accuracy']:.4f} miou={out['miou']:.4f} "
               f"over {out['batches']} batches")
@@ -306,17 +312,17 @@ def cmd_train(args) -> int:
         elif remaining > 0:
             if do_augment:
                 import torch
-                from .ops.augment import augment_pairs
+                from .ops.augment import apply_augment, draw_augment
                 from .train.trainer import normalize_images
                 agen = torch.Generator(device=trainer.device)
 
                 def place(images, labels):
-                    # the whole global batch: augmented, then cut
+                    # the global batch (or this rank's rows of it):
+                    # augmented, then cut
                     return (torch.from_numpy(images).to(trainer.device),
                             torch.from_numpy(labels).to(trainer.device))
             with DevicePrefetcher(feed.batches(),
-                                  place if do_augment else
-                                  trainer.place_batch,
+                                  place if do_augment else place_feed,
                                   device=trainer.device) as pf:
                 it = iter(pf)
                 for step in range(remaining):
@@ -335,14 +341,21 @@ def cmd_train(args) -> int:
                             images = normalize_images(images)
                         agen.manual_seed((cfg.seed << 32)
                                          + done_already + step)
-                        images, labels = augment_pairs(
-                            images, labels, agen,
-                            hflip=args.augment, vflip=args.augment,
-                            rot90=args.augment,
+                        # the global batch's draws (augment_pairs'), this
+                        # rank's rows of them
+                        draws = draw_augment(
+                            agen, args.batch_size, hflip=args.augment,
+                            vflip=args.augment, rot90=args.augment,
                             invert_prob=args.augment_invert,
                             brightness=args.augment_brightness,
-                            contrast=args.augment_contrast)
-                        images, labels = trainer.place_batch(images, labels)
+                            contrast=args.augment_contrast,
+                            device=trainer.device)
+                        if rows is not None:
+                            draws = {k: v[rows[0]:rows[1]]
+                                     for k, v in draws.items()}
+                        images, labels = apply_augment(images, labels,
+                                                       draws)
+                        images, labels = place_feed(images, labels)
                     metrics = trainer.train_step(images, labels)
                     if step % args.log_every == 0 or step == remaining - 1:
                         stats = trainer.throughput_stats()
@@ -364,6 +377,10 @@ def cmd_train(args) -> int:
                             and step != remaining - 1
                             and (step + 1) % args.eval_every == 0):
                         run_eval(done_already + step + 1)
+            if rows is not None:
+                print(f"feed: decoded {feed.records_read} records: rows "
+                      f"{rows[0]}-{rows[1] - 1} of each global batch of "
+                      f"{args.batch_size}, prefetched batches included")
         if manager is not None:
             maybe_save()
         elif args.checkpoint:
@@ -393,6 +410,16 @@ def _inference_trainer(args, **extra):
     return trainer
 
 
+def _eval_rows(trainer):
+    """The rows of each evaluation batch that this rank decodes: its data
+    rows, or every row (None) where int8-static still calibrates on the
+    first batch, which needs the whole batch on every rank."""
+    if (trainer.config.quantize == "int8-static"
+            and not trainer._calibrated):
+        return None
+    return trainer.data_rows(trainer.config.batch_size)
+
+
 def _maybe_calibrate(trainer, args) -> None:
     """int8-static calibration from --calibrate-records (a shard glob read
     with the command's --mode, raw dtypes: the calibration forward
@@ -402,10 +429,12 @@ def _maybe_calibrate(trainer, args) -> None:
     if trainer.config.quantize != "int8-static" or not recs:
         return
     from .pipeline.input import TFRecordFeed
+    # every rank of a world calibrates on the same batches
     feed = TFRecordFeed(recs, getattr(args, "mode", "tifarr"),
                         batch_size=trainer.config.batch_size,
                         image_size=trainer.config.image_size,
-                        num_workers=2, repeat=False, scale="raw")
+                        num_workers=2, repeat=False, scale="raw",
+                        per_host=False)
     n = trainer.calibrate(feed.batches(), max_batches=args.calibrate_batches)
     print(f"int8-static: calibrated activation scales over {n} "
           f"batch(es) from {recs}")
@@ -516,14 +545,17 @@ def cmd_eval(args) -> int:
     print = _join_world(args)  # only the primary prints
     trainer = _inference_trainer(args, label_nodata=args.nodata)
     # source-dtype batches; the card normalizes. Every rank of a world
-    # reads the same batches: evaluate shards each over the mesh
+    # deals the same batches and decodes its data rows of them
+    rows = _eval_rows(trainer)
     feed = TFRecordFeed(args.records, args.mode,
                         batch_size=args.batch_size,
                         image_size=args.image_size,
                         shuffle_buffer=1, num_workers=args.workers,
                         repeat=False, scale="raw",
-                        verify_crc=args.verify_crc, per_host=False)
-    out = trainer.evaluate(feed.batches(), max_batches=args.max_batches)
+                        verify_crc=args.verify_crc, per_host=False,
+                        rows=rows)
+    out = trainer.evaluate(feed.batches(), max_batches=args.max_batches,
+                           rows=rows is not None)
 
     def _round(v):
         if isinstance(v, float):

@@ -21,8 +21,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import (GN_EPS, call_layer, conv_same, group_norm,
-                     lecun_normal_, resize_bilinear, resize_flops)
+from .layers import (GN_EPS, band_rows, call_layer, conv_same,
+                     group_norm, lecun_normal_, resize_bilinear,
+                     resize_flops)
 
 __all__ = ["ASPP", "ConvBNAct", "DeepLabLite"]
 
@@ -54,7 +55,10 @@ class ConvBNAct(nn.Module):
 class ASPP(nn.Module):
     """Atrous spatial pyramid pooling: a 1x1 branch, 3x3 branches at rates
     6, 12, 18, and the image-level pooled branch, concatenated in that
-    order and projected by a 1x1 ConvBNAct."""
+    order and projected by a 1x1 ConvBNAct. On height bands
+    (``bands``) the image-level mean adds every band's sums."""
+
+    bands = None
 
     def __init__(self, in_features: int, features: int = 256,
                  rates: Sequence[int] = (1, 6, 12, 18)):
@@ -69,7 +73,9 @@ class ASPP(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         outs = [b(x, dtype) for b in self.branches]
-        pooled = self.pooled(x.mean(dim=(2, 3), keepdim=True), dtype)
+        mean = (x.mean(dim=(2, 3), keepdim=True) if self.bands is None
+                else self.bands.mean(x))
+        pooled = self.pooled(mean, dtype)
         outs.append(pooled.expand(-1, -1, x.shape[2], x.shape[3]))
         return self.project(torch.cat(outs, dim=1), dtype)
 
@@ -81,7 +87,10 @@ class ASPP(nn.Module):
 class DeepLabLite(nn.Module):
     """num_classes: segmentation classes (float32 logits at input size);
     base_features: encoder width f (f, 2f, 2f, 4f, 4f, 8f);
-    aspp_features: ASPP and decoder width."""
+    aspp_features: ASPP and decoder width. ``bands``:
+    ``parallel/spmd.py:Bands`` when a spatial step shards the height."""
+
+    bands = None
 
     def __init__(self, num_classes: int = 2, base_features: int = 32,
                  aspp_features: int = 128,
@@ -117,6 +126,17 @@ class DeepLabLite(nn.Module):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
 
+    def spatial_layers(self):
+        """The layers whose windows or statistics cross the image height,
+        which a step with the height sharded into bands runs on bands
+        (``parallel/spmd.py:wrap_layers``): every conv and GroupNorm but
+        the image-level branch's, which sees the mean of the whole
+        image. The resizes and that mean go through ``bands`` in
+        ``forward``; the 1x1 head is local."""
+        for layer in (*self.encoder, *self.aspp.branches, self.aspp.project,
+                      self.low, self.fuse):
+            yield from (layer.conv, layer.norm)
+
     def flops(self, height: int, width: int) -> int:
         """FLOPs (2 per multiply-add) of one forward on one (height, width)
         image: the convs, the head, and the resizes' matrix contractions,
@@ -138,8 +158,9 @@ class DeepLabLite(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, C, H, W) float images -> (N, num_classes, H, W) float32
         logits."""
-        dt = self.dtype
-        h, w = x.shape[2], x.shape[3]
+        dt, bands = self.dtype, self.bands
+        rows = band_rows(bands)
+        h, w = rows(x), x.shape[3]
         x = x.to(dt)
         for i, layer in enumerate(self.encoder):
             x = layer(x, dt)
@@ -148,8 +169,7 @@ class DeepLabLite(nn.Module):
         x = self.aspp(x, dt)
         # upsample to the skip's actual size (stride-2 SAME convs keep
         # ceil(h / 2))
-        x = resize_bilinear(x, low.shape[2], low.shape[3]).to(dt)
+        x = resize_bilinear(x, rows(low), low.shape[3], bands).to(dt)
         x = self.fuse(torch.cat([x, self.low(low, dt)], dim=1), dt)
         logits = call_layer(self.head, x.float(), F.conv2d)
-        return resize_bilinear(logits, h, w)
-
+        return resize_bilinear(logits, h, w, bands)

@@ -24,6 +24,10 @@ float model's parameter tensors. Its forward:
   and the CPU), cast to the compute dtype. Rounded twice, one output in
   four took another float32 value, and a quantization step later the
   flips cascaded to 2-3% of the largest logit.
+
+On a sharded model the int8 conv runs through its layer's wrapper, as
+the float conv does (``Int8Conv.quantized``), and on height bands its
+activation max-abs is the maximum over the bands.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.rasterize import _fma32
-from .layers import same_pads
+from .layers import Window, call_layer, same_pads
 
 __all__ = ["Int8Conv", "int8_conv2d", "quantize_tensor"]
 
@@ -72,18 +76,20 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def int8_conv2d(qx: torch.Tensor, qw: torch.Tensor, stride: int = 1
-                ) -> torch.Tensor:
+def int8_conv2d(qx: torch.Tensor, qw: torch.Tensor, stride: int = 1,
+                band: bool = False) -> torch.Tensor:
     """int8 (N, C, H, W) x int8 (O, C, kh, kw) -> int32 (N, Ho, Wo, O),
     SAME zero padding, as ``lax.conv_general_dilated(...,
     preferred_element_type=int32)``. An im2col of ``unfold`` views (rows
     (n, i, j), columns (c, a, b), the kernel's order) and one
     ``torch._int_mm``; K and O are padded with zeros to multiples of 8
     and M to at least 24, which the card's int8 GEMM needs, and the
-    padding is cut from the result."""
+    padding is cut from the result. ``band``: the rows of a height band
+    that the output rows read, padded in height already (SAME in width
+    only)."""
     n, c, h, w = qx.shape
     o, _, kh, kw = qw.shape
-    top, bottom = same_pads(h, kh, stride)
+    top, bottom = (0, 0) if band else same_pads(h, kh, stride)
     left, right = same_pads(w, kw, stride)
     if top or bottom or left or right:
         qx = F.pad(qx, (left, right, top, bottom))
@@ -120,19 +126,44 @@ class Int8Conv(nn.Conv2d):
                                                          dtype=torch.float32))
 
     def quantized(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """(N, C, H, W) activations -> (N, O, Ho, Wo) in ``dtype``."""
-        qw, w_scale = quantize_tensor(self.weight, dims=(1, 2, 3))  # (O,)
+        """(N, C, H, W) activations -> (N, O, Ho, Wo) in ``dtype``. On a
+        sharded model the conv runs through its ``spmd`` wrapper as the
+        float conv does: a column-parallel conv quantizes its own output
+        channels' kernels (the scale is per output channel), a stored
+        shard is gathered in float and then quantized, and on a height
+        band the activation max-abs (per example, or the calibrated
+        ``act_amax``) is the maximum over all bands."""
+        spmd = self.__dict__.get("spmd")
+        bands = getattr(spmd, "bands", None)
         if self.static:
             if self.calibrating:
                 with torch.no_grad():
-                    self.act_amax.copy_(torch.maximum(
-                        self.act_amax, x.abs().amax().float()))
+                    amax = _band_max(x.abs().amax().float(), bands)
+                    self.act_amax.copy_(torch.maximum(self.act_amax, amax))
             x_scale = _scale(self.act_amax)
-            qx = _quantize(x, x_scale)
         else:
-            qx, x_scale = quantize_tensor(x, dims=(1, 2, 3), keepdim=True)
-        y = int8_conv2d(qx, qw, self.stride[0])
-        # scalar (static) or (N, 1, 1, 1) times (O,): one combined scale;
-        # XLA fuses the multiply-add, so the port rounds it once too
-        y = _fma32(y.float(), x_scale * w_scale, self.bias)
-        return y.permute(0, 3, 1, 2).to(dtype)
+            x_scale = _scale(_band_max(
+                x.abs().amax(dim=(1, 2, 3), keepdim=True), bands))
+        qx = _quantize(x, x_scale)
+        stride, k = self.stride[0], self.kernel_size[0]
+
+        def fn(qx, w, b, band=False):
+            qw, w_scale = quantize_tensor(w, dims=(1, 2, 3))  # (O,)
+            y = int8_conv2d(qx, qw, stride, band)
+            # scalar (static) or (N, 1, 1, 1) times (O,): one combined
+            # scale; XLA fuses the multiply-add, so the port rounds it
+            # once too
+            y = _fma32(y.float(), x_scale * w_scale, b)
+            # contiguous NCHW, as a gathered column-parallel output is:
+            # the GroupNorm after it sums in the order its layout gives
+            return y.permute(0, 3, 1, 2).to(dtype).contiguous()
+        return call_layer(self, qx, fn, Window(k, stride))
+
+
+def _band_max(amax: torch.Tensor, bands) -> torch.Tensor:
+    """``amax``, or on a height band its maximum over every band."""
+    if bands is None:
+        return amax
+    import torch.distributed as dist
+    from ..parallel.spmd import all_reduce
+    return all_reduce(amax, bands.group, dist.ReduceOp.MAX)

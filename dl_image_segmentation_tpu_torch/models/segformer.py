@@ -24,8 +24,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import (LN_EPS, conv_same, gelu, layer_norm, lecun_normal_,
-                     linear, resize_bilinear, resize_flops)
+from .layers import (LN_EPS, band_rows, conv_same, gelu, layer_norm,
+                     lecun_normal_, linear, resize_bilinear, resize_flops)
 
 __all__ = ["Block", "MixFFN", "SRAttention", "SegFormerLite"]
 
@@ -43,7 +43,12 @@ def _image(t: torch.Tensor, h: int, w: int) -> torch.Tensor:
 class SRAttention(nn.Module):
     """Self-attention whose keys and values come from tokens reduced by a
     k = s = sr conv and a LayerNorm (flax: ``Dense_0`` q, ``Conv_0``,
-    ``LayerNorm_0``, ``Dense_1`` k, ``Dense_2`` v, ``Dense_3`` out)."""
+    ``LayerNorm_0``, ``Dense_1`` k, ``Dense_2`` v, ``Dense_3`` out). On
+    height bands (``bands``) the queries stay local and the keys and
+    values of every band are gathered, so each query attends to the
+    whole image's."""
+
+    bands = None
 
     def __init__(self, dim: int, heads: int, sr_ratio: int):
         super().__init__()
@@ -61,13 +66,19 @@ class SRAttention(nn.Module):
         n, hw, c = x.shape
         hd = self.dim // self.heads
         q = linear(self.q, x, dtype)
+        kh, kw = h, w
         if self.sr_ratio > 1:
             kv = conv_same(self.sr, _image(x, h, w), dtype, self.sr_ratio)
+            kh, kw = kv.shape[2], kv.shape[3]
             kv = layer_norm(self.sr_norm, _tokens(kv), dtype)
         else:
             kv = x
         k = linear(self.k, kv, dtype)
         v = linear(self.v, kv, dtype)
+        if self.bands is not None:
+            k, v = self.bands.gather_tokens(
+                torch.cat([k, v], -1), self.bands.rows(kh), kw).split(
+                    self.dim, -1)
 
         def split(t):
             return t.reshape(n, -1, self.heads, hd).transpose(1, 2)
@@ -136,7 +147,10 @@ PATCH = ((7, 4), (3, 2), (3, 2), (3, 2))
 
 class SegFormerLite(nn.Module):
     """num_classes: segmentation classes (float32 logits at input size);
-    base_features: stage-0 width (stages f, 2f, 5f, 8f)."""
+    base_features: stage-0 width (stages f, 2f, 5f, 8f). ``bands``:
+    ``parallel/spmd.py:Bands`` when a spatial step shards the height."""
+
+    bands = None
 
     def __init__(self, num_classes: int = 2, base_features: int = 32,
                  depths: Sequence[int] = (2, 2, 2, 2),
@@ -185,6 +199,21 @@ class SegFormerLite(nn.Module):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
 
+    def spatial_layers(self):
+        """The layers whose windows cross the image height, which a step
+        with the height sharded into bands runs on bands
+        (``parallel/spmd.py:wrap_layers``): the overlapping patch
+        embeddings, the spatial-reduction convs and Mix-FFN's depthwise
+        convs. Attention gathers its keys and values, and the decoder's
+        resizes move rows, through ``bands``; LayerNorm and Dense layers
+        act per token."""
+        yield from self.embeds
+        for stage in self.stages:
+            for blk in stage:
+                if blk.attn.sr_ratio > 1:
+                    yield blk.attn.sr
+                yield blk.ffn.dw
+
     def _sizes(self, height: int, width: int):
         sizes, h, w = [], height, width
         for k, s in PATCH:
@@ -215,8 +244,9 @@ class SegFormerLite(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, C, H, W) float images -> (N, num_classes, H, W) float32
         logits."""
-        dt = self.dtype
-        h0, w0 = x.shape[2], x.shape[3]
+        dt, bands = self.dtype, self.bands
+        rows = band_rows(bands)
+        h0, w0 = rows(x), x.shape[3]
         x = x.to(dt)
         feats = []
         for s in range(4):
@@ -228,14 +258,14 @@ class SegFormerLite(nn.Module):
             t = layer_norm(self.stage_norms[s], t, dt)
             x = _image(t, h, w)
             feats.append(x)
-        th, tw = feats[0].shape[2], feats[0].shape[3]
+        th, tw = rows(feats[0]), feats[0].shape[3]
         ups = []
         for proj, f in zip(self.proj, feats):
             p = linear(proj, f.permute(0, 2, 3, 1), dt).permute(0, 3, 1, 2)
-            if p.shape[2] != th:
-                p = resize_bilinear(p.float(), th, tw).to(dt)
+            if rows(p) != th:
+                p = resize_bilinear(p.float(), th, tw, bands).to(dt)
             ups.append(p)
         y = torch.cat(ups, dim=1).permute(0, 2, 3, 1)
         y = gelu(linear(self.fuse, y, dt))
         logits = linear(self.head, y, torch.float32).permute(0, 3, 1, 2)
-        return resize_bilinear(logits, h0, w0)
+        return resize_bilinear(logits, h0, w0, bands)

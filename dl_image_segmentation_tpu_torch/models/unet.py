@@ -41,8 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import (GN_EPS, _conv2d, call_layer, group_norm,
-                     lecun_normal_)
+from .layers import (GN_EPS, Upsample, Window, _conv2d, band_rows,
+                     call_layer, group_norm, lecun_normal_)
 from .quant import Int8Conv
 
 __all__ = ["ConvBlock", "UNet", "space_to_depth", "depth_to_space",
@@ -69,30 +69,45 @@ def depth_to_space(x: torch.Tensor, block: int) -> torch.Tensor:
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype,
-          padding=0, stride=1) -> torch.Tensor:
+          stride=1) -> torch.Tensor:
+    """The SAME conv of ``conv``: a 3x3 one as ``padding=1``; a 2x2
+    stride-2 one pads an odd extent with one row / column of zeros at
+    its end. On a height band the rows come padded already."""
     if isinstance(conv, Int8Conv):
         # SAME padding on the int8 tensor: the zeros the float path pads
         # quantize to zeros
         return conv.quantized(x, dtype)
-    return call_layer(conv, x.to(dtype), lambda x, w, b: _conv2d(
-        x, w.to(dtype), b.to(dtype), stride=stride, padding=padding))
+    k = conv.weight.shape[-1]
+
+    def fn(x, w, b, band=False):
+        if k == 3:
+            padding = (0, 1) if band else 1
+        else:
+            padding = 0
+            x = F.pad(x, (0, x.shape[3] % 2, 0, 0 if band
+                          else x.shape[2] % 2))
+        return _conv2d(x, w.to(dtype), b.to(dtype), stride=stride,
+                       padding=padding)
+    return call_layer(conv, x.to(dtype), fn, Window(k, stride))
 
 
 def _upsample(up: nn.ConvTranspose2d, x: torch.Tensor,
-              dtype: torch.dtype) -> torch.Tensor:
+              dtype: torch.dtype, rows: Optional[int] = None
+              ) -> torch.Tensor:
     """The 2x2 stride-2 transposed conv as a 1x1 conv to 4x the channels
     and a pixel shuffle: the 2x2 output blocks do not overlap, so
     ``out[o, 2i + a, 2j + b] = sum_c x[c, i, j] W[c, o, a, b] + bias[o]``
     exactly. A forward conv, where ``conv_transpose2d`` runs cuDNN's
     backward-data pass, some of whose algorithms cuDNN documents as
     non-deterministic (atomic adds): a served chip's class map must equal
-    ``predict``'s bit for bit."""
-    def fn(x, w, b):
+    ``predict``'s bit for bit. ``rows``: the skip's height, to which the
+    caller crops (a band comes cropped)."""
+    def fn(x, w, b, band=False):
         cin, cout, kh, kw = w.shape
         w = w.permute(1, 2, 3, 0).reshape(cout * kh * kw, cin, 1, 1)
         b = b.repeat_interleave(kh * kw)
         return F.pixel_shuffle(_conv2d(x, w.to(dtype), b.to(dtype)), kh)
-    return call_layer(up, x, fn)
+    return call_layer(up, x, fn, None if rows is None else Upsample(2, rows))
 
 
 def _conv_layer(cin: int, cout: int, k: int, stride: int, quant):
@@ -105,13 +120,15 @@ def _conv_layer(cin: int, cout: int, k: int, stride: int, quant):
 
 class ConvBlock(nn.Module):
     """Two (3x3 conv SAME -> GroupNorm -> ReLU); ``quant`` makes both
-    convs int8."""
+    convs int8 and the GroupNorms exact (``models/layers.py:
+    group_norm``)."""
 
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.bfloat16, quant=False):
         super().__init__()
         self.features = features
         self.dtype = dtype
+        self.exact_norms = bool(quant)
         groups = features // min(16, features)
         self.conv0 = _conv_layer(in_features, features, 3, 1, quant)
         self.norm0 = nn.GroupNorm(groups, features, eps=GN_EPS)
@@ -119,11 +136,11 @@ class ConvBlock(nn.Module):
         self.norm1 = nn.GroupNorm(groups, features, eps=GN_EPS)
 
     def _norm(self, norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(group_norm(norm, x, self.dtype))
+        return F.relu(group_norm(norm, x, self.dtype, self.exact_norms))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self._norm(self.norm0, _conv(self.conv0, x, self.dtype, 1))
-        return self._norm(self.norm1, _conv(self.conv1, x, self.dtype, 1))
+        x = self._norm(self.norm0, _conv(self.conv0, x, self.dtype))
+        return self._norm(self.norm1, _conv(self.conv1, x, self.dtype))
 
 
 class UNet(nn.Module):
@@ -133,7 +150,10 @@ class UNet(nn.Module):
     int8 with dynamic per-example activation scales, "static": calibrated
     constant scales) makes the ConvBlocks' 3x3 convs and the 2x2 down
     convs int8 (``models/quant.py``), with the float model's parameter
-    names; the upsamplers and the float32 head stay float."""
+    names; the upsamplers and the float32 head stay float. ``bands``:
+    ``parallel/spmd.py:Bands`` when a spatial step shards the height."""
+
+    bands = None
 
     def __init__(self, num_classes: int = 2, base_features: int = 32,
                  levels: int = 4, dtype: torch.dtype = torch.bfloat16,
@@ -189,15 +209,16 @@ class UNet(nn.Module):
                 nn.init.zeros_(m.bias)
 
     def spatial_layers(self):
-        """The (3x3 SAME conv, GroupNorm) pairs whose windows and
-        statistics cross the image height, which a step with the height
-        sharded into bands replaces (``parallel/spmd.py:shard_model``).
-        The 2x2 stride-2 down convs, the upsamplers and the 1x1 head stay
-        local to a band whose height is a multiple of ``s2d * 2 **
-        levels``."""
+        """The layers whose windows or statistics cross the image height,
+        which a step with the height sharded into bands runs on bands
+        (``parallel/spmd.py:wrap_layers``): every 3x3 conv and its
+        GroupNorm, the 2x2 stride-2 down convs and the upsamplers. The
+        space-to-depth stem and the sub-pixel head move rows through the
+        model's ``bands`` in ``forward``; the 1x1 head is local."""
         for blk in (*self.down_blocks, self.bottom, *self.up_blocks):
-            yield blk.conv0, blk.norm0
-            yield blk.conv1, blk.norm1
+            yield from (blk.conv0, blk.norm0, blk.conv1, blk.norm1)
+        yield from self.downs
+        yield from self.ups
 
     def flops(self, height: int, width: int) -> int:
         """Floating-point operations (2 per multiply-add) of the convs,
@@ -230,30 +251,32 @@ class UNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, C, H, W) float images -> (N, num_classes, H, W) float32
         logits."""
-        dt = self.dtype
+        dt, b = self.dtype, self.s2d
+        bands = self.bands
+        rows = band_rows(bands)
+        height = rows(x)
         x = x.to(dt)
-        if self.s2d > 1:
-            x = space_to_depth(x, self.s2d)
+        if b > 1:
+            x = (bands.space_to_depth(x, b, lambda t: space_to_depth(t, b))
+                 if bands is not None else space_to_depth(x, b))
         skips = []
         for block, down in zip(self.down_blocks, self.downs):
             x = block(x)
             skips.append(x)
-            # SAME for a 2x2 stride-2 conv: an odd extent gets one row /
-            # column of zeros at its end
-            if not self.quant:
-                x = F.pad(x, (0, x.shape[3] % 2, 0, x.shape[2] % 2))
             x = _conv(down, x, dt, stride=2)
         x = self.bottom(x)
         for up, block, skip in zip(self.ups, self.up_blocks,
                                    reversed(skips)):
             # flax's ConvTranspose does not flip its kernel; the
             # converter flips it into torch's layout
-            x = _upsample(up, x, dt)
+            x = _upsample(up, x, dt, rows(skip))
             x = x[:, :, :skip.shape[2], :skip.shape[3]]
             x = block(torch.cat([x, skip.to(dt)], dim=1))
         logits = call_layer(self.head, x.float(), _conv2d)
-        if self.s2d > 1:
-            logits = depth_to_space(logits, self.s2d)
+        if b > 1:
+            logits = (bands.up(logits, lambda t: depth_to_space(t, b), b,
+                               height)
+                      if bands is not None else depth_to_space(logits, b))
         return logits
 
 

@@ -21,9 +21,11 @@ synced and clipped gradients as full tensors, the SHA-256 digests of the
 full parameters after the steps (the arrays are in the checkpoint), the
 metrics, the class maps and probabilities, the checkpoint's path) and
 each rank's own numbers (bytes of parameters and Adam moments, the
-leaves it holds sharded, step times, whether the checkpoint restored
-bitwise). Each rank runs torch on one intra-op thread. If a rank fails,
-the call raises: nothing falls back to one rank or to the CPU.
+leaves it holds sharded, step times, on a card the step's peak memory
+above its resident state, whether the checkpoint restored bitwise).
+An inference-only regime returns the logits of its images. Each rank
+runs torch on one intra-op thread. If a rank fails, the call raises:
+nothing falls back to one rank or to the CPU.
 
     python -m dl_image_segmentation_tpu_torch.parallel.dryrun 4
 """
@@ -134,15 +136,28 @@ def _run_regime(name: str, spec: dict, n: int, device, workdir: str
     if spec.get("init") is not None:
         tr.load_flax_params(spec["init"])
     batches = spec.get("batches") or seeded_batches(spec["config"], 3, 0)
+    if spec.get("infer"):
+        return _run_inference(tr, spec, batches, t_start)
     out: dict = {"mesh": dict(mesh.shape), "losses": [], "accuracies": [],
                  "grad_norms": []}
-    mine = {"step_ms": []}
+    mine = {"step_ms": [], "activation_bytes": None}
+    cuda = torch.device(device).type == "cuda"
     for i, (x, y) in enumerate(batches):
         _sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+            resident = torch.cuda.memory_allocated(device)
         t0 = time.perf_counter()
         m = tr.train_step(x, y)
         _sync(device)
         mine["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        if cuda:
+            # the step's peak above the state it starts from: the
+            # activations kept for the backward, the gradients and the
+            # transient buffers of its collectives
+            peak = torch.cuda.max_memory_allocated(device) - resident
+            mine["activation_bytes"] = max(mine["activation_bytes"] or 0,
+                                           peak)
         out["losses"].append(m["loss"])
         out["accuracies"].append(m["accuracy"])
         out["grad_norms"].append(None if tr.grad_norm is None
@@ -199,19 +214,25 @@ def _run_regime(name: str, spec: dict, n: int, device, workdir: str
                          augment=True)
         out["scan_losses"] = tr.scan_losses[before:]
     if spec.get("data_plane"):
-        feed = TFRecordFeed(spec["shards"], "rgbarr",
+        mode = spec.get("mode", "rgbarr")
+        # every rank deals the same global batches and decodes its rows
+        rows = tr.data_rows(cfg.batch_size)
+        feed = TFRecordFeed(spec["shards"], mode,
                             batch_size=cfg.batch_size,
                             image_size=cfg.image_size, shuffle_buffer=8,
-                            num_workers=2, per_host=False)
+                            num_workers=2, per_host=False, rows=rows)
         mine["feed_files"] = [os.path.basename(f) for f in feed.files]
+        mine["feed_rows"] = rows
         fed = []
-        with DevicePrefetcher(feed.batches(), tr.place_batch,
-                              device=tr.device) as pf:
+        with DevicePrefetcher(feed.batches(), tr.place_rows if rows
+                              else tr.place_batch, device=tr.device) as pf:
             it = iter(pf)
             for _ in range(2):
                 images, labels = next(it)
                 fed.append(tr.train_step(images, labels)["loss"])
-        pool_feed = TFRecordFeed(spec["shards"], "rgbarr",
+        # the batches taken and those prefetched, this rank's rows only
+        mine["feed_decoded"] = feed.records_read
+        pool_feed = TFRecordFeed(spec["shards"], mode,
                                  batch_size=cfg.batch_size,
                                  image_size=cfg.image_size, shuffle_buffer=8,
                                  num_workers=2, scale="raw",
@@ -227,6 +248,18 @@ def _run_regime(name: str, spec: dict, n: int, device, workdir: str
         mine["feed_pool_rows"] = int(pool.images.shape[0])
     mine["seconds"] = time.perf_counter() - t_start
     return {"out": out, "mine": mine}
+
+
+def _run_inference(tr, spec: dict, batches, t_start: float) -> dict:
+    """An inference-only regime: (int8-static: calibrate on the first
+    batch, every rank the same images) the logits of the eval images,
+    gathered whole on every rank."""
+    ex = (spec.get("eval") or batches[-1])[0]
+    tr.calibrate([batches[0]], max_batches=1)
+    logits = torch.cat([lg.cpu() for lg in tr._chunked_logits(ex)])
+    return {"out": {"mesh": dict(tr.mesh.shape), "logits": logits.numpy(),
+                    "quant_vars": tr.quant_vars},
+            "mine": {"seconds": time.perf_counter() - t_start}}
 
 
 def _rank_main(rank: int, n: int, port: int, device: str, spec_path: str,
@@ -266,10 +299,13 @@ def dryrun_multichip(n_devices: int = 4, device: str = "cpu",
     ``n_model``, ``config`` (TrainConfig fields), and optionally
     ``batches`` (global (images, labels) host batches; default three
     seeded ones), ``eval`` (one batch), ``init`` (a flax param tree),
-    ``scanned``, ``data_plane`` (with ``shards``, a glob; default
-    :func:`write_shards` in ``workdir``), ``restore`` (the name of an
+    ``scanned``, ``data_plane`` (with ``shards``, a glob, default
+    :func:`write_shards` in ``workdir``, and their ``mode``, default
+    rgbarr), ``restore`` (the name of an
     earlier regime of the same model, whose checkpoint a fresh trainer
-    of this regime restores). Returns {name: {..., "ranks": [each rank's
+    of this regime restores), ``infer`` (no steps: int8-static
+    calibrates on the first batch, and the regime returns the logits of
+    the eval images). Returns {name: {..., "ranks": [each rank's
     numbers]}}; the checkpoints stay in ``workdir`` (default a new
     temporary directory)."""
     import torch.multiprocessing as mp

@@ -199,18 +199,25 @@ def _local(x, sharding: Sharding):
     return x[index]
 
 
-def shard_batch_local(mesh: Mesh, batch, spatial: bool = False):
+def shard_batch_local(mesh: Mesh, batch, spatial: bool = False,
+                      local_rows: bool = False):
     """This rank's part of a global batch (an array or a tuple of them;
     every rank passes the same global batch): its rows over "data" and,
-    with ``spatial``, its band of image rows over "model". A host numpy
-    batch becomes tensors on the mesh's device (pinned and copied
-    without blocking on the card); a batch of tensors is cut where it
-    lies."""
+    with ``spatial``, its band of image rows over "model" (``local_rows``:
+    the batch holds this rank's data rows already, as a feed with
+    ``rows`` gives them; only the band is cut). A host numpy batch
+    becomes tensors on the mesh's device (pinned and copied without
+    blocking on the card); a batch of tensors is cut where it lies."""
+    def cut(ndim):
+        sh = batch_sharding(mesh, ndim, spatial)
+        if local_rows:
+            sh = Sharding(mesh, (None,) + tuple(sh.spec[1:]))
+        return sh
+
     def put(x):
         if isinstance(x, torch.Tensor):
-            return _local(x, batch_sharding(mesh, x.ndim, spatial))
-        part = np.ascontiguousarray(_local(
-            np.asarray(x), batch_sharding(mesh, np.ndim(x), spatial)))
+            return _local(x, cut(x.ndim))
+        part = np.ascontiguousarray(_local(np.asarray(x), cut(np.ndim(x))))
         t = torch.from_numpy(part)
         if mesh.device.type == "cuda":
             t = t.pin_memory()

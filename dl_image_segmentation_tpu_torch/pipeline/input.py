@@ -67,7 +67,14 @@ class TFRecordFeed:
     batch on every rank of a world (and keeps this rank's rows), so a
     trainer's feed there reads every shard (``per_host=False``): the
     stream is in record order whatever ``num_workers``, so every rank
-    reads the same batches."""
+    reads the same batches. ``rows=(lo, hi)`` (with ``per_host=False``)
+    decodes only those rows of each global batch of ``batch_size``: the
+    encoded records go through the shuffle buffer and are dealt into
+    global batches first, so each rank of a world decodes its data rows
+    of the batches every rank would hold. A record in those rows that
+    fails to parse or has another size raises (the other ranks cannot
+    skip it), and a global batch is yielded only once the stream has
+    dealt all of it. ``records_read`` counts the records decoded."""
 
     def __init__(self, shard_pattern, parse_mode: str, batch_size: int,
                  image_size: Optional[int] = None,
@@ -77,7 +84,8 @@ class TFRecordFeed:
                  drop_remainder: bool = True,
                  per_host: bool = True,
                  interleave: int = 4,
-                 verify_crc: bool = False):
+                 verify_crc: bool = False,
+                 rows: Optional[Tuple[int, int]] = None):
         if isinstance(shard_pattern, str):
             # a local glob, or a gs:// / s3:// / http(s):// prefix list
             files = storage.glob(shard_pattern)
@@ -103,6 +111,10 @@ class TFRecordFeed:
         self.drop_remainder = drop_remainder
         self.interleave = interleave
         self.verify_crc = verify_crc
+        if rows is not None and not 0 <= rows[0] < rows[1] <= batch_size:
+            raise ValueError(f"rows {rows} are not rows of a batch of "
+                             f"{batch_size}")
+        self.rows = rows
         self.records_read = 0
         self.bytes_read = 0
         self._parse_failures = 0
@@ -136,8 +148,72 @@ class TFRecordFeed:
         """Records parsed on ``num_workers`` threads, in record order,
         through the shuffle buffer: the same shards and seed give the
         same stream whatever the thread count and timing, so the ranks of
-        a world that read the same shards hold the same batches."""
-        recs = self._record_stream()
+        a world that read the same shards hold the same batches. With
+        ``rows`` the encoded records are shuffled and dealt, and only this
+        rank's rows are parsed."""
+        if self.rows is None:
+            for item in self._shuffled(self._counted(
+                    self._parsed(self._record_stream()))):
+                if item is not None:
+                    yield item
+            return
+        for item in self._parsed(self._dealt()):
+            if item is None:
+                raise RuntimeError(
+                    "a record of this rank's rows failed to parse with "
+                    f"parse_mode={self.parse_mode!r}: a feed that decodes "
+                    "only its rows cannot skip it, for the other ranks "
+                    "hold the rest of its batch")
+            self.records_read += 1
+            yield item
+
+    def _counted(self, items: Iterator) -> Iterator:
+        for item in items:
+            if item is not None:
+                self.records_read += 1
+            yield item
+
+    def _dealt(self) -> Iterator[bytes]:
+        """The shuffled encoded records of this rank's rows, a global
+        batch at a time, each once the stream has dealt all of it (the
+        last, partial one only without ``drop_remainder``)."""
+        lo, hi = self.rows
+        mine: List[bytes] = []
+        for i, rec in enumerate(self._shuffled(self._record_stream())):
+            if lo <= i % self.batch_size < hi:
+                mine.append(rec)
+            if i % self.batch_size == self.batch_size - 1:
+                yield from mine
+                mine = []
+        if not self.drop_remainder:
+            yield from mine
+
+    def _shuffled(self, items: Iterator) -> Iterator:
+        """``items`` through the shuffle buffer (``np.random.RandomState``
+        seeded ``seed + 1``); None items, the records that failed to
+        parse, pass straight on."""
+        if self.shuffle_buffer <= 1:
+            yield from items
+            return
+        rng = np.random.RandomState(self.seed + 1)
+        buf: list = []
+        for item in items:
+            if item is None:
+                yield None
+                continue
+            buf.append(item)
+            if len(buf) >= self.shuffle_buffer:
+                k = rng.randint(len(buf))
+                buf[k], buf[-1] = buf[-1], buf[k]
+                yield buf.pop()
+        while buf:
+            k = rng.randint(len(buf))
+            buf[k], buf[-1] = buf[-1], buf[k]
+            yield buf.pop()
+
+    def _parsed(self, recs: Iterator[bytes]) -> Iterator:
+        """``recs`` parsed on ``num_workers`` threads, in order: (image,
+        label) or None for a record that failed to parse."""
         # records taken but not yet passed on: bounds the reorder buffer
         window = self.num_workers * 8
         slots = threading.Semaphore(window)
@@ -217,25 +293,8 @@ class TFRecordFeed:
                    for _ in range(self.num_workers)]
         for t in threads:
             t.start()
-        rng = np.random.RandomState(self.seed + 1)
-        buf: List[Tuple[np.ndarray, np.ndarray]] = []
         try:
-            for item in in_order():
-                if item is None:
-                    continue
-                self.records_read += 1
-                if self.shuffle_buffer > 1:
-                    buf.append(item)
-                    if len(buf) >= self.shuffle_buffer:
-                        k = rng.randint(len(buf))
-                        buf[k], buf[-1] = buf[-1], buf[k]
-                        yield buf.pop()
-                else:
-                    yield item
-            while buf:
-                k = rng.randint(len(buf))
-                buf[k], buf[-1] = buf[-1], buf[k]
-                yield buf.pop()
+            yield from in_order()
         finally:
             stop.set()
 
@@ -254,6 +313,10 @@ class TFRecordFeed:
         return img.astype(np.float32)
 
     def batches(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """(images, labels) batches of ``batch_size`` (with ``rows``, of
+        this rank's rows of each)."""
+        size = (self.batch_size if self.rows is None
+                else self.rows[1] - self.rows[0])
         imgs: List[np.ndarray] = []
         lbls: List[np.ndarray] = []
         seen = 0
@@ -267,10 +330,15 @@ class TFRecordFeed:
                     self.image_size, self.image_size):
                 imgs.append(img)
                 lbls.append(lbl.astype(np.int32))
-                if len(imgs) == self.batch_size:
+                if len(imgs) == size:
                     yield np.stack(imgs), np.stack(lbls)
                     yielded += 1
                     imgs, lbls = [], []
+            elif self.rows is not None:
+                raise RuntimeError(
+                    f"a record of this rank's rows is {img.shape[:2]}, not "
+                    f"{self.image_size} square: a feed that decodes only "
+                    "its rows cannot skip it")
             if yielded == 0 and not imgs and seen >= 10000:
                 raise RuntimeError(
                     f"input feed produced no usable examples after {seen} "

@@ -10,12 +10,14 @@ on the CUDA card unless the caller passes ``device="cpu"``. In a
 ("data", "model") mesh of the world's ranks, one device each, in the
 JAX package's four regimes: data parallel, channel tensor parallel
 (``n_model > 1``), spatial (``spatial=True``: the image height over
-"model", the U-Net) and FSDP (``fsdp=True``: large kernels and their
-Adam moments stored sharded over "data"), each computing what the
-one-process step computes. Every rank passes the same global batches;
-each keeps its rows (and band). The loss is the global masked mean: the
-valid-pixel count is summed over the ranks that hold other pixels, and
-each rank's gradient of its own pixels is summed after the backward.
+"model" in bands of any height, every family) and FSDP (``fsdp=True``:
+large kernels and their Adam moments stored sharded over "data"), each
+computing what the one-process step computes, and int8 inference on
+each. Every rank passes the same global batches (or, ``place_rows``,
+its rows of them); each keeps its rows (and band). The loss is the
+global masked mean: the valid-pixel count is summed over the ranks that
+hold other pixels, and each rank's gradient of its own pixels is summed
+after the backward.
 Every forward and backward runs under ``_forward_flags`` (cuDNN
 benchmark off, and TF32 off at fp32), so a training thread and a serving
 thread launch the same algorithms; the
@@ -61,7 +63,8 @@ from ..ops.augment import apply_augment, draw_augment
 from ..parallel.distributed import is_primary
 from ..parallel.sharding import make_mesh, shard_batch_local, shard_slice
 from ..parallel.spmd import (GradSync, all_gather, all_reduce, full_tensor,
-                             local_shard, norm_group, shard_model)
+                             local_shard, norm_group, shard_model,
+                             wrap_layers)
 from ..utils.profiling import duty
 from . import orbax
 from .optim import (AdamWState, adamw_init, adamw_update_,
@@ -228,7 +231,17 @@ def _forward_flags(fp32: bool, deterministic: bool = False):
              matmul.allow_tf32) = saved
 
 
-_ITEM_15 = "not ported yet: ROADMAP queue 1 item 15 (the rest of parallel/)"
+def _step_layout(x: torch.Tensor) -> torch.Tensor:
+    """The (N, C, H, W) view of an NHWC batch in the layout in which a
+    train step's CPU convs sum precisely: oneDNN's take it contiguous
+    (channels-last, its backward put a U-Net's first gradient norm 2.4e-5
+    off a float64 step; contiguous, 2e-7), torch's native ones keep the
+    view's channels-last strides (contiguous, 1.7e-5 off; channels-last,
+    1e-7). The card takes the view as it is."""
+    if x.device.type == "cpu" and torch.backends.mkldnn.is_available() \
+            and torch.backends.mkldnn.enabled:
+        return x.contiguous()
+    return x
 
 
 class CheckpointManager:
@@ -366,9 +379,13 @@ class Trainer:
         self.device = (self.mesh.device if device is None
                        else resolve_device(device))
         self._spatial = config.spatial and self.mesh.shape["model"] > 1
+        if self._spatial and config.image_size % self.mesh.shape["model"]:
+            raise ValueError(
+                f"spatial=True: image_size {config.image_size} must divide "
+                f"by n_model {self.mesh.shape['model']} (the JAX package's "
+                "TrainConfig rule: the image height is split into equal "
+                "bands)")
         model = self._build(False)
-        if self._spatial:
-            self._check_spatial(model)
         # the full-shape model (on the meta device in a world) through
         # which flax trees and checkpoints map to parameter names
         self._template = model
@@ -376,23 +393,21 @@ class Trainer:
         if self.mesh.size > 1:
             self._template = copy.deepcopy(model).to("meta")
             self.shardings = shard_model(model, self.mesh, config)
-            if config.quantize != "none" and (self._spatial or any(
-                    not s.is_fully_replicated
-                    for s in self.shardings.values())):
-                raise NotImplementedError(
-                    f"quantize={config.quantize!r} with sharded layers "
-                    f"(n_model={config.n_model}, spatial={config.spatial},"
-                    f" fsdp={config.fsdp}): " + _ITEM_15)
         self.model = model.to(self.device).eval()
         self.infer_model = self.model
         if config.quantize != "none":
             # the int8 twin computes on the float model's parameter
             # tensors: a train step or a checkpoint changes what it
-            # quantizes, and a float checkpoint serves quantized as is
+            # quantizes, and a float checkpoint serves quantized as is;
+            # on a mesh it runs on the same shards through wrappers of
+            # its own
             twin = self._build("static" if config.quantize == "int8-static"
                                else True)
             self.infer_model = share_parameters(self.model, twin).to(
                 self.device).eval()
+            if self.shardings is not None:
+                wrap_layers(self.infer_model, self.mesh, config,
+                            self.shardings)
         self._calibrated = False
         params = dict(self.model.named_parameters())
         self.state = TrainState(0, params, adamw_init(params))
@@ -420,22 +435,6 @@ class Trainer:
         # scalar; None without clipping). The clipped gradients stay in
         # each parameter's .grad until the next step
         self.grad_norm: Optional[torch.Tensor] = None
-
-    def _check_spatial(self, model: torch.nn.Module) -> None:
-        """A spatial step needs a model that names its ``spatial_layers``
-        (the U-Net), with every level's down conv and upsample local to a
-        band: each band's height a multiple of s2d * 2 ** levels."""
-        cfg, n = self.config, self.mesh.shape["model"]
-        if not hasattr(model, "spatial_layers"):
-            raise NotImplementedError(
-                f"spatial=True over {n} model ranks for model="
-                f"{cfg.model!r}: " + _ITEM_15)
-        unit = self.s2d * 2 ** cfg.levels
-        if cfg.image_size % n or (cfg.image_size // n) % unit:
-            raise NotImplementedError(
-                f"spatial=True: image_size {cfg.image_size} over {n} model "
-                f"ranks gives bands of {cfg.image_size / n:g} rows, not a "
-                f"multiple of s2d * 2**levels = {unit}: " + _ITEM_15)
 
     def _build(self, quant):
         """The config's model on the CPU, seeded init (``quant``: the
@@ -499,6 +498,22 @@ class Trainer:
         return shard_batch_local(self.mesh, (images, labels),
                                  spatial=self._spatial)
 
+    def place_rows(self, images, labels):
+        """:meth:`place_batch` of a host batch that holds this rank's
+        data rows already (a ``TFRecordFeed`` with ``rows``)."""
+        return shard_batch_local(self.mesh, (images, labels),
+                                 spatial=self._spatial, local_rows=True)
+
+    def data_rows(self, batch_size: int) -> Optional[Tuple[int, int]]:
+        """The rows [lo, hi) of a global batch that this rank holds, for
+        a feed that decodes only them; None outside a world with more
+        than one data rank, or for a batch that does not divide by it."""
+        nd = self.mesh.shape["data"]
+        if nd == 1 or batch_size % nd:
+            return None
+        rows = shard_slice(batch_size, "data", self.mesh)
+        return rows.start, rows.stop
+
     def _local(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's shard of a full tensor of parameter ``name``."""
         if self.shardings is None:
@@ -528,7 +543,7 @@ class Trainer:
         with _forward_flags(self.compute_dtype == torch.float32,
                             deterministic=True):
             self.model.train()
-            x = images.permute(0, 3, 1, 2)
+            x = _step_layout(images.permute(0, 3, 1, 2))
             # remat: the forward runs again in backward(), inside this
             # block, so the recompute takes the same algorithms
             logits = (_remat(self.model, x, use_reentrant=False)
@@ -723,6 +738,10 @@ class Trainer:
                 break
             images = batch[0] if isinstance(batch, (tuple, list)) else batch
             x = normalize_images(self._to_device(images)).permute(0, 3, 1, 2)
+            if self._spatial:
+                # every example, this rank's band: each int8 conv folds
+                # the maximum over the bands
+                x = x[:, :, shard_slice(x.shape[2], "model", self.mesh)]
             for m in convs:
                 m.calibrating = True
             try:
@@ -840,8 +859,8 @@ class Trainer:
                 0, flat.clamp(max=K * K), torch.ones_like(flat))
             return loss_sum, correct, valid.sum(), cm[:K * K].reshape(K, K)
 
-    def evaluate(self, batches, max_batches: Optional[int] = None
-                 ) -> Dict[str, float]:
+    def evaluate(self, batches, max_batches: Optional[int] = None,
+                 rows: bool = False) -> Dict[str, float]:
         """Dataset-level loss, accuracy, mIoU and per-class IoU and F1
         over an iterator of (images, labels), through ``infer_model``
         (uncalibrated int8-static calibrates on the first batch): the
@@ -852,7 +871,9 @@ class Trainer:
         sums are added over the ranks once at the end, and every rank
         returns the same metrics. The ranks agree before each batch that
         each of them has one, so iterators of unequal lengths stop at the
-        shortest instead of leaving a rank waiting in a collective."""
+        shortest instead of leaving a rank waiting in a collective.
+        ``rows``: each host batch holds this rank's data rows only (a
+        feed with ``rows``; no padding)."""
         if self.config.quantize == "int8-static" and not self._calibrated:
             # calibrate on the first batch; an empty iterable gives empty
             # metrics (the JAX package raises there)
@@ -879,8 +900,10 @@ class Trainer:
                 break
             images, labels = item
             if isinstance(images, np.ndarray):
-                images, labels = self.place_batch(
-                    *self._pad_to_data_axis(images, labels))
+                images, labels = (self.place_rows(images, labels) if rows
+                                  else self.place_batch(
+                                      *self._pad_to_data_axis(images,
+                                                              labels)))
             ls, cor, nv, c = self._eval_sums(images, labels)
             # float64 like the JAX package's host sum of float32 losses
             sums += torch.stack([ls.double(), cor.double(), nv.double()])

@@ -12,37 +12,48 @@
 * One 4-rank gloo world (``dryrun_multichip``, once for the module,
   torch on one thread a rank) runs DP 4x1, TP 2x2 (base 128: a stage
   crosses tp_min_features 256, as the JAX package's sharded-checkpoint
-  test), spatial 2x2, FSDP+TP 2x2, FSDP 4x1 and SegFormer-lite TP 2x2,
-  each 3 fp32 steps with clipping at 1.0 on seeded batches whose first
-  has one rank's rows all nodata, then evaluate, predict and a
-  checkpoint. Each regime is held against the port's one-process
-  trainer on the same batches from the same weights: the first step's
-  synced and clipped gradients leaf by leaf (the difference's norm
-  within 1e-2 of the leaf's plus 1e-6 of the whole gradient's) and its
-  global norm before the clip (1e-5 relative), which Adam's scale-free
-  update would not show; losses within 2e-5 relative (the JAX
-  package's bound for a sharded step, tests/test_training.py:736),
-  accuracy within one pixel's share, evaluate's loss within 1e-5
-  relative and its mIoU within one pixel's share, class maps equal
-  wherever the top two probabilities are more than 1e-3 apart. The
-  parameters after three steps differ by at most 2 * steps * lr. A
-  witness, one process through torch's other CPU convs (the same sums
-  in other orders), stays inside the same bars: the GroupNorms' backward
-  leaves small gradients against their rounding, and Adam moves a
-  parameter by about lr a step whatever its gradient's size, so
-  rounding on a near-zero gradient moves it by up to lr. Checkpoints
-  restore bitwise in the world (each rank its shards), in one process,
-  and re-sharded (the FSDP 4x1 regime restores the FSDP+TP one's). The spatial and FSDP+TP regimes start
-  from a flax init and are held against the JAX ``Trainer`` on a 2x2
-  mesh of the 8 virtual devices: per-step losses within 1e-4 relative
-  (two conv implementations; Adam's first steps turn rounding into
-  +-lr moves of near-zero gradients). The JAX steps compile in a thread
-  while the world runs.
+  test), spatial 2x2, FSDP+TP 2x2, FSDP 4x1, SegFormer-lite TP 2x2 and
+  the spatial regimes of every family on bands of any height
+  (DeepLab-lite, whose ASPP reads rows far past a band; SegFormer-lite;
+  the U-Net at 36 px, bands of 18, 9 and 5 / 4 rows), each 3 fp32
+  steps with clipping at 1.0 on seeded batches whose first has one
+  rank's rows all nodata, then evaluate, predict and a checkpoint. Each
+  regime is held against the port's one-process trainer on the same
+  batches from the same weights: the first step's synced and clipped
+  gradients leaf by leaf (the difference's norm within 1e-2 of the
+  leaf's plus 1e-6 of the whole gradient's) and its global norm before
+  the clip (1e-5 relative), which Adam's scale-free update would not
+  show; losses within 2e-5 relative (the JAX package's bound for a
+  sharded step, tests/test_training.py:736), accuracy within one
+  pixel's share, evaluate's loss within 1e-5 relative and its mIoU
+  within one pixel's share, class maps equal wherever the top two
+  probabilities are more than 1e-3 apart. The parameters after three
+  steps differ by at most 2 * steps * lr. A witness, one process
+  through torch's other CPU convs (the same sums in other orders), stays
+  inside the same bars: the GroupNorms' backward leaves small gradients
+  against their rounding, and Adam moves a parameter by about lr a step
+  whatever its gradient's size, so rounding on a near-zero gradient
+  moves it by up to lr. Checkpoints restore bitwise in the world (each
+  rank its shards), in one process, and re-sharded (the FSDP 4x1 regime
+  restores the FSDP+TP one's). The regimes of ``FROM_JAX`` start from a
+  flax init and are held against the JAX ``Trainer``'s losses on a 2x2
+  mesh of virtual devices, within 1e-4 relative (two conv
+  implementations; Adam's first steps turn rounding into +-lr moves of
+  near-zero gradients), as ``tests/data/make_world_losses.py`` wrote
+  them (nothing compiles here; for spatial SegFormer-lite the JAX
+  Trainer's one-device losses, which its spatial step does not
+  reproduce). The one-process runs go in a thread while the world runs. The same world runs int8 inference: dynamic int8 under TP
+  2x2 and FSDP 4x1, bitwise one process's logits, and calibrated
+  int8-static on bands, within ``tests/test_torch_quant.py``'s bars.
+  Its data plane deals global batches and decodes each rank's rows.
+* The bands, in one process: convs of any kernel, stride and dilation,
+  resizes, the upsample and space-to-depth, band by band from
+  ``band_plan``'s rows, against the global ops.
 * ``cli train`` in a 2-rank gloo world (torchrun's variables, ``--device
-  cpu``): data parallel per step and from a ``--scan-steps`` pool, and
-  ``--n-model 2 --spatial --augment``, each logging the losses of a
-  one-process ``train`` on the same records (every rank reads the same
-  global batches).
+  cpu``): data parallel per step (each rank decoding its rows of the
+  global batches), with ``--augment``, and from a ``--scan-steps``
+  pool, and ``--n-model 2 --spatial --augment``, each logging the
+  losses of a one-process ``train`` on the same records.
 """
 
 import dataclasses
@@ -59,6 +70,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from dl_image_segmentation_tpu.models import deeplab as jdeeplab
 from dl_image_segmentation_tpu.models import segformer as jsegformer
@@ -66,8 +78,9 @@ from dl_image_segmentation_tpu.models import unet as junet
 from dl_image_segmentation_tpu.parallel import sharding as jsharding
 from dl_image_segmentation_tpu.pipeline import input as jinput
 from dl_image_segmentation_tpu.records import writers as jwriters
-from dl_image_segmentation_tpu.train import trainer as jtrainer
 from dl_image_segmentation_tpu_torch.models import convert as tconvert
+from dl_image_segmentation_tpu_torch.models import layers as tlayers
+from dl_image_segmentation_tpu_torch.models import unet as tunet
 from dl_image_segmentation_tpu_torch.models.deeplab import DeepLabLite
 from dl_image_segmentation_tpu_torch.models.segformer import SegFormerLite
 from dl_image_segmentation_tpu_torch.models.unet import UNet
@@ -76,6 +89,7 @@ from dl_image_segmentation_tpu_torch.parallel import sharding as tsharding
 from dl_image_segmentation_tpu_torch import cli as tcli
 from dl_image_segmentation_tpu_torch.parallel.dryrun import (
     digests, dryrun_multichip, seeded_batches, write_shards)
+from dl_image_segmentation_tpu_torch.parallel.spmd import Bands, band_split
 from dl_image_segmentation_tpu_torch.pipeline import input as tinput
 from dl_image_segmentation_tpu_torch.records import writers as twriters
 from dl_image_segmentation_tpu_torch.serve import PredictServer
@@ -211,9 +225,34 @@ CONFIGS = {
     "fsdp": dict(BASE, base_features=64, fsdp=True),
     "segformer": dict(BASE, model="segformer", base_features=32,
                       image_size=64, n_model=2),
+    # ASPP's rates of 6-18 read rows far past a band of 2 rows at 1/8
+    "spatial_deeplab": dict(BASE, model="deeplab", n_model=2,
+                            spatial=True),
+    # bands of 12, 6, 3 and 2 rows: 6 / 6, 3 / 3, 2 / 1 and 1 / 1
+    "spatial_segformer": dict(BASE, model="segformer", base_features=32,
+                              image_size=48, n_model=2, spatial=True),
+    # bands of 18 rows: 9 / 9, then 5 / 4 at the bottom
+    "spatial_uneven": dict(BASE, image_size=36, n_model=2, spatial=True),
 }
-FROM_JAX = ("spatial", "fsdp_tp")
+FROM_JAX = ("spatial", "fsdp_tp", "spatial_deeplab", "spatial_segformer",
+            "spatial_uneven")
+# inference only: int8 logits of the world against one process's
+INT8 = {
+    "int8_tp": dict(BASE, base_features=128, n_model=2, quantize="int8"),
+    "int8_fsdp": dict(BASE, base_features=64, fsdp=True, quantize="int8"),
+    "int8_spatial": dict(BASE, n_model=2, spatial=True,
+                         quantize="int8-static"),
+}
+# the regimes whose one process is also run through torch's other CPU
+# convs (the witness)
+WITNESSED = ("dp", "tp", "spatial")
+# tests/test_torch_quant.py's bars for int8 against another int8
+QUANT_ATOL, QUANT_SAME = 5e-2, 0.995
 LOSS_RTOL, JAX_RTOL = 2e-5, 1e-4
+# the JAX Trainer's losses on a 2x2 mesh for FROM_JAX
+# (tests/data/make_world_losses.py)
+WORLD_LOSSES = os.path.join(os.path.dirname(__file__), "data",
+                            "world_losses.npz")
 # the first step's fp32 gradients, summed in another order: the global
 # norm before the clip within NORM_RTOL relative; each leaf's difference
 # within GRAD_RTOL of the leaf's norm plus GRAD_ATOL of the whole
@@ -232,32 +271,18 @@ PROBS_ATOL = 1e-3
 
 
 def jax_init(name):
+    """The flax init of a regime's model, from a numpy seed."""
     cfg = CONFIGS[name]
-    model = junet.UNet(num_classes=cfg["num_classes"],
-                       base_features=cfg["base_features"],
-                       levels=cfg["levels"], dtype=jnp.float32)
+    kw = dict(num_classes=cfg["num_classes"],
+              base_features=cfg["base_features"], dtype=jnp.float32)
+    family = cfg.get("model", "unet")
+    if family == "deeplab":
+        model = jdeeplab.DeepLabLite(**kw)
+    elif family == "segformer":
+        model = jsegformer.SegFormerLite(**kw)
+    else:
+        model = junet.UNet(levels=cfg["levels"], **kw)
     return seeded_tree(model, cfg["image_size"], seed=1)
-
-
-def jax_world_losses(name, init, batches, out):
-    """3 steps of the JAX Trainer on a 2x2 mesh of the virtual devices
-    from ``init``, placed as its ``_init_state`` places them."""
-    cfg = jtrainer.TrainConfig(**CONFIGS[name])
-    mesh = jsharding.make_mesh(n_data=2, n_model=2,
-                               devices=jax.devices()[:4])
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jtrainer.Trainer, "_init_state", lambda self: None)
-        t = jtrainer.Trainer(cfg, mesh=mesh)
-    p_sh = jsharding.param_shardings(
-        mesh, init, tp_min_features=(1 << 30) if cfg.spatial else 256,
-        fsdp=cfg.fsdp)
-    params = jax.tree_util.tree_map(
-        lambda x, s: jax.device_put(jnp.asarray(x), s), init, p_sh)
-    rep = jsharding.replicated_sharding(mesh)
-    t.state = jtrainer.TrainState(
-        params, jax.device_put(t.tx.init(params), rep),
-        jax.device_put(jnp.zeros((), jnp.int32), rep))
-    out[name] = [t.train_step(x, y)["loss"] for x, y in batches]
 
 
 def one_process(name, init=None):
@@ -272,8 +297,7 @@ def one_process(name, init=None):
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    """The world's results, the JAX losses, and each regime's batches and
-    init."""
+    """The world's results, and each regime's batches and init."""
     work = str(tmp_path_factory.mktemp("world"))
     regimes, inits, batches = {}, {}, {}
     for name, cfg in CONFIGS.items():
@@ -281,27 +305,32 @@ def world(tmp_path_factory):
         inits[name] = jax_init(name) if name in FROM_JAX else None
         regimes[name] = {"n_model": cfg.get("n_model", 1), "config": cfg,
                          "batches": batches[name], "init": inits[name]}
+    for name, cfg in INT8.items():
+        regimes[name] = {"n_model": cfg.get("n_model", 1), "config": cfg,
+                         "infer": True}
     regimes["tp"]["data_plane"] = True
     regimes["spatial"]["scanned"] = True
     regimes["fsdp"]["restore"] = "fsdp_tp"
-    jax_losses: dict = {}
-    errors = []
 
-    def run_jax():
+    def one_process_runs():
+        # the references the tests hold the world to, here while the
+        # spawned ranks run (a failure shows in the test that asks again)
         try:
-            for name in FROM_JAX:
-                jax_world_losses(name, inits[name], batches[name],
-                                 jax_losses)
-        except BaseException as e:  # reported by the tests that need it
-            errors.append(e)
-    thread = threading.Thread(target=run_jax)
+            for name in CONFIGS:
+                reference(name)
+            for name in WITNESSED:
+                reference(name, mkldnn=False)
+            for name in INT8:
+                int8_reference(name)
+        except Exception:  # noqa: BLE001 -- recomputed by the test
+            pass
+    thread = threading.Thread(target=one_process_runs)
     thread.start()
     try:
         res = dryrun_multichip(4, "cpu", regimes, workdir=work)
     finally:
         thread.join()
-    return {"res": res, "jax": jax_losses, "jax_errors": errors,
-            "inits": inits, "batches": batches}
+    return {"res": res, "inits": inits, "batches": batches}
 
 
 @functools.lru_cache(maxsize=None)
@@ -380,7 +409,7 @@ def assert_grads_close(got, want):
                                               + GRAD_ATOL * whole), n
 
 
-@pytest.mark.parametrize("name", ["dp", "tp", "spatial"])
+@pytest.mark.parametrize("name", WITNESSED)
 def test_world_within_the_gaps_of_another_conv_implementation(world, name):
     """The witness: one process through torch's other CPU convs, the same
     sums in other orders, is within the bars the world is held to (its
@@ -489,6 +518,63 @@ def test_spatial_scanned_from_a_sharded_pool_equals_one_process(world):
                                rtol=LOSS_RTOL)
 
 
+def test_data_plane_decodes_only_each_ranks_rows(world):
+    """The TP 2x2 world's feed deals global batches of 8 and each rank
+    decodes its data rank's 4 rows of them, prefetched batches too."""
+    for r, k in enumerate(world["res"]["tp"]["ranks"]):
+        d = r // 2
+        assert tuple(k["feed_rows"]) == (4 * d, 4 * d + 4)
+        assert k["feed_decoded"] >= 8 and k["feed_decoded"] % 4 == 0
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_feed_rows_are_the_global_batches_rows(tmp_path, n):
+    """A feed with ``rows`` deals the encoded records as the global feed
+    batches its parsed ones (same shuffle, same order) and decodes only
+    its rows: the ranks' batches, stacked, are the global batches, and
+    each rank decodes its share of the records."""
+    shards = write_shards(str(tmp_path), n_shards=3, per_shard=8, size=8)
+    b = 6
+
+    def batches(rows=None):
+        feed = tinput.TFRecordFeed(shards, "rgbarr", b, shuffle_buffer=5,
+                                   num_workers=2, repeat=False,
+                                   per_host=False, rows=rows)
+        return list(feed.batches()), feed.records_read
+    whole, read = batches()
+    assert len(whole) == 4 and read == 24
+    parts = []
+    for r in range(n):
+        rows = (r * b // n, (r + 1) * b // n)
+        got, read = batches(rows)
+        assert read == 4 * (rows[1] - rows[0])
+        parts.append(got)
+    for i, (x, y) in enumerate(whole):
+        np.testing.assert_array_equal(
+            x, np.concatenate([p[i][0] for p in parts]))
+        np.testing.assert_array_equal(
+            y, np.concatenate([p[i][1] for p in parts]))
+
+
+def test_feed_rows_refuse_a_record_they_cannot_skip(tmp_path):
+    """A record of this rank's rows that does not parse raises where the
+    whole-batch feed skips it: the other ranks cannot know to skip it."""
+    from dl_image_segmentation_tpu_torch.records.tfrecord import \
+        TFRecordWriter
+    write_shards(str(tmp_path), n_shards=1, per_shard=6, size=8)
+    w = TFRecordWriter(str(tmp_path / "dry-00001-of-00001"))
+    w.write(b"not an example")
+    w.close()
+    kw = dict(shuffle_buffer=1, num_workers=1, repeat=False,
+              per_host=False, drop_remainder=False)
+    whole = tinput.TFRecordFeed(str(tmp_path / "dry-*"), "rgbarr", 7, **kw)
+    assert [len(x) for x, _ in whole.batches()] == [6]
+    rows = tinput.TFRecordFeed(str(tmp_path / "dry-*"), "rgbarr", 7,
+                               rows=(0, 7), **kw)
+    with pytest.raises(RuntimeError, match="cannot skip it"):
+        list(rows.batches())
+
+
 def test_data_plane_feeds_sharded_steps_and_a_sharded_pool(world):
     got = world["res"]["tp"]
     assert len(got["feed_losses"]) == 3
@@ -501,10 +587,57 @@ def test_data_plane_feeds_sharded_steps_and_a_sharded_pool(world):
 
 @pytest.mark.parametrize("name", FROM_JAX)
 def test_world_against_the_jax_trainer(world, name):
-    if world["jax_errors"]:
-        raise world["jax_errors"][0]
-    np.testing.assert_allclose(world["res"][name]["losses"],
-                               world["jax"][name], rtol=JAX_RTOL)
+    """The world's losses against the JAX Trainer's on a 2x2 mesh of
+    virtual devices, from the same init and batches, as
+    ``tests/data/make_world_losses.py`` wrote them."""
+    with np.load(WORLD_LOSSES) as f:
+        assert json.loads(str(f[f"{name}.config"])) == CONFIGS[name]
+        want = f[name]
+    np.testing.assert_allclose(world["res"][name]["losses"], want,
+                               rtol=JAX_RTOL)
+
+
+@functools.lru_cache(maxsize=None)
+def int8_reference(name):
+    """One process's int8 logits of a regime's eval images (int8-static
+    calibrated on its first batch, as the world calibrates)."""
+    cfg = dataclasses.replace(TrainConfig(**INT8[name]), n_model=1,
+                              spatial=False, fsdp=False)
+    tr = Trainer(cfg, device="cpu")
+    batches = seeded_batches(INT8[name], 3, 0)
+    tr.calibrate([batches[0]], max_batches=1)
+    logits = torch.cat(list(tr._chunked_logits(batches[-1][0])))
+    return logits.numpy(), tr.quant_vars
+
+
+@pytest.mark.parametrize("name", ["int8_tp", "int8_fsdp"])
+def test_world_int8_logits_are_bitwise_one_process(world, name):
+    """A column-parallel int8 conv quantizes its own output channels'
+    kernels (a scale per output channel), and FSDP gathers the float
+    kernel before it quantizes: every int8 sum and rescale is the one
+    process's."""
+    got = world["res"][name]
+    want, _ = int8_reference(name)
+    assert got["mesh"] == {"data": 4 // INT8[name].get("n_model", 1),
+                           "model": INT8[name].get("n_model", 1)}
+    np.testing.assert_array_equal(got["logits"], want)
+
+
+def test_world_int8_static_on_bands_within_the_quant_bars(world):
+    """Static int8 on bands: each conv's calibrated max-abs and each
+    forward's activations are the maximum over the bands; the GroupNorms
+    sum over the bands in another order, so the logits are held to
+    tests/test_torch_quant.py's bars for two int8 runs."""
+    got = world["res"]["int8_spatial"]
+    want, quant = int8_reference("int8_spatial")
+    scale = np.abs(want).max()
+    assert np.abs(got["logits"] - want).max() <= QUANT_ATOL * scale
+    assert (got["logits"].argmax(-1) == want.argmax(-1)).mean() >= \
+        QUANT_SAME
+    flat = jax.tree_util.tree_leaves(got["quant_vars"])
+    ref = jax.tree_util.tree_leaves(quant)
+    assert len(flat) == len(ref) > 0
+    np.testing.assert_allclose(flat, ref, rtol=1e-5)
 
 
 # -- cli train in a world -----------------------------------------------
@@ -516,6 +649,8 @@ CLI_TRAIN = ["train", "--mode", "rgbarr", "--classes", "2", "--channels",
 # name: (the world's extra arguments, the one process's)
 CLI_RUNS = {
     "dp": ([], []),
+    # each rank decodes its rows and takes its rows of the global draws
+    "dp --augment": (["--augment"], ["--augment"]),
     "dp --scan-steps": (["--scan-steps", "3", "--pool-size", "8"],) * 2,
     "spatial --augment": (["--n-model", "2", "--spatial", "--augment"],
                           ["--augment"]),
@@ -621,6 +756,102 @@ def test_feed_order_does_not_depend_on_its_threads(tmp_path):
 
 # -- the rest: one process -----------------------------------------------
 
+class SimulatedBands(Bands):
+    """The bands of a whole tensor ``full`` over ``n`` ranks, seen from
+    ``rank`` in one process: a fetch reads the rows from ``full`` (zeros
+    beyond its top and bottom) where the world asks their owners."""
+
+    def __init__(self, n, rank, full):
+        self.n, self.rank, self.full, self.group = n, rank, full, None
+
+    def rows(self, x):
+        return self.full.shape[2]
+
+    def _fetch(self, x, h, needs):
+        lo, hi = needs[self.rank]
+        t = self.full
+        a, b = max(lo, 0), max(min(hi, h), 0)
+        assert torch.equal(x, t[:, :, slice(*band_split(h, self.n,
+                                                        self.rank))])
+        zeros = [t.new_zeros(t.shape[:2] + (k, t.shape[3]))
+                 for k in (max(0, -lo), max(0, hi - max(lo, h)))]
+        return torch.cat([zeros[0], t[:, :, a:b], zeros[1]], 2)
+
+
+def banded(full, n, op):
+    """``op(bands, band)`` on every rank's band of ``full``, the outputs
+    concatenated in rank order."""
+    outs = []
+    for r in range(n):
+        rows = slice(*band_split(full.shape[2], n, r))
+        outs.append(op(SimulatedBands(n, r, full),
+                       full[:, :, rows].contiguous()))
+    return torch.cat(outs, 2)
+
+
+SWEEP_HEIGHTS = (1, 2, 5, 9, 16, 18, 33)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("kernel", [1, 2, 3, 7])
+def test_band_plan_convs_equal_the_global_conv(n, kernel):
+    """A SAME conv of any stride and dilation, computed band by band from
+    ``band_plan``'s rows (halos wider than a band, bands of no rows), is
+    the global conv within 1e-6 of its largest magnitude at fp32."""
+    g = torch.Generator().manual_seed(n * 10 + kernel)
+    for h in SWEEP_HEIGHTS:
+        for s in (1, 2, 4):
+            for d in ((1,) if kernel == 1 else (1, 6, 18)):
+                x = torch.randn(2, 3, h, 7, generator=g)
+                w = torch.randn(4, 3, kernel, kernel, generator=g)
+                want = F.conv2d(tlayers.pad_same(x, kernel, s, d), w,
+                                stride=s, dilation=d)
+                got = banded(x, n, lambda bands, xb: bands.conv(
+                    xb, lambda xr: F.conv2d(
+                        tlayers.pad_width(xr, kernel, s, d), w, stride=s,
+                        dilation=d), kernel, s, d))
+                assert got.shape == want.shape, (h, s, d)
+                err = float((got - want).abs().max())
+                assert err <= 1e-6 * float(want.abs().max()), (h, s, d)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_resizes_equal_the_global_resize_bitwise(n, dtype):
+    """``resize_bilinear`` of a banded tensor (each band's output rows
+    from the rows their weights reach) is the global resize bit for
+    bit, up and down."""
+    g = torch.Generator().manual_seed(n)
+    for h in (1, 2, 3, 5, 8, 9, 16, 33):
+        for ho in (1, 2, 4, 7, 16, 18, 36, 66):
+            x = torch.randn(2, 3, h, 5, generator=g).to(dtype)
+            want = tlayers.resize_bilinear(x, ho, 9)
+            got = banded(x, n, lambda bands, xb: tlayers.resize_bilinear(
+                xb, ho, 9, bands))
+            assert torch.equal(got, want), (h, ho)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_band_upsample_and_space_to_depth_equal_the_global(n):
+    """The U-Net's upsample cropped to its skip's height, its
+    space-to-depth stem and its sub-pixel head, band by band, are the
+    global ops bit for bit."""
+    g = torch.Generator().manual_seed(n)
+    for h in (1, 2, 3, 5, 9, 18):
+        x = torch.randn(2, 4, h, 3, generator=g)
+        for rows in (2 * h - 1, 2 * h):
+            want = tunet.depth_to_space(x, 2)[:, :, :rows]
+            got = banded(x, n, lambda bands, xb: bands.up(
+                xb, lambda t: tunet.depth_to_space(t, 2), 2, rows))
+            assert torch.equal(got, want), (h, rows)
+        x = torch.randn(2, 3, 2 * h, 4, generator=g)
+        want = tunet.space_to_depth(x, 2)
+        got = banded(x, n, lambda bands, xb: bands.space_to_depth(
+            xb, 2, lambda t: tunet.space_to_depth(t, 2)))
+        assert torch.equal(got, want), h
+
+
+
 @pytest.mark.parametrize("fsdp", [False, True])
 def test_world_of_one_is_bitwise_the_plain_trainer(tmp_path, fsdp):
     """A gloo world of one (``initialize`` from the environment, the mesh
@@ -679,10 +910,38 @@ def test_mesh_of_more_ranks_than_the_world_names_the_world():
     dict(base_features=128, quantize="int8"),        # int8 with TP
 ])
 def test_what_this_slice_leaves_names_item_15(over):
+    """The configurations that item 15 once refused build on a mesh's
+    axis sizes (no collective): a spatial model keeps every parameter
+    whole and names the layers it runs on bands; the int8 twin of a TP
+    model computes on the float model's shards through wrappers of its
+    own."""
     mesh = tsharding.Mesh(1, 2, "cpu")  # axis sizes only: no collective
     cfg = TrainConfig(**dict(BASE, n_model=2, **over))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Trainer(cfg, device="cpu", mesh=mesh)
+    tr = Trainer(cfg, device="cpu", mesh=mesh)
+    sharded = {n for n, sh in tr.shardings.items()
+               if not sh.is_fully_replicated}
+    if cfg.spatial:
+        assert tr._spatial and not sharded
+        layers = list(tr.model.spatial_layers())
+        kinds = {type(m).__name__ for m in layers}
+        assert {"Conv2d", "GroupNorm"} <= kinds
+        if cfg.model == "deeplab":
+            # the image-level branch sees the mean of the whole image
+            assert not any(m is tr.model.aspp.pooled.conv for m in layers)
+        else:
+            assert "ConvTranspose2d" in kinds
+        return
+    assert sharded
+    params = dict(tr.model.named_parameters())
+    twin = dict(tr.infer_model.named_modules())
+    for name in sharded:
+        mod_name = name.rpartition(".")[0]
+        assert "spmd" in twin[mod_name].__dict__, name
+        full = dict(tr._template.named_parameters())[name]
+        assert params[name].shape[0] * 2 == full.shape[0] or \
+            params[name].shape[1] * 2 == full.shape[1]
+    for name, p in tr.infer_model.named_parameters():
+        assert p is params[name]
 
 
 def test_predict_server_refuses_a_world():
