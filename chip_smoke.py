@@ -106,7 +106,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``to-tfrecords --store-as-array``, ``inspect --verify-crc
    --class-stats``, ``train --mode tifarr`` at the TrainConfig defaults
    with 10 classes for 20 steps with ``--save-every 10`` (the loss must
-   fall), again with ``--scan-steps 10``, ``eval --json``, ``stitch``,
+   fall; orbax steps ``10`` and ``20`` stay, the port's reader gives back
+   the restored trainer's ``orbax_tree()`` bitwise, and what follows
+   reads step 20), again with ``--scan-steps 10``, ``eval --json``, ``stitch``,
    ``predict --geotiff`` and ``serve`` in a subprocess on port 0 (one
    /healthz, one /predict equal to ``predict``'s map, then SIGINT);
    then ``train --model segformer`` (20 steps, falling loss), ``predict
@@ -126,8 +128,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``to-tfrecords`` gs:// -> s3:// (shards equal to phase 7's),
    ``inspect --verify-crc`` on s3://, the feed's records/s from s3://
    beside local's, ``train`` from s3:// with ``--checkpoint gs://...
-   --save-every 10 --keep 1`` (falling loss; only the newest step stays
-   in the bucket), ``predict`` and ``eval --json`` from the gs://
+   --save-every 10 --keep 1`` (falling loss; only the newest orbax step,
+   ``20/``, stays in the bucket), ``predict`` and ``eval --json`` from the gs://
    checkpoint equal to a local copy's, ``stitch`` gs:// -> gs:// equal to
    phase 7's mosaic, and ``push`` from s3:// to a directory and to
    presigned URLs on a loopback PUT server (every shard's bytes);
@@ -256,7 +258,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    moments (FSDP's below DP's), a step's peak memory above its state
    beside one process's at batch 8, step ms, the leaves TP and FSDP
    shard, and the rows the DP world's feed decodes of phase 7's shards
-   (2 of every 8 a rank). No hand-written kernel is on this path.
+   (2 of every 8 a rank); after the steps of DP 4x1 and TP 2x2, and on
+   int8 TP 2x2, the world serves (``world_server_rows``): the primary's
+   ``PredictServer`` behind ``make_http_server`` on loopback answers a
+   full batch, a partial batch, probability requests and a uint8 and a
+   uint16 chip while the other ranks follow, bitwise the world's own
+   predict, with requests/s and
+   p50 of 4 more full batches. No hand-written kernel is on this path.
 
 15. the JPEG, BMP and JPEG 2000 variants (``codec_variants_phase``,
    after phase 9), on the committed fixtures of ``tests/data/{jpeg,bmp,
@@ -1880,7 +1888,8 @@ def verify_sequence(smi, tmp, share, out):
     import glob
     import torch
     from dl_image_segmentation_tpu_torch.raster import read_geotiff
-    from dl_image_segmentation_tpu_torch.train import TrainConfig, Trainer
+    from dl_image_segmentation_tpu_torch.train import (TrainConfig, Trainer,
+                                                       orbax)
     secs = out["seconds"]
     base = share["base"]
     rgb = os.path.join(tmp, "rgb")
@@ -1906,8 +1915,10 @@ def verify_sequence(smi, tmp, share, out):
     if len(losses) != 20 or not np.mean(losses[-5:]) < losses[0]:
         raise AssertionError(f"train: losses {losses}")
     out["losses"] = losses
-    ckpt = os.path.join(ckdir, "20.pt")
-    if sorted(os.listdir(ckdir)) != ["10.pt", "20.pt"]:
+    # orbax steps, as the JAX CLI's CheckpointManager leaves them
+    ckpt = orbax.step_path(ckdir, 20)
+    if sorted(os.listdir(ckdir)) != ["10", "20"] \
+            or orbax.all_steps(ckdir) != [10, 20]:
         raise AssertionError(f"managed checkpoints {os.listdir(ckdir)}")
     cli_run(["train", "--records", pattern, "--mode", "tifarr",
              "--classes", "10", "--steps", "20", "--scan-steps", "10",
@@ -1935,10 +1946,22 @@ def verify_sequence(smi, tmp, share, out):
     t.restore_checkpoint(ckpt)
     if not np.array_equal(served, t.predict(chip[None])[0]):
         raise AssertionError("served class map differs from predict's")
+    # the port's reader gives back the trainer's tree bitwise
+    got = flat_tree(orbax.read_checkpoint(ckpt))
+    want = flat_tree(t.orbax_tree())
+    if sorted(got) != sorted(want) or int(want["step"]) != 20 or any(
+            np.asarray(got[k]).dtype != np.asarray(v).dtype
+            or np.asarray(got[k]).tobytes() != np.asarray(v).tobytes()
+            for k, v in want.items()):
+        raise AssertionError("read_checkpoint of the managed step differs "
+                             "from the restored trainer's orbax_tree()")
     del t
     torch.cuda.empty_cache()
     log(f"  loss {losses[0]:.4f} -> {np.mean(losses[-5:]):.4f} (mean of "
-        f"the last 5 of 20); served /predict == predict; {smi}")
+        f"the last 5 of 20); managed orbax steps {sorted(os.listdir(ckdir))}"
+        f", read back bitwise as the restored trainer's orbax_tree() "
+        f"({len(want)} leaves); served /predict from the orbax step == "
+        f"predict; {smi}")
     # the other families and int8 inference through the CLI
     seg_log = os.path.join(tmp, "segformer.jsonl")
     cli_run(["train", "--records", pattern, "--mode", "tifarr",
@@ -2156,8 +2179,9 @@ def remote_phase(smi, share):
             if len(losses) != 20 or not np.mean(losses[-5:]) < losses[0]:
                 raise AssertionError(f"train from s3://: losses {losses}")
             saved_at = [ln for ln in lines if "managed checkpoint saved" in ln]
-            remote = sorted(objects_under(gcs, "smoke", "ckpt/"))
-            if remote != ["20.pt"] or len(saved_at) != 2:
+            remote = sorted({k.split("/")[0] for k in
+                             objects_under(gcs, "smoke", "ckpt/")})
+            if remote != ["20"] or len(saved_at) != 2:
                 raise AssertionError(f"checkpoints on gs://: {remote}; "
                                      f"saves {saved_at}")
             out["losses"] = losses
@@ -2167,9 +2191,9 @@ def remote_phase(smi, share):
                 f"{out['losses_equal_phase_7']}); gs://smoke/ckpt holds "
                 f"{remote} after saves at 10 and 20 with --keep 1")
 
-            ckpt = "gs://smoke/ckpt/20.pt"
-            local_ckpt = os.path.join(tmp, "20.pt")
-            storage.download_file(ckpt, local_ckpt)
+            ckpt = "gs://smoke/ckpt/20/default"
+            local_ckpt = os.path.join(tmp, "20")
+            storage.download_dir(ckpt, local_ckpt)
             inf = ["--classes", "10", "--device", "cuda"]
             cli_run(["predict", "--images", f"gs://{rgb}/images",
                      "--checkpoint", ckpt, "--scale", "none", "--out",
@@ -3364,7 +3388,7 @@ def flat_tree(tree, prefix=""):
     """{"opt_state/1/0/mu/...": array} of a tree of train/orbax.py."""
     if isinstance(tree, dict):
         items = tree.items()
-    elif isinstance(tree, tuple):
+    elif isinstance(tree, (tuple, list)):
         items = enumerate(tree)
     else:
         return {} if tree is None else {prefix.rstrip("/"): tree}
@@ -4570,7 +4594,12 @@ def parallel_phase(smi, tmp, share):
     largest logit, 99.5% of the class maps). Per rank: bytes of
     parameters and Adam moments, a step's peak memory above its state,
     step ms, the leaves TP and FSDP shard, and in the DP world the rows
-    its feed decoded of phase 7's shards."""
+    its feed decoded of phase 7's shards. After the steps of DP 4x1 and
+    TP 2x2, and on int8 TP 2x2, the world serves: the primary's
+    ``PredictServer`` behind ``make_http_server`` on loopback answers a
+    full batch, a partial batch and probability requests, bitwise the
+    world's own predict, while the other ranks follow; requests/s and
+    p50 of 4 more full batches."""
     import socket
     import torch
     import torch.distributed as dist
@@ -4706,6 +4735,10 @@ def world_of_four(smi, tmp, pattern, batches, mode="tifarr"):
         specs[name] = {"n_model": nm, "config": dict(base, n_model=nm,
                                                      **over),
                        "batches": [(x, y)], "eval": (x, y), "infer": True}
+    # the world's PredictServer over HTTP on the primary, the other ranks
+    # following: after the steps of DP and TP, and on int8 TP
+    for name in SERVED_REGIMES:
+        specs[name]["serve"] = {"rounds": 4}
     work = os.path.join(tmp, "world")
     res = dryrun_multichip(4, "cuda:0", specs, workdir=work)
     world_s = time.perf_counter() - t0
@@ -4893,6 +4926,7 @@ def world_of_four(smi, tmp, pattern, batches, mode="tifarr"):
             f"world")
         if err > 5e-2 or same < 0.995:
             raise AssertionError(f"int8 regime {name} failed: {row}")
+    out["world_server"] = world_server_rows(smi, res)
     fs = [row for row in rows if row["regime"] == "fsdp 4x1"][0]
     dp = [row for row in rows if row["regime"] == "dp 4x1"][0]
     if not fs["ranks"][0]["param_bytes"] < dp["ranks"][0]["param_bytes"]:
@@ -4908,6 +4942,48 @@ def world_of_four(smi, tmp, pattern, batches, mode="tifarr"):
     out["world_spawn_seconds"] = world_s
     out["world_of_four_seconds"] = time.perf_counter() - t0
     return out
+
+
+# phase 14's regimes whose world also serves (dryrun's ``serve`` field)
+SERVED_REGIMES = ("dp 4x1", "tp 2x2", "int8 tp 2x2")
+
+
+def world_server_rows(smi, res):
+    """Phase 14's world server: for each served regime, the maps of a full
+    batch of requests at once, of a partial batch, the probability
+    requests and a uint8 and a uint16 chip (kept in their dtype) must be
+    bitwise the world's own predict / predict_probs of the same images;
+    requests/s and the p50 of the timed rounds (4 full
+    batches of concurrent requests over loopback HTTP)."""
+    rows = []
+    for name in SERVED_REGIMES:
+        sv = res[name]["serve"]
+        k = len(sv["partial"])
+        same = (np.array_equal(sv["maps"], sv["predict"])
+                and np.array_equal(sv["partial"], sv["predict"][:k])
+                and np.array_equal(sv["probs"], sv["predict_probs"][:2])
+                and len(sv["typed"]) == 2
+                and all(np.array_equal(a, b) for a, b in
+                        zip(sv["typed"], sv["predict_typed"])))
+        lat = sorted(sv["request_seconds"])
+        row = {"regime": name, "bitwise_equal_world_predict": same,
+               "requests": len(lat), "dispatches": sv["dispatches"],
+               "requests_per_s": sv["requests_per_s"],
+               "p50_ms": 1e3 * float(np.median(lat)),
+               "p90_ms": 1e3 * float(np.percentile(lat, 90))}
+        rows.append(row)
+        log(f"  (b) world server, {name}: served maps (a full batch of "
+            f"{len(sv['maps'])}, a partial batch of {k}, a uint8 and a "
+            f"uint16 chip) and probabilities bitwise the world's predict: "
+            f"{same}; {row['requests']} timed "
+            f"requests in {row['dispatches']} dispatches all told: "
+            f"{row['requests_per_s']:.2f} requests/s, p50 "
+            f"{row['p50_ms']:.1f} ms, p90 {row['p90_ms']:.1f} ms (loopback "
+            f"HTTP, 4 gloo ranks on one card; {smi})")
+        if not same:
+            raise AssertionError(f"world server {name}: served maps differ "
+                                 "from the world's predict")
+    return rows
 
 
 def build_export_phases(card):

@@ -33,18 +33,20 @@ storage layer (``storage/``): ``STORAGE_EMULATOR_HOST`` and
 
 The device commands (create-chips, train, eval, predict, serve) take
 ``--device {cuda,cpu}``, default ``cuda``: without a card they raise
-unless ``--device cpu`` is given. Checkpoints are written as the port's
-``torch.save`` files; ``--restore`` and ``--checkpoint`` also take the
-JAX package's orbax checkpoint directories, and a ``--save-every``
-directory of its orbax steps resumes from the newest step, locally or
-on gs:// / s3:// (``train/orbax.py``). PNG, JPEG, GIF and BMP decode and PNG/JPEG encode
+unless ``--device cpu`` is given. ``train --checkpoint PATH`` writes the
+orbax checkpoint directory that the JAX CLI writes (``train/orbax.py``),
+or the port's ``torch.save`` file where PATH ends in ``.pt``;
+``--save-every N`` rotates orbax steps in the directory as the JAX
+CLI's orbax ``CheckpointManager`` does and resumes from the newest step
+of either kind, locally or on gs:// / s3://. ``--restore`` and
+``--checkpoint`` read both kinds. PNG, JPEG, GIF and BMP decode and PNG/JPEG encode
 through the port's own codecs (``raster/``), so the default ``train
 --mode rgbraw`` reads PNG/JPEG records; JPEG 2000 decodes and encodes
 through the port's own codec too, so ``ingest-safe`` walks Sentinel-2
 ``.SAFE`` trees and JP2 chips take every path a GeoTIFF takes. What is
 not ported raises NotImplementedError naming its ROADMAP queue 1 item.
-train, eval and predict join a ``torch.distributed`` world when the
-environment names one (torchrun's variables, or the JAX package's
+train, eval, predict and serve join a ``torch.distributed`` world when
+the environment names one (torchrun's variables, or the JAX package's
 ``DLSEG_NUM_PROCESSES``, ``DLSEG_PROCESS_ID`` and
 ``COORDINATOR_ADDRESS``): ``torchrun --nproc-per-node N -m
 dl_image_segmentation_tpu_torch.cli train ...`` trains data parallel
@@ -814,18 +816,38 @@ def _predict_from_records(args, trainer, write_geotiff, print) -> int:
 
 def cmd_serve(args) -> int:
     """Online inference endpoint: micro-batched, one batch shape
-    (serve.py)."""
+    (serve.py). In a world every rank serves the same model (data
+    parallel over the ranks, as the JAX serve runs over every local
+    chip): the primary binds --host/--port and answers, the other ranks
+    enter each dispatch with it until it stops (SIGINT on the primary)."""
+    import signal
+    import threading
+
     import numpy as np
 
     from .serve import PredictServer, make_http_server
 
+    print = _join_world(args)  # only the primary prints
     trainer = _inference_trainer(args)
     cfg = trainer.config
     ps = PredictServer(trainer, max_wait_ms=args.max_wait_ms,
                        max_queue=args.max_queue)
+    if not ps.primary:
+        # the primary decides when the world stops: a SIGINT sent to
+        # every rank (torchrun forwards one) must not end a follower
+        # between the primary's broadcasts
+        main = threading.current_thread() is threading.main_thread()
+        old = signal.signal(signal.SIGINT, signal.SIG_IGN) if main else None
+        try:
+            ps.follow()
+        finally:
+            if main:
+                signal.signal(signal.SIGINT, old)
+        return 0
     httpd = make_http_server(args.host, args.port, ps, scale=args.scale,
                              max_pixels=args.max_pixels)
     host, port = httpd.server_address[:2]
+    front = threading.Thread(target=httpd.serve_forever, daemon=True)
     try:
         # warm the one batch shape so the first request does not pay
         # cuDNN's plan setup and the conv slot test
@@ -836,12 +858,21 @@ def cmd_serve(args) -> int:
               f"http://{host}:{port}  "
               f"[POST /predict, /predict?probs=1, GET /healthz]",
               flush=True)
-        httpd.serve_forever()
+        front.start()
+        # until SIGINT, or until a failed dispatch broke the world
+        while not ps.wait_stopped(0.5):
+            pass
     except KeyboardInterrupt:
         pass
     finally:
+        if front.is_alive():
+            httpd.shutdown()
         httpd.server_close()
         ps.close()
+    if ps.error is not None:
+        print(f"serve: stopped after a failed dispatch: "
+              f"{type(ps.error).__name__}: {ps.error}", file=sys.stderr)
+        return 1
     return 0
 
 
@@ -1126,8 +1157,11 @@ def main(argv=None) -> int:
     tr.add_argument("--workers", type=int, default=4)
     tr.add_argument("--log-every", type=int, default=10)
     tr.add_argument("--checkpoint", default=None,
-                    help="checkpoint path; with --save-every this is a "
-                         "managed rotating-checkpoint DIRECTORY")
+                    help="checkpoint path: an orbax checkpoint directory "
+                         "as the JAX CLI writes, or a torch.save file for "
+                         "a path ending in .pt; with --save-every a "
+                         "managed rotating-checkpoint DIRECTORY of orbax "
+                         "steps")
     tr.add_argument("--save-every", type=int, default=0,
                     help="save a managed rotating checkpoint every N "
                          "steps into --checkpoint and auto-resume the "

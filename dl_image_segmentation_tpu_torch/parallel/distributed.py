@@ -25,8 +25,8 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-__all__ = ["initialize", "is_primary", "local_device", "local_rank",
-           "rank", "world_size"]
+__all__ = ["collective_device", "initialize", "is_primary", "local_device",
+           "local_rank", "rank", "world_size"]
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -125,3 +125,12 @@ def local_device(device=None, index: Optional[int] = None) -> torch.device:
 def is_primary() -> bool:
     """True on the process that writes checkpoints and logs."""
     return rank() == 0
+
+
+def collective_device(device) -> torch.device:
+    """Where a tensor that the world's default group broadcasts lives:
+    ``device`` under NCCL, which moves CUDA tensors; the CPU under gloo,
+    which moves CPU tensors, also for ranks that share a card."""
+    if dist.is_initialized() and dist.get_backend() != "nccl":
+        return torch.device("cpu")
+    return torch.device(device)

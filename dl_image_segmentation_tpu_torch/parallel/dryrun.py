@@ -181,9 +181,11 @@ def _run_regime(name: str, spec: dict, n: int, device, workdir: str
     pimg = ex[:max(1, len(ex) - 1)]
     out["predict"] = tr.predict(pimg)
     out["probs"] = tr.predict_probs(pimg)
+    if spec.get("serve"):
+        out["serve"] = _serve_world(tr, ex, spec["serve"])
     # a checkpoint the world saves restores bitwise, each rank its
     # shards: saved, stepped on, restored over the step
-    path = os.path.join(workdir, f"{name}.pt")
+    path = _checkpoint_path(workdir, name, spec)
     trees = (st.params, st.opt_state.mu, st.opt_state.nu)
     kept = [{k: v.detach().clone() for k, v in t.items()} for t in trees]
     tr.save_checkpoint(path)
@@ -196,7 +198,8 @@ def _run_regime(name: str, spec: dict, n: int, device, workdir: str
     out["checkpoint"] = path
     if spec.get("restore"):
         # another regime's checkpoint, re-sharded onto this mesh
-        out["restored_from"] = os.path.join(workdir, f"{spec['restore']}.pt")
+        src = os.path.join(workdir, spec["restore"])
+        out["restored_from"] = src if os.path.isdir(src) else f"{src}.pt"
         tr2 = Trainer(cfg, device=device, mesh=mesh)
         tr2.restore_checkpoint(out["restored_from"])
         out["restored_digests"] = digests(tr2._payload()["params"])
@@ -250,6 +253,12 @@ def _run_regime(name: str, spec: dict, n: int, device, workdir: str
     return {"out": out, "mine": mine}
 
 
+def _checkpoint_path(workdir: str, name: str, spec: dict) -> str:
+    """Where a regime's world saves its checkpoint: an orbax directory
+    with ``orbax``, else a ``.pt`` file."""
+    return os.path.join(workdir, name if spec.get("orbax") else f"{name}.pt")
+
+
 def _run_inference(tr, spec: dict, batches, t_start: float) -> dict:
     """An inference-only regime: (int8-static: calibrate on the first
     batch, every rank the same images) the logits of the eval images,
@@ -257,9 +266,108 @@ def _run_inference(tr, spec: dict, batches, t_start: float) -> dict:
     ex = (spec.get("eval") or batches[-1])[0]
     tr.calibrate([batches[0]], max_batches=1)
     logits = torch.cat([lg.cpu() for lg in tr._chunked_logits(ex)])
-    return {"out": {"mesh": dict(tr.mesh.shape), "logits": logits.numpy(),
-                    "quant_vars": tr.quant_vars},
-            "mine": {"seconds": time.perf_counter() - t_start}}
+    out = {"mesh": dict(tr.mesh.shape), "logits": logits.numpy(),
+           "quant_vars": tr.quant_vars}
+    if spec.get("serve"):
+        out["serve"] = _serve_world(tr, ex, spec["serve"])
+    return {"out": out, "mine": {"seconds": time.perf_counter() - t_start}}
+
+
+def _post(base: str, img: np.ndarray, probs: bool) -> tuple:
+    """(the .npy answer of one POST /predict, its seconds); no proxy."""
+    import io
+    import urllib.request
+    buf = io.BytesIO()
+    np.save(buf, np.ascontiguousarray(img, np.float32))
+    req = urllib.request.Request(
+        base + "/predict" + ("?probs=1" if probs else ""),
+        data=buf.getvalue(), method="POST")
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    t0 = time.perf_counter()
+    with opener.open(req, timeout=300) as r:
+        body = r.read()
+    return np.load(io.BytesIO(body)), time.perf_counter() - t0
+
+
+def _concurrent(base: str, imgs, probs: bool) -> tuple:
+    """POST every image at once, one thread each: (the answers in order,
+    each request's seconds, the wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(imgs)) as pool:
+        res = list(pool.map(lambda im: _post(base, im, probs), imgs))
+    return ([a for a, _ in res], [s for _, s in res],
+            time.perf_counter() - t0)
+
+
+def _serve_world(tr, images: np.ndarray, opts) -> Optional[dict]:
+    """A ``PredictServer`` of the world's trainer: on the primary behind
+    ``make_http_server`` on loopback, a full batch of class-map requests
+    at once, a partial batch, and two probability requests, a uint8 and
+    a uint16 chip through ``submit``, then
+    ``rounds`` (``opts["rounds"]``, default 0) more full batches timed,
+    while every other rank follows; then the world's ``predict`` and
+    ``predict_probs`` of the same images (collectives: every rank).
+    Returns on the primary the served maps (full, partial, typed) and
+    probabilities beside the world's own, the requests' seconds and the
+    requests/s of the timed rounds; None elsewhere."""
+    import threading
+    from ..serve import PredictServer, make_http_server
+    opts = opts if isinstance(opts, dict) else {}
+    bs = int(tr.config.batch_size)
+    imgs = [images[i % len(images)] for i in range(bs)]
+    part = max(1, bs // 2 - 1)
+    # a window that holds a batch of requests sent at once
+    ps = PredictServer(tr, max_wait_ms=50.0)
+    res = None
+    if ps.primary:
+        httpd = make_http_server("127.0.0.1", 0, ps, scale="none")
+        base = "http://%s:%d" % httpd.server_address[:2]
+        front = threading.Thread(target=httpd.serve_forever, daemon=True)
+        front.start()
+        try:
+            full, _, _ = _concurrent(base, imgs, False)
+            partial, _, _ = _concurrent(base, imgs[:part], False)
+            probs, _, _ = _concurrent(base, imgs[:2], True)
+            # the library path keeps a chip's dtype: uint8 and uint16
+            # chips are scaled by predict_both on every rank
+            typed = [ps.submit(im, probs=False, timeout=300)
+                     for im in _typed(imgs)]
+            for p in typed:
+                if p.error is not None:
+                    raise RuntimeError(f"a typed chip failed: {p.error}")
+            lat, wall = [], 0.0
+            for _ in range(int(opts.get("rounds", 0))):
+                _, secs, w = _concurrent(base, imgs, False)
+                lat += secs
+                wall += w
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            ps.close()
+        if ps.error is not None:
+            raise RuntimeError(f"the world's server failed: {ps.error!r}")
+        res = {"maps": np.stack(full), "partial": np.stack(partial),
+               "probs": np.stack(probs),
+               "typed": [p.result for p in typed], "dispatches": ps.batches,
+               "request_seconds": lat,
+               "requests_per_s": len(lat) / wall if wall else None}
+    else:
+        ps.follow()
+    stack = np.stack(imgs)
+    want, want_p = tr.predict(stack), tr.predict_probs(stack)
+    want_t = [tr.predict(im[None])[0] for im in _typed(imgs)]
+    if res is not None:
+        res.update(predict=want, predict_probs=want_p, predict_typed=want_t)
+    return res
+
+
+def _typed(imgs) -> list:
+    """A uint8 and a uint16 chip made from the first two images (values
+    in [0, 1] spread over each type's range)."""
+    return [(np.clip(imgs[i], 0, 1) * top).astype(t)
+            for i, (t, top) in enumerate(((np.uint8, 255),
+                                          (np.uint16, 65535)))]
 
 
 def _rank_main(rank: int, n: int, port: int, device: str, spec_path: str,
@@ -299,13 +407,18 @@ def dryrun_multichip(n_devices: int = 4, device: str = "cpu",
     ``n_model``, ``config`` (TrainConfig fields), and optionally
     ``batches`` (global (images, labels) host batches; default three
     seeded ones), ``eval`` (one batch), ``init`` (a flax param tree),
-    ``scanned``, ``data_plane`` (with ``shards``, a glob, default
+    ``scanned``, ``orbax`` (the checkpoint is the orbax directory that
+    the JAX ``Trainer`` writes, not a ``.pt`` file), ``data_plane``
+    (with ``shards``, a glob, default
     :func:`write_shards` in ``workdir``, and their ``mode``, default
     rgbarr), ``restore`` (the name of an
     earlier regime of the same model, whose checkpoint a fresh trainer
     of this regime restores), ``infer`` (no steps: int8-static
     calibrates on the first batch, and the regime returns the logits of
-    the eval images). Returns {name: {..., "ranks": [each rank's
+    the eval images), ``serve`` (True, or ``{"rounds": n}``: a
+    ``PredictServer`` of the world answers HTTP
+    requests of the eval images on the primary while the other ranks
+    follow; see :func:`_serve_world`). Returns {name: {..., "ranks": [each rank's
     numbers]}}; the checkpoints stay in ``workdir`` (default a new
     temporary directory)."""
     import torch.multiprocessing as mp

@@ -21,7 +21,11 @@ Prometheus lines:
 - bounded admission: beyond ``max_queue`` waiting requests the server
   answers 503 at once, and shutdown fails queued requests instead of
   letting them time out. A batch that fails surfaces its error to every
-  caller of that batch.
+  caller of that batch;
+- in a ``torch.distributed`` world (a trainer on a mesh of more than
+  one rank) the primary serves and every other rank follows each
+  dispatch (``PredictServer.follow``), as the JAX package's server runs
+  each batch sharded over its mesh.
 
 Endpoints:
   GET  /healthz            -> JSON status (model, step, batch size)
@@ -51,6 +55,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
+import torch
 
 __all__ = ["PredictServer", "make_http_server", "scale_image",
            "predict_windowed_batched", "WindowedError"]
@@ -121,6 +126,25 @@ class _Hist:
         return out
 
 
+# what the primary of a world tells its followers before each collective
+_HEARTBEAT, _DISPATCH, _STOP = 0, 1, 2
+# the dtypes a world's batch travels in (its header names one by index):
+# the batch keeps the chips' own dtype, as in one process, so that
+# ``normalize_images`` scales uint8 / uint16 on every rank alike
+_DTYPES = tuple(np.dtype(t) for t in (
+    np.float32, np.uint8, np.uint16, np.float16, np.float64, np.bool_,
+    np.int8, np.int16, np.int32, np.int64, np.uint32, np.uint64))
+# the primary's heartbeat while idle, seconds: far below any process
+# group's timeout (torch's default is 30 minutes, NCCL's 10)
+HEARTBEAT_S = 1.0
+
+
+def _broadcast(tensor: torch.Tensor) -> None:
+    """The primary's ``tensor`` to every rank of the world's default
+    group (in place on the followers)."""
+    torch.distributed.broadcast(tensor, src=0)
+
+
 class PredictServer:
     """Collects requests into fixed-size device batches.
 
@@ -128,22 +152,42 @@ class PredictServer:
     batch window of ``max_wait_ms``; whatever arrived by then (capped
     at the batch size) rides one ``predict_both`` dispatch.
     Under load the window never idles -- a full batch closes
-    immediately -- so max_wait_ms bounds LATENCY, not throughput. A
-    trainer on a mesh of more than one rank is refused: each dispatch is
-    a collective that every rank would have to enter with the same
-    requests (ROADMAP queue 1 item 15)."""
+    immediately -- so max_wait_ms bounds LATENCY, not throughput.
+
+    On a mesh of more than one rank (a ``torch.distributed`` world) every
+    rank builds the server, and each dispatch is a collective that every
+    rank enters with the same batch. The primary (rank 0) owns the queue,
+    the batching window and the HTTP front (``make_http_server``); every
+    other rank calls :meth:`follow`. Before each dispatch the primary
+    broadcasts a header (the dispatch and the batch's dtype) and then the
+    padded batch's bytes, and every rank runs ``predict_both`` on it in
+    the chips' own dtype, as one process does. While idle the primary broadcasts a heartbeat
+    header every ``HEARTBEAT_S`` seconds, so a follower waiting for the
+    next batch never sits in one broadcast past the group's timeout, and
+    a follower that died shows at the next heartbeat. ``close()`` on the
+    primary broadcasts the stop. Requests are checked against the
+    model's chip shape (on every path) before anything is broadcast. A
+    dispatch or heartbeat that fails on any rank breaks the world: the
+    primary fails the batch (500) and every queued request, refuses new
+    ones (503) and keeps the error in ``error``; a follower's
+    :meth:`follow` raises."""
 
     def __init__(self, trainer, max_wait_ms: float = 5.0,
                  max_queue: int = 0):
-        mesh = getattr(trainer, "mesh", None)
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                f"PredictServer on a mesh of {mesh.size} ranks is not "
-                "ported yet: ROADMAP queue 1 item 15 (the rest of "
-                "parallel/)")
+        from .parallel.distributed import collective_device, is_primary
         self.trainer = trainer
-        self.batch_size = int(trainer.config.batch_size)
+        cfg = trainer.config
+        self.batch_size = int(cfg.batch_size)
         self.max_wait = max_wait_ms / 1e3
+        mesh = getattr(trainer, "mesh", None)
+        self.world = mesh is not None and mesh.size > 1
+        self.primary = not self.world or is_primary()
+        # where the world's broadcasts live (the CPU under gloo)
+        self.device = collective_device(trainer.device) if self.world \
+            else None
+        # the one batch shape every rank of a world allocates
+        self.shape = (self.batch_size, cfg.image_size, cfg.image_size,
+                      cfg.in_channels)
         # backpressure: beyond max_queue waiting requests, submit fails
         # fast with 503 instead of stacking unbounded latency (default:
         # 8 batches' worth in flight)
@@ -155,20 +199,35 @@ class PredictServer:
         self.errors = 0
         self.request_latency = _Hist()   # enqueue -> result ready
         self.dispatch_latency = _Hist()  # one device batch
+        # the exception that broke a world's server (None while it runs)
+        self.error: Optional[BaseException] = None
         self._stop = False
+        self._stopped = threading.Event()
+        self._told = time.perf_counter()
         # serializes the _stop check against put_nowait so an enqueue
         # racing close() can never strand a pending in a drained queue
         # (it would otherwise block its caller for the full timeout)
         self._admit = threading.Lock()
-        self._worker = threading.Thread(target=self._loop, daemon=True)
-        self._worker.start()
+        self._worker = None
+        if self.primary:
+            self._worker = threading.Thread(target=self._loop, daemon=True)
+            self._worker.start()
 
     def enqueue(self, img: np.ndarray, probs: bool) -> _Pending:
         """Queue one window/chip WITHOUT waiting (the windowed
         whole-raster path fans out many of these, then waits). A full
         queue or a shutting-down server fails the pending fast (503);
-        check ``.error`` before waiting on it."""
+        so does a chip of another shape than the model's (400), which
+        would fail every request of its batch. Check ``.error`` before
+        waiting on it."""
+        if not self.primary:
+            raise RuntimeError("a follower rank takes no requests: the "
+                               "primary (rank 0) serves them")
         p = _Pending(img, probs)
+        if tuple(np.shape(img)) != self.shape[1:]:
+            p.error, p.status = (f"expected a {self.shape[1:]} chip, got "
+                                 f"{tuple(np.shape(img))}", 400)
+            return p
         with self._admit:
             if self._stop:
                 p.error, p.status = "server shutting down", 503
@@ -196,10 +255,26 @@ class PredictServer:
         shutting-down server fails fast (503), never blocks."""
         return self.wait(self.enqueue(img, probs), timeout)
 
+    def wait_stopped(self, timeout: Optional[float] = None) -> bool:
+        """Whether the primary's worker has ended (after ``close()``, or
+        after a failure broke the world: see ``error``), waiting up to
+        ``timeout`` seconds for it."""
+        return self._stopped.wait(timeout)
+
     def close(self):
+        """Stop the server: in a world the primary finishes its dispatch
+        and broadcasts the stop, so every follower's :meth:`follow`
+        returns; queued requests fail (503)."""
+        if not self.primary:
+            return
         with self._admit:  # no enqueue can be mid-put past this point
             self._stop = True
-        self._worker.join(timeout=5.0)
+        # in a world a dispatch or the stop waits on the collectives,
+        # which the group's timeout bounds
+        self._worker.join(timeout=None if self.world else 5.0)
+        self._fail_queued("server shutting down")
+
+    def _fail_queued(self, msg: str) -> None:
         # fail anything still queued so callers don't sit out their
         # full timeout against a dead worker
         while True:
@@ -207,26 +282,70 @@ class PredictServer:
                 p = self.q.get_nowait()
             except queue.Empty:
                 break
-            p.error, p.status = "server shutting down", 503
+            p.error, p.status = msg, 503
             p.event.set()
 
+    def _tell(self, kind: int, code: int = 0) -> None:
+        _broadcast(torch.tensor([kind, code], dtype=torch.int64,
+                                device=self.device))
+        self._told = time.perf_counter()
+
+    def follow(self) -> None:
+        """On a follower rank of a world: enter every dispatch of the
+        primary with it, until the primary's stop (a no-op on the
+        primary). Raises if a broadcast or a dispatch fails here."""
+        if self.primary:
+            return
+        header = torch.zeros(2, dtype=torch.int64, device=self.device)
+        while True:
+            _broadcast(header)
+            kind, code = (int(v) for v in header.tolist())
+            if kind == _STOP:
+                return
+            if kind == _DISPATCH:
+                dtype = _DTYPES[code]
+                raw = torch.empty(int(np.prod(self.shape)) * dtype.itemsize,
+                                  dtype=torch.uint8, device=self.device)
+                _broadcast(raw)
+                self.trainer.predict_both(
+                    raw.cpu().numpy().view(dtype).reshape(self.shape))
+                self.batches += 1
+
     def _loop(self):
-        while not self._stop:
-            try:
-                first = self.q.get(timeout=0.05)
-            except queue.Empty:
-                continue
-            batch = [first]
-            deadline = time.perf_counter() + self.max_wait
-            while len(batch) < self.batch_size:
-                left = deadline - time.perf_counter()
-                if left <= 0:
-                    break
+        try:
+            while not self._stop:
                 try:
-                    batch.append(self.q.get(timeout=left))
+                    first = self.q.get(timeout=0.05)
                 except queue.Empty:
-                    break
-            self._run(batch)
+                    if self.world and (time.perf_counter() - self._told
+                                       >= HEARTBEAT_S):
+                        self._tell(_HEARTBEAT)
+                    continue
+                batch = [first]
+                deadline = time.perf_counter() + self.max_wait
+                while len(batch) < self.batch_size:
+                    left = deadline - time.perf_counter()
+                    if left <= 0:
+                        break
+                    try:
+                        batch.append(self.q.get(timeout=left))
+                    except queue.Empty:
+                        break
+                self._run(batch)
+            if self.world and self.error is None:
+                self._tell(_STOP)
+        except Exception as e:  # noqa: BLE001 -- a heartbeat or the stop
+            self._broken(e)
+        finally:
+            self._stopped.set()
+
+    def _broken(self, e: BaseException) -> None:
+        """A collective failed: the world's ranks no longer agree on what
+        comes next, so the server stops taking requests for good."""
+        with self._admit:
+            self.error = e
+            self._stop = True
+        self._fail_queued(f"server stopped: {type(e).__name__}: {e}")
 
     def _run(self, batch):
         try:
@@ -237,6 +356,19 @@ class PredictServer:
                 pad = np.zeros((self.batch_size - len(batch),)
                                + imgs.shape[1:], imgs.dtype)
                 imgs = np.concatenate([imgs, pad])
+            if self.world and imgs.dtype not in _DTYPES:
+                raise TypeError(f"a world's server takes chips of "
+                                f"{[str(t) for t in _DTYPES]}, got "
+                                f"{imgs.dtype}")
+        except Exception as e:  # noqa: BLE001 -- nothing broadcast yet
+            self._finish(batch, e)
+            return
+        try:
+            if self.world:
+                # the batch's bytes, in its own dtype
+                self._tell(_DISPATCH, _DTYPES.index(imgs.dtype))
+                _broadcast(torch.from_numpy(np.ascontiguousarray(
+                    imgs).reshape(-1).view(np.uint8)).to(self.device))
             # one forward serves both kinds; class maps are the logits'
             # argmax, int32, the same map as Trainer.predict
             classes, probs = self.trainer.predict_both(imgs)
@@ -246,15 +378,21 @@ class PredictServer:
             self.batches += 1
             self.dispatch_latency.observe(time.perf_counter()
                                           - t_dispatch)
+            self._finish(batch, None)
         except Exception as e:  # noqa: BLE001 -- surface to every caller
+            self._finish(batch, e)
+            if self.world:
+                self._broken(e)
+
+    def _finish(self, batch, e: Optional[BaseException]) -> None:
+        if e is not None:
             self.errors += 1
             for p in batch:
                 p.error = f"{type(e).__name__}: {e}"
-        finally:
-            done = time.perf_counter()
-            for p in batch:
-                self.request_latency.observe(done - p.t0)
-                p.event.set()
+        done = time.perf_counter()
+        for p in batch:
+            self.request_latency.observe(done - p.t0)
+            p.event.set()
 
 
 class WindowedError(Exception):
@@ -333,6 +471,10 @@ def make_http_server(host: str, port: int, server: PredictServer,
     step, default = window size), capped at ``max_pixels`` (the host
     must hold the float32 probability accumulation) -- beyond it the
     answer is 413."""
+    if not server.primary:
+        raise RuntimeError(
+            "only the primary (rank 0) of a world binds the HTTP front: "
+            "this rank follows it (PredictServer.follow)")
     trainer = server.trainer
     cfg = trainer.config
     expect = (cfg.image_size, cfg.image_size, cfg.in_channels)

@@ -47,8 +47,8 @@ from ..records.crc32c import crc32c_native
 from ..storage.zstd import compress_raw, decompress
 
 __all__ = ["OrbaxFormatError", "all_steps", "is_checkpoint",
-           "latest_step", "read_checkpoint", "read_tree", "step_path",
-           "write_checkpoint"]
+           "latest_step", "read_checkpoint", "read_tree", "step_dirs",
+           "step_path", "write_checkpoint"]
 
 _MANIFEST_MAGIC = 0x0CDB3A2A
 _NODE_MAGIC = 0x0CDB20DE
@@ -383,6 +383,18 @@ def all_steps(directory: str) -> List[int]:
         int(n) for n in os.listdir(directory) if re.fullmatch(r"\d+", n)
         and os.path.isfile(os.path.join(directory, n, "_CHECKPOINT_METADATA"))
         and os.path.isfile(os.path.join(directory, n, "default", "_METADATA")))
+
+
+def step_dirs(directory: str) -> List[int]:
+    """Every step directory of a local ``CheckpointManager`` directory as
+    orbax 0.11 counts them when it prunes: each directory with an integer
+    name, finished or not (orbax's temporary directories carry a suffix;
+    ``<step>.pt`` files are not directories)."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(n) for n in os.listdir(directory)
+                  if re.fullmatch(r"\d+", n)
+                  and os.path.isdir(os.path.join(directory, n)))
 
 
 def latest_step(directory: str) -> Optional[int]:

@@ -27,10 +27,11 @@ the same steps end with the same parameters, as in the JAX package.
 (``torch.utils.checkpoint``), under the same switches.
 Inference runs in batch_size chunks padded as the server pads, so
 ``predict`` gives each image the server's class map.
-Checkpoints are ``torch.save`` files of ``{"params", "opt_state",
-"step", "model"}``, local or on gs:// / s3://; the JAX package's orbax
-checkpoints, single or in a managed directory, restore too
-(``train/orbax.py``), and ``orbax_tree`` gives the state in their form.
+Checkpoints are the JAX package's orbax checkpoints, single or in a
+managed directory (``train/orbax.py``; ``orbax_tree`` gives the state in
+their form), or ``torch.save`` files of ``{"params", "opt_state",
+"step", "model"}`` for a path that ends in ``.pt``, local or on gs:// /
+s3://; both kinds restore.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import dataclasses
 import itertools
 import os
 import re
+import shutil
 import threading
 import time
 from typing import Dict, Iterator, List, Mapping, Optional, Tuple
@@ -245,19 +247,24 @@ def _step_layout(x: torch.Tensor) -> torch.Tensor:
 
 
 class CheckpointManager:
-    """Rotating checkpoints in a directory, one ``<step>.pt`` file per
-    saved step; the newest ``keep`` are kept. The steps of the JAX
-    package's orbax ``CheckpointManager`` in the same directory
-    (``<step>/default/``) count as steps too, so a run resumes from the
-    newest of either kind; they are never pruned or deleted here.
+    """Rotating orbax checkpoints in a directory, written and pruned as
+    the JAX package's ``ocp.CheckpointManager(directory,
+    max_to_keep=keep)`` writes and prunes them (orbax 0.11): each step
+    is ``<step>/default/`` beside ``<step>/_CHECKPOINT_METADATA``, and
+    nothing else is written in the directory; every step directory
+    counts towards ``keep``, those that were there when the manager
+    opened (a resumed run) too, and the oldest go first. ``<step>.pt``
+    files that earlier runs of the port saved are steps too, so a run
+    resumes from the newest of either kind; they are never pruned or
+    deleted here (orbax does not count them either).
 
     A gs:// or s3:// directory is mirrored through a local staging
     directory keyed by the URI's hash, as the JAX package mirrors its
     orbax trees: the remote steps are downloaded before the manager
     opens, as an exact mirror (a stale staging directory left by an
     earlier run at the same URI must not fabricate a resume point);
-    ``sync`` uploads every new step file and deletes remotely the steps
-    pruned here."""
+    ``sync`` uploads every new file and deletes remotely the files of
+    the steps pruned here."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.keep = keep
@@ -277,48 +284,61 @@ class CheckpointManager:
             os.makedirs(self.directory, exist_ok=True)
 
     def path(self, step: int) -> str:
-        """Where a new save of ``step`` goes."""
-        return os.path.join(self.directory, f"{step}.pt")
+        """The directory of ``step``."""
+        return os.path.join(self.directory, str(int(step)))
 
     def restore_path(self, step: int) -> str:
         """The checkpoint of ``step``: its ``.pt`` file, else its orbax
         step."""
-        if os.path.isfile(self.path(step)):
-            return self.path(step)
+        pt = os.path.join(self.directory, f"{step}.pt")
+        if os.path.isfile(pt):
+            return pt
         return orbax.step_path(self.directory, step)
 
-    def _pt_steps(self) -> List[int]:
-        return sorted(int(m.group(1)) for m in (
-            re.fullmatch(r"(\d+)\.pt", n) for n in os.listdir(self.directory))
-            if m)
-
     def all_steps(self) -> List[int]:
-        return sorted(set(self._pt_steps())
+        pt = (re.fullmatch(r"(\d+)\.pt", n)
+              for n in os.listdir(self.directory))
+        return sorted({int(m.group(1)) for m in pt if m}
                       | set(orbax.all_steps(self.directory)))
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def write(self, tree: dict) -> None:
+        """Write ``tree`` (``Trainer.orbax_tree``) as step
+        ``tree["step"]``."""
+        orbax.write_checkpoint(self.directory, tree, managed=True)
+
     def prune(self) -> None:
-        for step in self._pt_steps()[:-self.keep]:
-            os.unlink(self.path(step))
+        for step in orbax.step_dirs(self.directory)[:-self.keep]:
+            shutil.rmtree(self.path(step))
 
     def sync(self) -> None:
-        """Make the remote directory hold this directory's step files:
-        upload the new ones, delete the pruned ones (a no-op for a
-        local directory). Step files are write-once, so presence is
-        enough of a freshness check."""
+        """Make the remote directory hold this directory's files: upload
+        the new ones, delete the remote ones that are gone here (the
+        pruned steps), as the JAX package's mirror does; a no-op for a
+        local directory. Steps are write-once, so presence is enough of
+        a freshness check."""
         if self.remote is None:
             return
-        remote = set(storage.listdir(self.remote))
-        local = {f"{s}.pt" for s in self._pt_steps()}
+        cli, bucket, prefix = storage.client_for(self.remote)
+        if prefix and not prefix.endswith("/"):
+            prefix += "/"
+        items, _ = cli.list(bucket, prefix)
+        remote = {it["name"][len(prefix):] for it in items}
+        local = set()
+        for root, _dirs, files in os.walk(self.directory):
+            rel = os.path.relpath(root, self.directory)
+            local.update(n if rel == "." else
+                         f"{rel.replace(os.sep, '/')}/{n}" for n in files
+                         if not n.endswith((".lock", ".tmp")))
         for name in sorted(local - remote):
-            storage.upload_file(os.path.join(self.directory, name),
+            storage.upload_file(os.path.join(self.directory,
+                                             *name.split("/")),
                                 storage.join(self.remote, name))
         for name in sorted(remote - local):
-            if re.fullmatch(r"\d+\.pt", name):
-                storage.unlink(storage.join(self.remote, name))
+            cli.delete(bucket, prefix + name)
 
 
 class Trainer:
@@ -988,17 +1008,25 @@ class Trainer:
         st.step = int(payload["step"])
 
     def save_checkpoint(self, path: str) -> None:
-        """``torch.save`` of {"params", "opt_state", "step", "model"} (the
-        family) to ``path``: written to ``path.tmp`` and renamed into
-        place. A gs:// / s3:// path is saved to a local file of the same
-        name (torch names the archive's records after the file, so the
-        object's bytes equal a local save's), then uploaded: one atomic
-        object creation. On a mesh every rank calls: the shards are
-        gathered, the primary writes the full arrays, and every rank
-        returns once the file is in place."""
-        payload = self._payload()
-        if is_primary():
-            _write_payload(payload, path)
+        """Save the state to ``path``, as the JAX ``Trainer`` saves it: an
+        orbax checkpoint directory (``orbax_tree`` through
+        ``train/orbax.py:write_checkpoint``, which ``ocp.StandardCheckpointer``
+        and the JAX ``Trainer`` restore), or, for a ``path`` that ends in
+        ``.pt``, a ``torch.save`` file of {"params", "opt_state", "step",
+        "model"} (the family), written to ``path.tmp`` and renamed into
+        place. A gs:// / s3:// path is written locally first, then
+        uploaded (a ``.pt`` file as one object of the local save's bytes:
+        torch names the archive's records after the file). On a mesh every
+        rank calls: the shards are gathered, the primary writes the full
+        arrays, and every rank returns once the checkpoint is in place."""
+        if path.endswith(".pt"):
+            payload = self._payload()
+            if is_primary():
+                _write_payload(payload, path)
+        else:
+            tree = self.orbax_tree()
+            if is_primary():
+                orbax.write_checkpoint(path, tree)
         self._barrier()
 
     def _barrier(self) -> None:
@@ -1066,18 +1094,22 @@ class Trainer:
 
     def checkpoint_manager(self, directory: str, keep: int = 3
                            ) -> CheckpointManager:
-        """Rotating checkpoints (the newest ``keep``) for save_managed and
-        restore_latest."""
+        """Rotating orbax checkpoints (the newest ``keep``) for
+        save_managed and restore_latest."""
         return CheckpointManager(directory, keep)
 
     def save_managed(self, manager: CheckpointManager) -> int:
-        step = int(self.state.step)
-        self.save_checkpoint(manager.path(step))
+        """Save the state as an orbax step of ``manager``, then prune and
+        sync it. On a mesh every rank calls (the state is gathered), only
+        the primary writes, and every rank returns once the step is in
+        place."""
+        tree = self.orbax_tree()
         if is_primary():
+            manager.write(tree)
             manager.prune()
             manager.sync()
         self._barrier()
-        return step
+        return int(self.state.step)
 
     def restore_latest(self, manager: CheckpointManager) -> Optional[int]:
         """Restore the newest managed checkpoint; None if there is none."""

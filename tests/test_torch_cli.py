@@ -18,6 +18,7 @@ import json
 import os
 import re
 import signal
+import shutil
 import subprocess
 import sys
 import urllib.request
@@ -32,6 +33,7 @@ import torch
 from dl_image_segmentation_tpu import cli as jcli
 from dl_image_segmentation_tpu.train import trainer as jtrainer
 from dl_image_segmentation_tpu_torch import cli as tcli
+from dl_image_segmentation_tpu_torch import storage as tst
 from dl_image_segmentation_tpu_torch.catalog import LocalCatalog
 from dl_image_segmentation_tpu_torch.geo import crs
 from dl_image_segmentation_tpu_torch.pipeline.input import (PARSE_FNS,
@@ -40,6 +42,7 @@ from dl_image_segmentation_tpu_torch.raster.geotiff import read_geotiff
 from dl_image_segmentation_tpu_torch.raster.image import decode_image
 from dl_image_segmentation_tpu_torch.records.tfrecord import read_records
 from dl_image_segmentation_tpu_torch.serve import scale_image
+from dl_image_segmentation_tpu_torch.train import orbax as torbax
 from dl_image_segmentation_tpu_torch.train import trainer as ttrainer
 
 from tests.test_torch_catalog import scene_over
@@ -725,10 +728,140 @@ def test_orbax_checkpoints_through_the_cli(seq, tmp_path, monkeypatch):
                 "3", "--workers", "1", "--checkpoint", run_dir,
                 "--save-every", "1", "--keep", "1")
     assert "resumed from managed checkpoint step 2" in lines
-    assert sorted(os.listdir(run_dir)) == ["2", "3.pt"]
-    resumed = torch.load(os.path.join(run_dir, "3.pt"), weights_only=True)
+    # the new step is an orbax step, and --keep 1 prunes step 2 as the
+    # JAX CLI's CheckpointManager(max_to_keep=1) does
+    assert sorted(os.listdir(run_dir)) == ["3"]
+    resumed = ttrainer.Trainer(t.config, device="cpu")
+    resumed.restore_checkpoint(os.path.join(run_dir, "3", "default"))
+    assert resumed.state.step == 3
     for n, p in tuned[pt]["params"].items():
-        assert torch.equal(resumed["params"][n], p), n
+        assert torch.equal(resumed.state.params[n], p), n
+
+
+def _in_bucket(fake, prefix):
+    """{relative name: bytes} of the fake's objects under ``prefix``."""
+    return {k[len(prefix):]: v for (_, k), v in fake.objects.items()
+            if k.startswith(prefix)}
+
+
+@contextlib.contextmanager
+def _where(where, monkeypatch, tmp_path):
+    """A checkpoint location: a local directory, or a bucket of the port's
+    loopback gs:// / s3:// fake (the staging mirrors under ``tmp_path``).
+    Yields (its path, the fake or None)."""
+    if where == "local":
+        yield str(tmp_path / "ck"), None
+        return
+    from tests.test_torch_storage import serving
+    import tempfile
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    with serving(monkeypatch, where) as fake:
+        yield f"{where}://bucket/run/ck", fake
+
+
+def test_train_checkpoint_is_the_orbax_directory_the_jax_cli_writes(
+        seq, tmp_path, monkeypatch):
+    """train --checkpoint PATH without .pt writes the orbax directory that
+    the JAX CLI's train writes, locally and on gs:// / s3://:
+    ocp.StandardCheckpointer, the port's reader and the JAX Trainer
+    restore it bitwise as Trainer.orbax_tree() of the same run saved as
+    .pt (which stays a torch.save file)."""
+    from tests.test_torch_orbax import assert_same, host, jax_trainer
+    from tests.test_torch_orbax import state_dict
+    work, _ = seq
+    recs = os.path.join(work, "port-recs", "mumbai-*")
+    argv = ["train", "--records", recs, "--mode", "tifarr", *MODEL,
+            "--steps", "2", "--workers", "1", "--device", "cpu"]
+    pt = str(tmp_path / "run.pt")
+    assert run(tcli, argv + ["--checkpoint", pt])[0] == 0
+    t = ttrainer.Trainer(ttrainer.TrainConfig(
+        num_classes=3, base_features=8, levels=2, image_size=64,
+        batch_size=4), device="cpu")
+    t.restore_checkpoint(pt)
+    assert torch.load(pt, weights_only=True)["step"] == 2
+    tree = t.orbax_tree()
+    for where in ("local", "gs", "s3"):
+        with _where(where, monkeypatch, tmp_path) as (path, fake):
+            rc, lines = run(tcli, argv + ["--checkpoint", path])
+            assert rc == 0 and lines[-1] == f"checkpoint saved to {path}"
+            assert_same(torbax.read_checkpoint(path), tree)
+            local = path
+            if fake is not None:
+                local = str(tmp_path / f"{where}-copy")
+                assert tst.download_dir(path, local) > 3
+                assert sorted(_in_bucket(fake, "run/ck/")) == sorted(
+                    os.path.relpath(os.path.join(r, f), local)
+                    for r, _, fs in os.walk(local) for f in fs)
+        assert_same(host(ocp.StandardCheckpointer().restore(local)), tree)
+        jt = jax_trainer("constant", host(tree["params"]), seed=1, step=0,
+                         image_size=64, batch_size=4)
+        jt.restore_checkpoint(local)
+        assert_same(host(state_dict(jt.state)), tree)
+
+
+# (where, --keep): the managed runs checked against orbax's own rotation
+MANAGED = [("local", 1), ("local", 2), ("gs", 2), ("s3", 1)]
+
+
+@pytest.mark.parametrize("where,keep", MANAGED)
+def test_save_every_keeps_the_steps_orbax_keeps(seq, tmp_path, monkeypatch,
+                                                where, keep):
+    """train --save-every 1 --keep K leaves the step directories that
+    ocp.CheckpointManager(max_to_keep=K) leaves for the same saves (on
+    small numpy trees): saves at 1 and 2, a run that resumes from a
+    newer <step>.pt of an earlier port run (left as it is: orbax counts
+    only step directories), then saves at 4 and 5; the steps that stay
+    before a resume count towards K, and so does an unfinished step
+    directory (an integer name without _CHECKPOINT_METADATA), which
+    orbax prunes first. Each step holds what orbax writes in a step,
+    and nothing is written beside the steps."""
+    work, _ = seq
+    recs = os.path.join(work, "port-recs", "mumbai-*")
+    argv = ["train", "--records", recs, "--mode", "tifarr", *MODEL,
+            "--workers", "1", "--device", "cpu"]
+    want_dir = str(tmp_path / "orbax")
+    unfinished = str(tmp_path / "partial")
+    with open(unfinished, "w") as f:
+        f.write("an interrupted save")
+    for steps in ((1, 2), (4, 5)):
+        if steps[0] == 4:
+            os.makedirs(os.path.join(want_dir, "0", "default"))
+            shutil.copy(unfinished, os.path.join(want_dir, "0", "default"))
+        mgr = ocp.CheckpointManager(want_dir, options=(
+            ocp.CheckpointManagerOptions(max_to_keep=keep, create=True)))
+        for step in steps:
+            mgr.save(step, args=ocp.args.StandardSave(
+                {"w": np.full(3, step, np.float32),
+                 "step": np.asarray(step, np.int32)}))
+            mgr.wait_until_finished()
+        mgr.close()
+    want = sorted(os.listdir(want_dir) + ["3.pt"])
+    layout = sorted(os.listdir(os.path.join(want_dir, "5")))
+    with _where(where, monkeypatch, tmp_path) as (d, fake):
+        managed = ["--checkpoint", d, "--save-every", "1", "--keep",
+                   str(keep)]
+        assert run(tcli, argv + ["--steps", "2", *managed])[0] == 0
+        # a newer .pt step, as an earlier port run left it
+        assert run(tcli, argv + ["--steps", "1", "--restore",
+                                 f"{d}/2/default", "--checkpoint",
+                                 f"{d}/3.pt"])[0] == 0
+        if fake is None:
+            os.makedirs(os.path.join(d, "0", "default"))
+            shutil.copy(unfinished, os.path.join(d, "0", "default"))
+        else:
+            tst.upload_file(unfinished, f"{d}/0/default/partial")
+        rc, lines = run(tcli, argv + ["--steps", "5", *managed])
+        assert rc == 0 and "resumed from managed checkpoint step 3" in lines
+        if fake is None:
+            got = sorted(os.listdir(d))
+            step5 = sorted(os.listdir(os.path.join(d, "5")))
+        else:
+            names = _in_bucket(fake, "run/ck/")
+            got = sorted({n.split("/")[0] for n in names})
+            step5 = sorted({n.split("/")[1] for n in names
+                            if n.startswith("5/")})
+        assert got == want and step5 == layout
+        assert int(torbax.read_checkpoint(f"{d}/5/default")["step"]) == 5
 
 
 def test_device_commands_raise_without_a_card(seq, tmp_path, monkeypatch):

@@ -236,14 +236,17 @@ def test_managed_directory_after_rotation(params, tmp_path):
     want = tconvert.tensors_from_flax(states[3]["params"], t.model)
     for n, p in want.items():
         assert torch.equal(t.state.params[n], p), n
-    # new saves are .pt files; pruning never deletes orbax steps
+    # new saves are orbax steps, pruned as orbax 0.11 prunes: every step
+    # directory counts, the unfinished one too; its temporary directory
+    # stays
     t.state.step = 6
     t.save_managed(mgr)
     t.state.step = 7
     t.save_managed(mgr)
-    assert sorted(os.listdir(d)) == ["2", "3", "4.orbax-checkpoint-tmp-17",
-                                     "5", "7.pt"]
-    assert mgr.all_steps() == [2, 3, 7]
+    assert sorted(os.listdir(d)) == ["4.orbax-checkpoint-tmp-17", "7"]
+    assert mgr.all_steps() == [7]
+    assert_same(torbax.read_checkpoint(torbax.step_path(d, 7)),
+                t.orbax_tree())
 
 
 @pytest.mark.parametrize("backend", ["gs", "s3"])
@@ -271,7 +274,9 @@ def test_remote_single_and_managed(backend, params, tmp_path, monkeypatch):
         t.state.step = 3
         t.save_managed(mgr)
         names = {k for b, k in fake.objects if k.startswith("run/")}
-        assert "run/3.pt" in names and "run/2/default/_METADATA" in names
+        # --keep 1: step 3 is written, step 2 pruned remotely too
+        assert "run/3/default/_METADATA" in names
+        assert not any(n.startswith("run/2/") for n in names)
 
 
 def test_sharded_array_is_read_chunk_by_chunk(tmp_path):

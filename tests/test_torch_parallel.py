@@ -60,10 +60,12 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
 import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -93,6 +95,7 @@ from dl_image_segmentation_tpu_torch.parallel.spmd import Bands, band_split
 from dl_image_segmentation_tpu_torch.pipeline import input as tinput
 from dl_image_segmentation_tpu_torch.records import writers as twriters
 from dl_image_segmentation_tpu_torch.serve import PredictServer
+from dl_image_segmentation_tpu_torch.train import orbax as torbax
 from dl_image_segmentation_tpu_torch.train.trainer import TrainConfig, Trainer
 
 from tests.test_torch_models import seeded_tree
@@ -243,6 +246,11 @@ INT8 = {
     "int8_spatial": dict(BASE, n_model=2, spatial=True,
                          quantize="int8-static"),
 }
+# the regimes whose world also serves: a PredictServer of the world over
+# HTTP on the primary, the other ranks following it
+SERVED = ("dp", "tp", "spatial", "int8_tp")
+# the regimes whose world saves the orbax directory, not a .pt file
+ORBAX = ("fsdp_tp", "segformer")
 # the regimes whose one process is also run through torch's other CPU
 # convs (the witness)
 WITNESSED = ("dp", "tp", "spatial")
@@ -311,6 +319,12 @@ def world(tmp_path_factory):
     regimes["tp"]["data_plane"] = True
     regimes["spatial"]["scanned"] = True
     regimes["fsdp"]["restore"] = "fsdp_tp"
+    for name in SERVED:
+        regimes[name]["serve"] = True
+    # TP and FSDP+TP states written whole, as the orbax directory that one
+    # process writes
+    for name in ORBAX:
+        regimes[name]["orbax"] = True
 
     def one_process_runs():
         # the references the tests hold the world to, here while the
@@ -471,6 +485,27 @@ def test_world_checkpoint_restores_bitwise_here_and_in_the_world(world,
     tr.restore_checkpoint(got["checkpoint"])
     assert tr.state.step == 3
     assert digests(tr.state.params) == got["param_digests"]
+
+
+@pytest.mark.parametrize("name", ORBAX)
+def test_world_orbax_checkpoint_is_the_whole_state(world, name):
+    """A TP (SegFormer-lite) or FSDP+TP world's orbax checkpoint, gathered on every rank
+    and written by the primary, is bitwise the tree that one process
+    writes of the same state (restored here from it), and orbax itself
+    restores it bitwise."""
+    import orbax.checkpoint as ocp
+    path = world["res"][name]["checkpoint"]
+    assert torbax.is_checkpoint(path)
+    tr = one_process(name)
+    tr.restore_checkpoint(path)
+    want = flat_tree(tr.orbax_tree())
+    for got in (torbax.read_checkpoint(path),
+                ocp.StandardCheckpointer().restore(path)):
+        got = flat_tree(jax.tree_util.tree_map(np.asarray, got))
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and got[k].tobytes() == \
+                v.tobytes(), k
 
 
 def test_checkpoint_reshards_onto_another_mesh(world):
@@ -654,6 +689,9 @@ CLI_RUNS = {
     "dp --scan-steps": (["--scan-steps", "3", "--pool-size", "8"],) * 2,
     "spatial --augment": (["--n-model", "2", "--spatial", "--augment"],
                           ["--augment"]),
+    # --checkpoint without .pt: the orbax directory the JAX CLI writes,
+    # gathered from the world and written by the primary
+    "dp orbax": ([], []),
 }
 # each rank of the world runs every train of CLI_RUNS in turn, as
 # torchrun would start it (the first joins the world, the rest are in it)
@@ -666,11 +704,31 @@ for argv in json.loads(sys.argv[1]):
 """
 
 
+def _ckpt_name(name):
+    tag = name.replace(" ", "_").replace("-", "")
+    return tag if name.endswith("orbax") else f"{tag}.pt"
+
+
 def _cli_argv(shards, work, name, extra):
     tag = name.replace(" ", "_").replace("-", "")
     return CLI_TRAIN + ["--records", shards, "--metrics-log",
                         os.path.join(work, f"{tag}.jsonl"), "--checkpoint",
-                        os.path.join(work, f"{tag}.pt")] + extra
+                        os.path.join(work, _ckpt_name(name))] + extra
+
+
+def flat_tree(tree, prefix=""):
+    """{"a/0/mu/...": array} of a tree of the orbax reader; None leaves
+    are left out."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return {} if tree is None else {prefix.rstrip("/"): np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        out.update(flat_tree(v, f"{prefix}{k}/"))
+    return out
 
 
 def _losses(path):
@@ -721,7 +779,8 @@ def cli_world(tmp_path_factory):
         tag = name.replace(" ", "_").replace("-", "")
         out[name] = (_losses(str(root / "world" / f"{tag}.jsonl")),
                      _losses(str(root / "one" / f"{tag}.jsonl")),
-                     str(root / "world" / f"{tag}.pt"))
+                     str(root / "world" / _ckpt_name(name)),
+                     str(root / "one" / _ckpt_name(name)))
     return out
 
 
@@ -730,10 +789,60 @@ def test_cli_train_in_a_world_equals_one_process(cli_world, name):
     """Every rank trains on its rows of the same global batches: the
     world's logged losses are the one-process run's, and its checkpoint
     (written once, by the primary) is three steps on."""
-    world, one, ckpt = cli_world[name]
+    world, one, ckpt, _ = cli_world[name]
     assert len(one) >= 1 and len(world) == len(one)
     np.testing.assert_allclose(world, one, rtol=LOSS_RTOL)
-    assert torch.load(ckpt, weights_only=True)["step"] == 3
+    if ckpt.endswith(".pt"):
+        assert torch.load(ckpt, weights_only=True)["step"] == 3
+    else:
+        assert int(torbax.read_checkpoint(ckpt)["step"]) == 3
+
+
+def test_cli_world_writes_the_orbax_checkpoint_one_process_writes(
+        cli_world):
+    """train --checkpoint DIR in a world: every rank gathers the state,
+    the primary writes the orbax directory. It is the world's own state
+    whole: restored, it is bitwise the state the same world saved as
+    .pt (the "dp" run, the same steps). It holds the one-process run's
+    tree (the same keys, dtypes and shapes, the step and count bitwise),
+    its parameters and Adam moments within 1e-4 of each leaf's largest
+    magnitude of the one process's: the world sums two half-batch
+    gradients, which rounds otherwise (measured: at most 2.4e-5 of a
+    leaf's largest magnitude, a bias's nu; three untrained steps would
+    leave the weights some 3e-3 of theirs and the moments all of
+    theirs)."""
+    _, _, world, one = cli_world["dp orbax"]
+    got, want = torbax.read_checkpoint(world), torbax.read_checkpoint(one)
+    tr = Trainer(TrainConfig(num_classes=2, in_channels=3, base_features=8,
+                             levels=2, image_size=32, batch_size=4,
+                             precision="fp32"), device="cpu")
+    tr.restore_checkpoint(world)
+    mine = tr._payload()
+    saved = torch.load(cli_world["dp"][2], weights_only=True)
+    assert mine["step"] == saved["step"] == 3
+    assert mine["opt_state"]["count"] == saved["opt_state"]["count"]
+    for key, tree in (("params", mine["params"]),
+                      ("mu", mine["opt_state"]["mu"]),
+                      ("nu", mine["opt_state"]["nu"])):
+        ref = saved[key] if key == "params" else saved["opt_state"][key]
+        assert sorted(tree) == sorted(ref) and tree
+        for n, v in tree.items():
+            assert torch.equal(v, ref[n]), (key, n)
+    fg, fw = flat_tree(got), flat_tree(want)
+    assert sorted(fg) == sorted(fw) and len(fg) > 10
+    for k in fw:
+        assert fg[k].dtype == fw[k].dtype and fg[k].shape == fw[k].shape, k
+    assert int(got["step"]) == int(want["step"]) == 3
+    floats = 0
+    for k in fw:
+        if fw[k].dtype.kind == "f":
+            floats += 1
+            gap = float(np.abs(fg[k] - fw[k]).max())
+            assert gap <= 1e-4 * float(np.abs(fw[k]).max()), (k, gap)
+        else:
+            np.testing.assert_array_equal(fg[k], fw[k], err_msg=k)
+    # the parameters, mu and nu of every parameter
+    assert floats >= 3 * len(mine["params"])
 
 
 def test_feed_order_does_not_depend_on_its_threads(tmp_path):
@@ -944,9 +1053,278 @@ def test_what_this_slice_leaves_names_item_15(over):
         assert p is params[name]
 
 
-def test_predict_server_refuses_a_world():
-    class Fake:
-        mesh = tsharding.Mesh(2, 1, "cpu")
-        config = TrainConfig()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        PredictServer(Fake())
+class _Recorder:
+    """A trainer on a mesh of (2, 1) axis sizes (no collective) whose
+    ``predict_both`` records its batches; stands in for ``_broadcast``
+    too, feeding a follower the headers in ``script``."""
+
+    def __init__(self, script=()):
+        self.mesh = tsharding.Mesh(2, 1, "cpu")
+        self.config = TrainConfig(**dict(BASE, batch_size=2))
+        self.device = torch.device("cpu")
+        self.script = list(script)
+        self.sent, self.batches = [], []
+
+    def predict_both(self, images):
+        self.batches.append(images)
+        n = len(images)
+        return (np.zeros((n, 32, 32), np.int32),
+                np.zeros((n, 32, 32, 3), np.float32))
+
+    def broadcast(self, tensor):
+        self.sent.append(tensor.clone())
+        if self.script:
+            tensor.copy_(self.script.pop(0))
+
+
+def test_world_server_binds_on_the_primary_only(monkeypatch):
+    """A PredictServer of a world builds without a collective; the
+    primary binds the HTTP front and its close() broadcasts the stop; a
+    follower refuses to bind or take requests, and follow() enters each
+    dispatch the primary announces (after heartbeats) until the stop
+    (replaces test_predict_server_refuses_a_world: the server no longer
+    refuses a mesh of more than one rank)."""
+    from dl_image_segmentation_tpu_torch import serve as tserve
+    from dl_image_segmentation_tpu_torch.serve import make_http_server
+    tr = _Recorder()
+    monkeypatch.setattr(tserve, "_broadcast", tr.broadcast)
+    monkeypatch.setattr(tserve, "HEARTBEAT_S", 60.0)
+    ps = PredictServer(tr)
+    assert ps.world and ps.primary and tr.sent == []
+    httpd = make_http_server("127.0.0.1", 0, ps)
+    assert httpd.server_address[1] > 0
+    httpd.server_close()
+    bad = ps.submit(np.zeros((16, 16, 3), np.float32), probs=False)
+    assert bad.status == 400 and tr.sent == []
+    ps.close()
+    assert [int(t[0]) for t in tr.sent] == [tserve._STOP]
+    assert ps.wait_stopped(0) and ps.error is None
+
+    # a uint8 batch travels as its bytes and reaches predict_both as uint8
+    chip = np.random.RandomState(0).randint(0, 256, (2, 32, 32, 3)).astype(
+        np.uint8)
+    script = [torch.tensor([tserve._HEARTBEAT, 0]),
+              torch.tensor([tserve._DISPATCH,
+                            tserve._DTYPES.index(np.dtype(np.uint8))]),
+              torch.from_numpy(chip.reshape(-1)),
+              torch.tensor([tserve._STOP, 0])]
+    tr = _Recorder(script)
+    monkeypatch.setattr(tserve, "_broadcast", tr.broadcast)
+    monkeypatch.setattr(tdist, "rank", lambda: 1)
+    ps = PredictServer(tr)
+    assert ps.world and not ps.primary and ps._worker is None
+    with pytest.raises(RuntimeError, match="only the primary"):
+        make_http_server("127.0.0.1", 0, ps)
+    with pytest.raises(RuntimeError, match="follower"):
+        ps.enqueue(chip[0], probs=False)
+    ps.follow()
+    assert len(tr.sent) == 4 and not tr.script
+    assert len(tr.batches) == 1 and tr.batches[0].dtype == np.uint8
+    np.testing.assert_array_equal(tr.batches[0], chip)
+    ps.close()
+
+
+@pytest.mark.parametrize("backend,want", [("gloo", "cpu"),
+                                          ("nccl", "cuda:0")])
+def test_broadcast_device_follows_the_backend(monkeypatch, backend, want):
+    """gloo broadcasts CPU tensors, also for ranks that share a card;
+    NCCL broadcasts the rank's CUDA tensors."""
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_backend",
+                        lambda *a: backend)
+    assert tdist.collective_device("cuda:0") == torch.device(want)
+
+
+@pytest.mark.parametrize("name", SERVED)
+def test_world_server_answers_as_the_worlds_predict(world, name):
+    """The world's PredictServer behind make_http_server on the primary,
+    the other ranks following: a full batch of requests at once, a
+    partial batch, probability requests, and a uint8 and a uint16 chip
+    (submitted through the library, which keeps their dtype) answer
+    bitwise the world's own predict / predict_probs of the same images."""
+    got = world["res"][name]["serve"]
+    bs = (CONFIGS.get(name) or INT8[name])["batch_size"]
+    assert got["maps"].shape == got["predict"].shape == (bs, 32, 32)
+    np.testing.assert_array_equal(got["maps"], got["predict"])
+    k = len(got["partial"])
+    assert 0 < k < bs
+    np.testing.assert_array_equal(got["partial"], got["predict"][:k])
+    np.testing.assert_array_equal(got["probs"], got["predict_probs"][:2])
+    # a uint8 and a uint16 chip, each its own dispatch in its own dtype
+    assert len(got["typed"]) == len(got["predict_typed"]) == 2
+    for served, want in zip(got["typed"], got["predict_typed"]):
+        np.testing.assert_array_equal(served, want)
+    assert got["dispatches"] >= 5
+
+
+# -- the world's server: failures, calibration, cli serve ----------------
+
+# a 2-rank gloo world with a group timeout of a few seconds, each rank
+# started as torchrun would start it
+GROUP_TIMEOUT_S = 3
+WORLD_PREAMBLE = """
+import datetime, json, os, sys, time
+import numpy as np, torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+dist.init_process_group(
+    "gloo", init_method="tcp://127.0.0.1:" + os.environ["MASTER_PORT"],
+    world_size=2, rank=int(os.environ["RANK"]),
+    timeout=datetime.timedelta(seconds=float(os.environ["GROUP_TIMEOUT"])))
+rank = dist.get_rank()
+"""
+# int8-static calibrates on the first batch it serves, the same on every
+# rank; then a dispatch that raises on the follower breaks the world
+SERVER_SCRIPT = WORLD_PREAMBLE + """
+from dl_image_segmentation_tpu_torch.serve import PredictServer
+from dl_image_segmentation_tpu_torch.train import orbax as torbax
+from dl_image_segmentation_tpu_torch.train.trainer import (TrainConfig,
+                                                           Trainer)
+out = {}
+cfg = TrainConfig(**json.loads(sys.argv[1]))
+chip = np.random.RandomState(0).rand(32, 32, 3).astype(np.float32)
+tr = Trainer(TrainConfig(**dict(cfg.__dict__, quantize="int8-static")),
+             device="cpu")
+ps = PredictServer(tr)
+if ps.primary:
+    p = ps.submit(chip, probs=False)
+    out["served"] = p.result.tolist()
+    ps.close()
+else:
+    ps.follow()
+out["act_amax"] = [float(m.act_amax) for m in tr.infer_model.modules()
+                   if hasattr(m, "act_amax")]
+tr = Trainer(cfg, device="cpu")
+if rank == 1:
+    def broken(images):
+        raise RuntimeError("a dispatch failed on the follower")
+    tr.predict_both = broken
+ps = PredictServer(tr)
+t0 = time.perf_counter()
+if ps.primary:
+    p = ps.submit(chip, probs=False, timeout=60)
+    out["status"], out["error"] = p.status, p.error
+    out["stopped"] = ps.wait_stopped(60)
+    out["broken"] = repr(ps.error)
+    late = ps.submit(chip, probs=False)
+    out["late"] = [late.status, late.error]
+else:
+    try:
+        ps.follow()
+        out["raised"] = None
+    except RuntimeError as e:
+        out["raised"] = str(e)
+out["seconds"] = time.perf_counter() - t0
+with open(os.environ["OUT"], "w") as f:
+    json.dump(out, f)
+os._exit(0)
+"""
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _two_ranks(argv, tmp, **env_extra):
+    """Start the 2 ranks of ``argv`` (a script or a module's argv after
+    the interpreter); returns the processes."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = _free_port()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, WORLD_SIZE="2", RANK=str(rank),
+                   LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                   GROUP_TIMEOUT=str(GROUP_TIMEOUT_S),
+                   OUT=os.path.join(tmp, f"rank{rank}.json"), **env_extra)
+        procs.append(subprocess.Popen(
+            [sys.executable, *argv], cwd=repo, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def test_world_server_fails_every_rank_and_calibrates_alike(tmp_path):
+    """int8-static calibrates on the first served batch, broadcast to
+    every rank: the same activation scales on both ranks, and the map of
+    one process calibrated on that padded batch. Then a dispatch that
+    raises on the follower: its follow() raises, the primary fails the
+    request (500) and every later one (503), and both ranks are done
+    well within the group's timeout (no rank waits for another)."""
+    cfg = dict(BASE, batch_size=2)
+    procs = _two_ranks(["-c", SERVER_SCRIPT, json.dumps(cfg)],
+                       str(tmp_path))
+    try:
+        logs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, logs):
+        assert p.returncode == 0, err[-3000:]
+    ranks = [json.load(open(tmp_path / f"rank{r}.json")) for r in range(2)]
+    one = Trainer(TrainConfig(**dict(cfg, quantize="int8-static")),
+                  device="cpu")
+    chip = np.random.RandomState(0).rand(32, 32, 3).astype(np.float32)
+    want = one.predict(np.stack([chip, np.zeros_like(chip)]))[0]
+    amax = [float(m.act_amax) for m in one.infer_model.modules()
+            if hasattr(m, "act_amax")]
+    assert len(amax) > 0
+    assert ranks[0]["act_amax"] == ranks[1]["act_amax"] == amax
+    np.testing.assert_array_equal(np.array(ranks[0]["served"]), want)
+    primary, follower = ranks
+    assert follower["raised"] == "a dispatch failed on the follower"
+    assert primary["status"] == 500 and primary["error"]
+    assert primary["stopped"] and primary["broken"] != "None"
+    assert primary["late"][0] == 503
+    assert max(primary["seconds"], follower["seconds"]) < \
+        2 * GROUP_TIMEOUT_S + 10
+
+
+CLI_SERVE = WORLD_PREAMBLE + """
+from dl_image_segmentation_tpu_torch import cli
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+
+def test_cli_serve_in_a_world_outlives_the_group_timeout(tmp_path):
+    """cli serve in a 2-rank gloo world whose group times out after a few
+    seconds: the primary alone binds the port and prints; idle for twice
+    the timeout (heartbeats keep the follower's broadcast short), it
+    answers chips and probabilities as one process's predict from the
+    same (orbax) checkpoint; SIGINT to both ranks, as torchrun forwards
+    it, ends both with exit code 0."""
+    import signal
+    import urllib.request
+    from dl_image_segmentation_tpu_torch.parallel.dryrun import _concurrent
+    cfg = dict(BASE, batch_size=4)
+    one = Trainer(TrainConfig(**cfg), device="cpu")
+    ckpt = str(tmp_path / "ckpt")
+    one.save_checkpoint(ckpt)
+    model = ["--classes", "3", "--features", "16", "--levels", "2",
+             "--image-size", "32", "--batch-size", "4", "--precision",
+             "fp32", "--device", "cpu"]
+    procs = _two_ranks(["-c", CLI_SERVE, "serve", "--checkpoint", ckpt,
+                        "--port", "0", "--max-wait-ms", "50", *model],
+                       str(tmp_path))
+    try:
+        line = procs[0].stdout.readline()
+        base = re.search(r"(http://\S+)", line).group(1)
+        time.sleep(2 * GROUP_TIMEOUT_S)
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+        with opener.open(base + "/healthz", timeout=60) as r:
+            assert json.loads(r.read())["ok"]
+        chips = list(np.random.RandomState(3).rand(5, 32, 32, 3).astype(
+            np.float32))
+        maps, _, _ = _concurrent(base, chips, False)
+        probs, _, _ = _concurrent(base, chips[:2], True)
+    finally:
+        for p in procs:
+            p.send_signal(signal.SIGINT)
+        outs = [p.communicate(timeout=60) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    assert outs[1][0] == ""  # the follower printed nothing, bound nothing
+    np.testing.assert_array_equal(np.stack(maps), one.predict(np.stack(chips)))
+    np.testing.assert_array_equal(np.stack(probs),
+                                  one.predict_probs(np.stack(chips[:2])))

@@ -146,6 +146,34 @@ class TestPredictServer:
         finally:
             ps.close()
 
+    def test_integer_chips_are_served_in_their_dtype(self):
+        """A uint8 and a uint16 chip reach predict_both in their own
+        dtype, which scales them (/255, /65535): each served map is
+        bitwise Trainer.predict's of the same chip. A chip of another
+        shape is refused on its own (400) and fails no other request of
+        its batch."""
+        trainer = port_trainer()
+        ps = tserve.PredictServer(trainer, max_wait_ms=500.0)
+        try:
+            rng = np.random.RandomState(6)
+            chips = [rng.randint(0, 256, (SIZE, SIZE, 3)).astype(np.uint8),
+                     rng.randint(0, 65536, (SIZE, SIZE, 3)).astype(
+                         np.uint16)]
+            for chip in chips:
+                p = ps.submit(chip, probs=False, timeout=60)
+                assert p.error is None, p.error
+                np.testing.assert_array_equal(
+                    p.result, trainer.predict(chip[None])[0])
+            pend = [ps.enqueue(chips[0], probs=False),
+                    ps.enqueue(chips[0][:16], probs=False)]
+            assert pend[1].status == 400 and "chip" in pend[1].error
+            ps.wait(pend[0], timeout=60)
+            assert pend[0].error is None, pend[0].error
+            np.testing.assert_array_equal(
+                pend[0].result, trainer.predict(chips[0][None])[0])
+        finally:
+            ps.close()
+
     def test_predict_runs_padded_batch_size_chunks(self, monkeypatch):
         """predict, predict_probs and predict_both forward batch_size
         chunks, the last padded with zeros as the server pads a

@@ -554,9 +554,9 @@ def test_checkpoint_save_restore_on_remote_paths(monkeypatch, tmp_path,
 @pytest.mark.parametrize("backend", ["gs", "s3"])
 def test_managed_checkpoints_mirror_prune_and_resume(monkeypatch, tmp_path,
                                                      backend):
-    """A remote CheckpointManager uploads every step file, deletes the
-    pruned ones remotely, resumes from the remote newest, and a stale
-    staging directory fabricates no resume point."""
+    """A remote CheckpointManager uploads every file of each orbax step,
+    deletes the pruned steps remotely, resumes from the remote newest,
+    and a stale staging directory fabricates no resume point."""
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     url = f"{backend}://bucket/run/ckpt"
     with serving(monkeypatch, backend) as fake:
@@ -567,10 +567,14 @@ def test_managed_checkpoints_mirror_prune_and_resume(monkeypatch, tmp_path,
         for step in (1, 2, 3):
             t.state.step = step
             assert t.save_managed(mgr) == step
-        assert sorted(_objects_under(fake, "run/ckpt/")) == [
-            "run/ckpt/2.pt", "run/ckpt/3.pt"]
-        assert fake.objects[("bucket", "run/ckpt/3.pt")] == \
-            open(mgr.path(3), "rb").read()
+        objects = _objects_under(fake, "run/ckpt/")
+        assert sorted({k.split("/")[2] for k in objects}) == ["2", "3"]
+        local = {os.path.relpath(os.path.join(r, f), mgr.directory): f
+                 for r, _, fs in os.walk(mgr.directory) for f in fs}
+        assert sorted(f"run/ckpt/{k}" for k in local) == sorted(objects)
+        for k in local:
+            assert objects[f"run/ckpt/{k}"] == open(os.path.join(
+                mgr.directory, k), "rb").read()
         # a stale step in the staging directory is not a resume point
         open(os.path.join(mgr.directory, "9.pt"), "wb").write(b"stale")
         again = _trainer(1)
