@@ -293,16 +293,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``tests/data/pil``: (a) each decodes on the card's host through both
    functions bitwise to its ``.npz`` (the JAX package's ``decode_jpeg``:
    array, dtype and byte order), or raises its class and message prefix
-   (WebP, TIFF, PPM, TGA, SGI, PCX, QOI, ICO/CUR, IM, XBM, DDS and one
-   refusal of each failure class); (b) the eight 128 px RGB chips (WebP
-   lossless and lossy, TIFF LZW and JPEG, PPM, TGA RLE, PCX, QOI) named
-   ``.jpg`` and ``.png`` with PNG labels through ``cli.main``:
+   (WebP, TIFF with every codec libtiff decodes for PIL here -- CCITT
+   built from ``ccitt.cc``, zstd, LZMA through the stdlib's ``lzma``,
+   ThunderScan, separate planes, 12-bit grey --, PPM, TGA, SGI, PCX, QOI,
+   ICO/CUR, IM, XBM, DDS and one refusal of each failure class); (b) the
+   nine 128 px RGB chips (WebP lossless and lossy, TIFF LZW, JPEG and
+   zstd in separate planes with predictor 2, PPM, TGA RLE, PCX, QOI)
+   named ``.jpg`` and ``.png`` with PNG labels through ``cli.main``:
    ``to-tfrecords --engine mt --store-as-array`` (CRCs checked, each
    record's pixels == the ``.npz``), ``train --mode rgbarr`` from those
    shards at the TrainConfig defaults with 4 classes and 128 px, 5 bf16
    steps (finite, falling loss); (c) decode MP/s on one host thread of
-   each 128 px chip through ``decode_jpeg`` beside the baseline JPEG of
-   the same pixels (the port's quality-90 encode). K1-K3 launch 0 times.
+   each 128 px chip, and of the Group 4 and zstd fixtures, through
+   ``decode_jpeg`` beside the baseline JPEG of the same pixels (the
+   port's quality-90 encode; a bilevel image as grey 0/255). K1-K3
+   launch 0 times.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script
@@ -2792,7 +2797,9 @@ PIL_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
 PIL_CHIPS = ["chip128-webp-lossless.webp", "chip128-webp-lossy.webp",
              "chip128-tiff-lzw.tif", "chip128-tiff-jpeg.tif",
              "chip128-ppm.ppm", "chip128-tga-rle.tga", "chip128-pcx.pcx",
-             "chip128-qoi.qoi"]
+             "chip128-qoi.qoi", "chip128-tiff-zstd-planar.tif"]
+# fixtures whose decode rate phase 16 reads beside the chips'
+PIL_RATED = ["tiff-g4.tif", "tiff-zstd-pred2-rgb.tif"]
 
 
 def _msg_prefix(msg):
@@ -2910,8 +2917,15 @@ def pil_formats_phase(smi, tmp):
         f"px, 4 classes): loss {ls[0]:.4f} -> {ls[-1]:.4f} in 5 steps")
     # (c) decode rates on one host thread
     rates = {}
-    for name, data, arr in pix.values():
+    rated = list(pix.values())
+    for name in PIL_RATED:
+        with open(os.path.join(PIL_DATA, name), "rb") as f:
+            data = f.read()
+        rated.append((name, data, decode_jpeg(data)))
+    for name, data, arr in rated:
         n, dt_ = rate(decode_jpeg, [data], min_s=0.3)
+        if arr.dtype == bool:
+            arr = arr.astype(np.uint8) * np.uint8(255)
         base = encode_jpeg(arr, 90)
         nb, dtb = rate(decode_jpeg, [base], min_s=0.3)
         mp = arr.shape[0] * arr.shape[1] / 1e6
@@ -2920,8 +2934,9 @@ def pil_formats_phase(smi, tmp):
         rates[name]["ratio"] = (rates[name]["mp_per_s"] /
                                 rates[name]["baseline_jpeg_q90_mp_per_s"])
     out["decode"] = rates
-    log("  decode_jpeg MP/s on one host thread (128 px RGB; beside the "
-        "baseline q90 JPEG of the same pixels): " + "; ".join(
+    log("  decode_jpeg MP/s on one host thread (128 px RGB chips, then "
+        "the Group 4 and zstd fixtures; beside the baseline q90 JPEG of "
+        "the same pixels): " + "; ".join(
             f"{k} {v['mp_per_s']:.2f} vs {v['baseline_jpeg_q90_mp_per_s']:.2f}"
             f" ({v['ratio']:.2f}x)" for k, v in rates.items()) + f"; {smi}")
     out["launches"] = {c.name: c.count for c in kernels.COUNTERS}

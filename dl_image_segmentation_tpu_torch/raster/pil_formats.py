@@ -35,7 +35,7 @@ from .. import _build
 
 __all__ = ["DecompressionBombError", "MAX_IMAGE_PIXELS", "Opened", "Reader",
            "UnsupportedFormat", "apply_palette", "check_bomb", "item16",
-           "read_rows", "truncated", "unpack"]
+           "read_rows", "truncated", "unpack", "unpremultiply"]
 
 MAX_IMAGE_PIXELS = int(1024 * 1024 * 1024 // 4 // 3)
 
@@ -210,6 +210,8 @@ _WORDS = {
     "I;32BS": (">i4", "<i4"), "F;32F": ("<f4", "<f4"),
     "F;32BF": (">f4", "<f4"),
 }
+# premultiplied RGBA raw modes -> bytes a pixel
+_PREMULTIPLIED = {"RGBa": 4, "RGBaX": 5, "RGBaXX": 6}
 _SUBBYTE = {"L;2": (2, 85, False), "L;2I": (2, 85, True),
             "L;4": (4, 17, False), "L;4I": (4, 17, True),
             "P;1": (1, 1, False), "P;2": (2, 1, False),
@@ -220,6 +222,10 @@ def row_bytes(rawmode: str, width: int) -> int:
     """Bytes a row of ``rawmode`` takes (PIL's default stride)."""
     if rawmode in ("1", "1;I", "1;R", "1;IR"):
         return (width + 7) // 8
+    if rawmode == "I;12":
+        return (width * 12 + 7) // 8
+    if rawmode in _PREMULTIPLIED:
+        return width * _PREMULTIPLIED[rawmode]
     if rawmode in _SUBBYTE:
         return (width * _SUBBYTE[rawmode][0] + 7) // 8
     if rawmode in _INTERLEAVED:
@@ -262,6 +268,17 @@ def unpack(rawmode: str, buf: bytes, width: int, height: int,
             v[:, k::per] = (raw >> (8 - bits * (k + 1))) & ((1 << bits) - 1)
         v = v[:, :width] * np.uint8(scale)
         return (255 - v).astype(np.uint8) if invert else v
+    if rawmode == "I;12":
+        # 12-bit samples, most significant bits first, rows byte-aligned
+        b = np.zeros((height, -(-rb // 3) * 3), np.uint16)
+        b[:, :rb] = raw
+        t = b.reshape(height, -1, 3)
+        v = np.stack([(t[:, :, 0] << 4) | (t[:, :, 1] >> 4),
+                      ((t[:, :, 1] & 15) << 8) | t[:, :, 2]], -1)
+        return v.reshape(height, -1)[:, :width].astype("<u2")
+    if rawmode in _PREMULTIPLIED:
+        n = _PREMULTIPLIED[rawmode]
+        return unpremultiply(raw.reshape(height, width, n)[:, :, :4])
     if rawmode in _INTERLEAVED:
         n, order = _INTERLEAVED[rawmode]
         px = raw.reshape(height, width, n)[:, :, list(order)]
@@ -279,6 +296,8 @@ def unpack(rawmode: str, buf: bytes, width: int, height: int,
         n = 3 if rawmode.startswith("RGB;") else 4
         hi = 1 if rawmode.endswith("L") else 0
         px = raw.reshape(height, width, n, 2)[:, :, :, hi]
+        if rawmode.startswith("RGBa"):
+            return unpremultiply(px)
         return px[:, :, :3].copy() if rawmode.startswith("RGBX") else px.copy()
     if rawmode.endswith(";L"):
         base = rawmode.split(";")[0]
@@ -287,6 +306,16 @@ def unpack(rawmode: str, buf: bytes, width: int, height: int,
             order)]
         return px.copy()
     raise NotImplementedError(rawmode)
+
+
+def unpremultiply(px: np.ndarray) -> np.ndarray:
+    """PIL's "RGBa" unpacker over (H, W, 4) bytes: colour times 255 over
+    alpha, in integers, cut at 255; a pixel of alpha 0 is all zeros."""
+    a = px[:, :, 3:4].astype(np.int32)
+    c = px[:, :, :3].astype(np.int32) * 255 // np.maximum(a, 1)
+    out = np.concatenate([np.minimum(c, 255), a], -1).astype(np.uint8)
+    out[px[:, :, 3] == 0] = 0
+    return out
 
 
 def apply_palette(idx: np.ndarray, palette: bytes, order: str = "RGB"

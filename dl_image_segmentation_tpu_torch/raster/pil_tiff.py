@@ -17,29 +17,45 @@ bytes).
 
 Uncompressed files are read as PIL's raw decoder reads them, strip by
 strip (``OSError`` "image file is truncated" when the data ends
-first). Compressed ones go through libtiff in PIL: LZW, Deflate and
-PackBits with their predictors (``geotiff.py``'s), and
-JPEG (compression 7) through the port's ``jpeg.cc``, each strip or tile
-with the file's ``JPEGTables``, converted from YCbCr to RGB by the JPEG
-decoder as PIL asks libtiff to (``JPEGCOLORMODE_RGB``); any failure
-there is PIL's ``OSError`` "decoder error -2". Other compressions raise
-:class:`UnsupportedFormat` naming ROADMAP queue 1 item 16. The EXIF
-orientation is applied as ``ImageOps.exif_transpose`` does.
+first; separate planes through the one-letter band unpackers PIL picks).
+Compressed ones go through libtiff 4.7 in PIL, as its ``TiffDecode.c``
+reads them: strips or tiles in its order into one buffer it keeps,
+LZW, Deflate and PackBits (``geotiff.py``'s), zstd (``storage/zstd.py``,
+the port's own decoder), LZMA (the stdlib's ``lzma``: libtiff writes an
+.xz stream a strip), ThunderScan, CCITT Modified Huffman, Group 3 and
+Group 4 (``csrc/host/ccitt.cc``, libtiff's ``tif_fax3.c`` step for step),
+and JPEG (compression 7) through the port's ``jpeg.cc``, each strip or
+tile with the file's ``JPEGTables``, converted from YCbCr to RGB by the
+JPEG decoder as PIL asks libtiff to (``JPEGCOLORMODE_RGB``). Predictors
+are undone for the codecs libtiff gives them to; FillOrder 2 reverses
+the raw bits; 12-bit grey unpacks to PIL's I;16. Separate planes go
+plane by plane into the bytes of PIL's pixel (an RGBa image is
+unpremultiplied after). YCbCr in any other form goes through libtiff's
+RGBA reader (subsampled blocks, its fixed-point conversion). Where
+libtiff fails, PIL's ``OSError`` "decoder error -2"; so for WebP (PIL
+12.1's libtiff is built without it) and SGILog (no mode of PIL's).
+Old-style JPEG (compression 6) raises :class:`UnsupportedFormat` naming
+ROADMAP queue 1 item 16. The EXIF orientation is applied as
+``ImageOps.exif_transpose`` does.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 import struct
 import zlib
 
 import numpy as np
 
+from .. import _build
+from ..storage import zstd
 from .geotiff import (_ifd_entries, _ifd_value_bytes, _packbits_decode,
                       _undo_fpredictor, _undo_hpredictor)
 from .jpeg import JPEGUnsupported, decode_jpeg_array, jpeg_frame
 from .lzw import lzw_decode_native
 from .pil_formats import (Opened, apply_palette, check_bomb, item16,
-                          read_rows, row_bytes, unpack)
+                          read_rows, row_bytes, unpack, unpremultiply)
 
 __all__ = ["open_tiff"]
 
@@ -303,42 +319,10 @@ def _unpack_mode(rawmode, buf, w, rows, stride, mode):
         rawmode = "I;16"
     if rawmode[-3:] == "16N":
         rawmode = rawmode[:-1] + "L"
-    if rawmode == "I;12":
-        raise item16("TIFF 12-bit")
     arr = unpack(rawmode, buf, w, rows, stride)
     if mode == "I;16B":
         arr = arr.astype(">u2")
     return arr
-
-
-def _chunks(tags: dict, w: int, h: int):
-    """(offset, byte count, x, y, width, rows) of each strip or tile."""
-    if 273 in tags:
-        offs = tags[273] if isinstance(tags[273], tuple) else (tags[273],)
-        cnts = tags.get(279, ())
-        cnts = cnts if isinstance(cnts, tuple) else (cnts,)
-        rps = tags.get(278, h)
-        out = []
-        y = 0
-        for i, off in enumerate(offs):
-            out.append((off, cnts[i] if i < len(cnts) else None, 0, y, w,
-                        rps))
-            y += rps
-        return out
-    offs = tags[324] if isinstance(tags[324], tuple) else (tags[324],)
-    cnts = tags.get(325, ())
-    cnts = cnts if isinstance(cnts, tuple) else (cnts,)
-    tw, th = tags.get(322), tags.get(323)
-    if not isinstance(tw, int) or not isinstance(th, int):
-        raise ValueError("Invalid tile dimensions")
-    out = []
-    x = y = 0
-    for i, off in enumerate(offs):
-        out.append((off, cnts[i] if i < len(cnts) else None, x, y, tw, th))
-        x += tw
-        if x >= w:
-            x, y = 0, y + th
-    return out
 
 
 def _raw_tiles(tags, rawmode, w, h, planar, bps):
@@ -374,6 +358,12 @@ def _raw_tiles(tags, rawmode, w, h, planar, bps):
     return tiles
 
 
+# the one-letter raw modes PIL unpacks a band of each mode from
+_RAW_BANDS = {(m, c): i for m in ("RGB", "RGBA", "CMYK", "LAB")
+              for i, c in enumerate(m)}
+_RAW_SINGLE = {"L": "L", "P": "P", "1": "1", "F": "F;32F", "I": "I;32N"}
+
+
 def _load_raw(data, tiles, mode, size, planar, bps):
     """ImageFile.load over PIL's raw tiles: one a strip (or tile), read
     from its offset on; tiles in file order."""
@@ -384,15 +374,22 @@ def _load_raw(data, tiles, mode, size, planar, bps):
     for off, x0, y0, x1, y1, rm, stride, layer in tiles:
         tw_, rows = x1 - x0, y1 - y0
         if planar == 2:
-            rb = (tw_ * bps[0] + 7) // 8
-            st = stride or rb
-            buf = read_rows(data, off, st, rows, rb)
-            band = np.frombuffer(buf, np.uint8).reshape(rows, st)[:, :rb]
+            # PIL's raw decoder with one letter of the raw mode: the
+            # unpacker of that band, whatever the samples' size
             if out.ndim == 3:
-                out[y0:y1, x0:x1, "RGBA".index(rm) if rm in "RGBA"
-                    else layer] = band
+                band = _RAW_BANDS.get((mode, rm))
+                rm = None if band is None else "L"
             else:
-                out[y0:y1, x0:x1] = band
+                rm = _RAW_SINGLE.get(rm) if rm == mode else None
+            if rm is None:
+                raise ValueError("unknown raw mode for given image mode")
+            rb = row_bytes(rm, tw_)
+            st = stride or rb
+            arr = unpack(rm, read_rows(data, off, st, rows, rb), tw_, rows, st)
+            if out.ndim == 3:
+                out[y0:y1, x0:x1, band] = arr
+            else:
+                out[y0:y1, x0:x1] = arr
             continue
         rb = row_bytes(_plain(rm), tw_)
         st = stride or rb
@@ -408,54 +405,332 @@ def _plain(rawmode: str) -> str:
     return {"I;16N": "I;16"}.get(r, r)
 
 
+# TIFF compression -> the scheme ccitt.cc decodes
+_CCITT = {"tiff_ccitt": 2, "tiff_raw_16": 32771, "group3": 3, "group4": 4}
+# the codecs libtiff gives its predictor (TIFFPredictorInit); the others
+# ignore the tag
+_PREDICTED = ("tiff_lzw", "tiff_adobe_deflate", "tiff_deflate", "lzma",
+              "zstd")
+# where each band of a PIL mode sits in its 4-byte pixel: PIL unpacks
+# libtiff's separate planes into bytes 0, 1, 2, 3 in turn (its "R", "G",
+# "B", "A" band unpackers), so the second plane of LA or PA lands in a
+# byte no band shows
+_BAND_BYTES = {"LA": (0, 3), "PA": (0, 3), "RGB": (0, 1, 2),
+               "LAB": (0, 1, 2), "RGBA": (0, 1, 2, 3), "CMYK": (0, 1, 2, 3)}
+
+_CC_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "host", "ccitt.cc")
+_CC_CMD = ("g++", "-O2", "-shared", "-fPIC", "-std=c++17")
+_CC_SIGNATURES = {
+    "cc_decode": (ctypes.c_int, [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_uint32,
+        ctypes.c_int, ctypes.c_int, ctypes.c_size_t, ctypes.c_size_t,
+        ctypes.c_size_t, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]),
+}
+
+
 def _load_libtiff(data, tags, compression, mode, rawmode, size, planar, bps,
                   e):
-    """PIL's libtiff decoder: each strip or tile decompressed, its
-    predictor undone, unpacked with the native-order raw mode."""
-    if compression not in ("tiff_lzw", "tiff_adobe_deflate", "tiff_deflate",
-                           "packbits", "jpeg"):
-        raise item16(f"TIFF compression {compression}")
-    if planar == 2:
-        raise item16("TIFF compressed separate planes")
+    """PIL's libtiff decoder (``TiffDecode.c`` over libtiff 4.7): the
+    strips or tiles read in its order (row of blocks, plane, column) into
+    one buffer it keeps from block to block, each decompressed, its
+    predictor undone and unpacked into the image with the native-order
+    raw mode, or, for separate planes, plane by plane into the bytes of
+    PIL's pixel."""
+    if compression == "tiff_jpeg":
+        raise item16("TIFF old-style JPEG (compression 6)")
+    if rawmode == "RGB" and mode != "RGB":
+        # _setup's raw mode for YCbCr JPEG, which PIL's decoder refuses
+        # for a one-band mode before libtiff runs
+        raise ValueError("unknown raw mode for given image mode")
+    if tags.get(262, 0) == 6 and not (compression == "jpeg" and planar == 1):
+        return _load_ycbcr(data, tags, compression, size, planar, bps, e)
     w, h = size
+    bands = len(_BAND_BYTES.get(mode, (0,)))
+    planes = bands if planar == 2 and bands > 1 else 1
     try:
         if _PARTIAL in tags:
             raise ValueError("directory cut short")
-        chunks = _chunks(tags, w, h)
+        if compression in ("webp", "tiff_sgilog", "tiff_sgilog24"):
+            # PIL 12.1's libtiff is built without WebP ("WEBP compression
+            # support is not configured"), and its SGILog codec takes the
+            # LogLuv and LogL photometrics only, which PIL's mode table
+            # lacks
+            raise ValueError(f"no {compression} decoder in PIL's libtiff")
+        if planes > 1 and bps[0] not in (8, 16):
+            raise ValueError("separate planes of neither 8 nor 16 bits")
+        tiled, bw, bh, offs, cnts = _blocks(tags, w, h)
+        # the scanline libtiff decodes (one sample wide for separate
+        # planes); PIL checks a strip's against what its unpacker reads
+        rowb = (bw * bps[0] * (1 if planar == 2 else len(bps)) + 7) // 8
+        if not tiled and rowb < (bw * _bits(rawmode) // planes + 7) // 8:
+            raise ValueError("scanline shorter than the unpacker's")
     except (TypeError, IndexError, KeyError, ValueError) as err:
         raise OSError("decoder error -2") from err
     out = _mode_array(mode, w, h)
-    predictor = tags.get(317, 1)
-    nbits = sum(bps)
-    tables = tags.get(347)
-    for off, cnt, x0, y0, cw_, rows in chunks:
-        if y0 >= h:
-            break
-        rows_here = rows if 324 in tags else min(rows, h - y0)
-        row_len = (cw_ * nbits + 7) // 8
-        need = row_len * rows_here
-        if cnt is None or off + cnt > len(data):
-            raise OSError("decoder error -2")
-        raw = data[off:off + cnt]
-        try:
-            if compression == "jpeg":
-                last = 324 not in tags and y0 + rows_here >= h
-                px = _jpeg_strip(raw, tables, tags.get(262, 0), cw_,
-                                 rows_here, last, len(bps), bps[0])
-                buf = np.ascontiguousarray(px).tobytes()
-            else:
-                buf = _decompress(compression, raw, need)
-                if len(buf) < need:
-                    raise ValueError("short strip")
-                buf = _predict(buf[:need], predictor, bps, cw_, rows_here, e)
-        except JPEGUnsupported as err:
-            raise item16("TIFF JPEG variant") from err
-        except Exception as err:  # noqa: BLE001 -- libtiff's failure
-            raise OSError("decoder error -2") from err
-        arr = _unpack_mode(rawmode, buf, cw_, rows_here, row_len, mode)
-        ys, xs = min(rows_here, h - y0), min(cw_, w - x0)
-        out[y0:y0 + ys, x0:x0 + xs] = arr[:ys, :xs]
+    across = -(-w // bw) if tiled else 1
+    down = -(-h // bh)
+    buf = np.zeros(bh * rowb, np.uint8)  # PIL's buffer, kept from block
+    # to block
+    noeol = ctypes.c_int(0)  # libtiff's Group 3 codec state, per image
+    for by in range(down):
+        y0 = by * bh
+        rows = bh if tiled else min(bh, h - y0)
+        for plane in range(planes):
+            for bx in range(across):
+                x0 = bx * bw
+                index = by * across + bx + (
+                    plane * across * down if planar == 2 else 0)
+                try:
+                    _decode_block(data, tags, compression, offs, cnts, index,
+                                  (bw, rows, rowb), bps, planar, e,
+                                  buf[:rows * rowb], noeol,
+                                  not tiled and y0 + rows >= h)
+                except JPEGUnsupported as err:
+                    raise item16("TIFF JPEG variant") from err
+                except Exception as err:  # noqa: BLE001 -- libtiff's failure
+                    raise OSError("decoder error -2") from err
+                ys, xs = min(rows, h - y0), min(bw, w - x0)
+                body = buf[:rows * rowb].tobytes()
+                if planes == 1:
+                    arr = _unpack_mode(rawmode, body, bw, rows, rowb, mode)
+                    out[y0:y0 + ys, x0:x0 + xs] = arr[:ys, :xs]
+                elif plane in _BAND_BYTES[mode]:
+                    band = np.frombuffer(body, np.uint8).reshape(rows, rowb)
+                    if bps[0] == 16:
+                        band = band[:, 1::2]  # the high byte ("R;16N")
+                    out[y0:y0 + ys, x0:x0 + xs,
+                        _BAND_BYTES[mode].index(plane)] = band[:ys, :xs]
+    if planes > 3 and mode == "RGBA" and tags.get(338, (None,))[0] in (0, 1):
+        out = unpremultiply(out)
     return out
+
+
+def _load_ycbcr(data, tags, compression, size, planar, bps, e):
+    """PIL's _decodeAsRGBA: YCbCr read through libtiff's TIFFRGBAImage,
+    one strip or row of tiles at a time. Its subsampled blocks (contiguous
+    planes, 1, 2 or 4 across by 1, 2 or 4 down) or separate planes (no
+    subsampling) are converted by libtiff's fixed-point tables (PIL asks
+    for them top-left, as stored). This reader does not stop at errors: a
+    strip or tile that fails reads as zeros, and only the first block of
+    a row missing from the file fails the image."""
+    w, h = size
+    try:
+        sub = tags.get(530, (2, 2))
+        hs, vs = (sub, sub) if isinstance(sub, int) else sub[:2]
+        if bps != (8, 8, 8) or not vs or (
+                (hs, vs) != (1, 1) if planar == 2 else
+                (hs, vs) not in ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1),
+                                 (4, 2), (4, 4))):
+            raise ValueError("Can not handle format")
+        if _PARTIAL in tags:
+            raise ValueError("directory cut short")
+        tables = _ycbcr_tables(tags.get(529), tags.get(532))
+        tiled, bw, bh, offs, cnts = _blocks(tags, w, h)
+    except (TypeError, IndexError, KeyError, ValueError) as err:
+        raise OSError("decoder error -2") from err
+    n = hs * vs + 2
+    row_blocks = -(-bw // hs)
+    across = -(-w // bw) if tiled else 1
+    down = -(-h // bh)
+    out = np.zeros((h, w, 3), np.uint8)
+    for by in range(down):
+        y0 = by * bh
+        rows = min(bh, h - y0)
+        coded = bh if tiled else rows
+        size = bw * coded if planar == 2 else -(-coded // vs) * row_blocks * n
+        # libtiff reads a strip only as far as its rows, rounded up to the
+        # subsampling, times a scanline of a block row's bytes over vs
+        limit = size if tiled or planar == 2 else min(
+            size, -(-coded // vs) * vs * (row_blocks * n // vs))
+        got = None  # libtiff's buffer: zeroed at the block row's first read
+        for bx in range(across):
+            x0 = bx * bw
+            for plane in range(3 if planar == 2 else 1):
+                index = by * across + bx + plane * across * down
+                first = got is None
+                if first:
+                    got = [np.zeros(size, np.uint8)
+                           for _ in range(3 if planar == 2 else 1)]
+                try:
+                    _decode_block(data, tags, compression, offs, cnts, index,
+                                  (bw, coded, 0), bps, planar, e,
+                                  got[plane][:limit], None,
+                                  not tiled and y0 + rows >= h)
+                except JPEGUnsupported as err:
+                    raise item16("TIFF JPEG variant") from err
+                except _Missing as err:
+                    if first:  # no buffer yet: TIFFRGBAImageGet fails
+                        raise OSError("decoder error -2") from err
+                    got[plane][:] = 0
+                except Exception:  # noqa: BLE001 -- libtiff reads on
+                    got[plane][:] = 0
+            cols = min(bw, w - x0)
+            if planar == 2:
+                ycc = [p.reshape(coded, bw) for p in got]
+            else:
+                # libtiff skips the blocks of a tile past the image's edge
+                # by (skip / hs) blocks of hs * 2 + 2 bytes, which is a
+                # block only for 4 x 2 and smaller
+                skip = (bw - cols) // hs * (hs * 2 + 2 if vs == 4 else n)
+                ycc = _ycbcr_samples(got[0], coded, cols, hs, vs,
+                                     -(-cols // hs) * n + skip)
+            rgb = _ycbcr_to_rgb(tables, *ycc)[:rows, :cols]
+            out[y0:y0 + rows, x0:x0 + cols] = rgb
+    return out
+
+
+def _ycbcr_tables(luma, refbw):
+    """TIFFYCbCrToRGBInit in libtiff's float32 and 16-bit fixed point."""
+    f32 = np.float32
+    luma = np.array(luma if luma is not None else (0.299, 0.587, 0.114),
+                    f32)
+    ref = np.array(refbw if refbw is not None else
+                   (0, 255, 128, 255, 128, 255), f32)
+    if len(luma) < 3 or len(ref) < 6 or np.isnan(luma).any() or \
+            luma[1] == 0 or not ((ref > -0x7FFFFFFF + 128) &
+                                 (ref < 0x7FFFFFFF - 128)).all():
+        raise ValueError("Invalid YCbCrCoefficients or ReferenceBlackWhite")
+
+    def fix(x):
+        return int(float(x) * 65536 + 0.5)
+
+    with np.errstate(all="ignore"):
+        f1 = f32(2) - f32(2) * luma[0]
+        f2 = luma[0] * f1 / luma[1]
+        f3 = f32(2) - f32(2) * luma[2]
+        f4 = luma[2] * f3 / luma[1]
+        d1, d2 = fix(np.clip(f1, 0, 2)), -fix(np.clip(f2, 0, 2))
+        d3, d4 = fix(np.clip(f3, 0, 2)), -fix(np.clip(f4, 0, 2))
+
+        def code2v(c, rb, rw, cr):
+            span = rw - rb
+            return (f32(c - np.int64(np.trunc(rb))) * f32(cr)) / (
+                span if span != 0 else f32(1))
+
+        x = np.arange(-128, 128)
+        cr = np.trunc(np.clip(code2v(x, ref[4] - f32(128), ref[5] - f32(128),
+                                     127), -4096, 4096)).astype(np.int64)
+        cb = np.trunc(np.clip(code2v(x, ref[2] - f32(128), ref[3] - f32(128),
+                                     127), -4096, 4096)).astype(np.int64)
+        y = np.trunc(np.clip(code2v(x + 128, ref[0], ref[1], 255), -4096,
+                             4096)).astype(np.int64)
+    return ((d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16, d2 * cr,
+            d4 * cb + 32768, y)
+
+
+def _ycbcr_samples(buf, rows, cols, hs, vs, stride):
+    """Y, Cb and Cr of each pixel from blocks of hs x vs luma samples and
+    one Cb and Cr, ceil(cols / hs) blocks to a row of blocks, rows of
+    blocks ``stride`` bytes apart."""
+    bx, by, n = -(-cols // hs), -(-rows // vs), hs * vs + 2
+    need = (by - 1) * stride + bx * n
+    buf = np.concatenate([buf, np.zeros(max(0, need - len(buf)), np.uint8)])
+    blk = np.lib.stride_tricks.as_strided(
+        buf, (by, bx, n), (stride, n, 1)).copy()
+    y = blk[:, :, :-2].reshape(by, bx, vs, hs).transpose(0, 2, 1, 3)
+    y = y.reshape(by * vs, bx * hs)
+
+    def up(c):
+        return np.repeat(np.repeat(c, vs, 0), hs, 1)
+    return y, up(blk[:, :, -2]), up(blk[:, :, -1])
+
+
+def _ycbcr_to_rgb(tables, y, cb, cr):
+    """TIFFYCbCrtoRGB over arrays of samples."""
+    cr_r, cb_b, cr_g, cb_g, y_tab = tables
+    yy = y_tab[y]
+    rgb = np.stack([yy + cr_r[cr], yy + ((cb_g[cb] + cr_g[cr]) >> 16),
+                    yy + cb_b[cb]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _bits(rawmode: str) -> int:
+    """Bits a pixel of PIL's unpacker for ``rawmode`` takes."""
+    r = _plain(rawmode)
+    return row_bytes(r[:-1] + "L" if r.endswith("16N") else r, 8)
+
+
+def _blocks(tags, w, h):
+    """(tiled, block width, block height, offsets, byte counts) of the
+    strips or tiles; ValueError where their size is not a positive
+    integer."""
+    tiled = 324 in tags
+    if tiled:
+        bw, bh = tags.get(322), tags.get(323)
+        offs, cnts = tags[324], tags.get(325)
+    else:
+        bw, bh = w, tags.get(278, h)
+        offs, cnts = tags[273], tags.get(279)
+    if not isinstance(bw, int) or not isinstance(bh, int) or \
+            bw <= 0 or bh <= 0:
+        raise ValueError("block size")
+    offs = offs if isinstance(offs, tuple) else (offs,)
+    cnts = cnts if isinstance(cnts, tuple) else (
+        () if cnts is None else (cnts,))
+    return tiled, bw, bh, offs, cnts
+
+
+class _Missing(ValueError):
+    """libtiff's TIFFFillStrip / Tile failed: the strip or tile is not
+    named, is empty or lies past the file's end."""
+
+
+def _decode_block(data, tags, compression, offs, cnts, index, shape, bps,
+                  planar, e, out, noeol, last):
+    """libtiff's TIFFReadEncodedStrip / Tile of block ``index`` into
+    ``out`` (a uint8 array of as many bytes as libtiff reads; ``shape``
+    is the block's width, rows and scanline bytes); raises where it
+    fails."""
+    bw, rows, rowb = shape
+    try:
+        off, cnt = offs[index], cnts[index]
+    except IndexError as err:
+        raise _Missing("no such strip or tile") from err
+    if not cnt or off + cnt > len(data):
+        raise _Missing("strip or tile past the end of the file")
+    raw = data[off:off + cnt]
+    spp = 1 if planar == 2 else len(bps)
+    need = len(out)
+    if compression in _CCITT:
+        if bps[0] != 1 or spp != 1:
+            raise ValueError("CCITT takes one 1-bit sample")
+        opts = tags.get(292 if compression == "group3" else 293, 0)
+        opts = opts[0] if isinstance(opts, tuple) else opts
+        if _cc_lib().cc_decode(
+                raw, len(raw), _CCITT[compression], int(opts) & 0xFFFFFFFF,
+                int(tags.get(266, 1) != 2), bw, rowb, rows, off,
+                out.ctypes.data, ctypes.byref(noeol)) < 0:
+            raise ValueError("CCITT data broken")
+        return
+    if tags.get(266, 1) == 2:
+        # FillOrder 2: libtiff reverses the bits of the raw bytes first
+        raw = _REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
+    if compression == "jpeg":
+        px = _jpeg_strip(raw, tags.get(347), tags.get(262, 0), bw, rows,
+                         last, spp, bps[0])
+        px = np.ascontiguousarray(px).reshape(-1)
+        out[:len(px)] = px[:need]
+        return
+    if compression == "tiff_thunderscan":
+        px = _thunder(raw, bw, rows, rowb, bps, out)
+    else:
+        px = _decompress(compression, raw, need)
+    if len(px) < need:
+        raise ValueError("short strip")
+    predictor = tags.get(317, 1) if compression in _PREDICTED else 1
+    if predictor != 1 and need != rows * ((bw * bps[0] * spp + 7) // 8):
+        raise ValueError("a predictor on subsampled YCbCr")
+    out[:] = np.frombuffer(_predict(px[:need], predictor, bps[:spp], bw,
+                                    rows, e), np.uint8)
+
+
+_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
+                    np.uint8)
+
+
+def _cc_lib():
+    return _build.load(_CC_CMD, _CC_SRC, _CC_SIGNATURES)
 
 
 def _decompress(compression, raw, need):
@@ -463,7 +738,84 @@ def _decompress(compression, raw, need):
         return lzw_decode_native(raw, max_size=need)
     if compression == "packbits":
         return _packbits_decode(raw)
-    return zlib.decompressobj().decompress(raw, need)
+    if compression == "zstd":
+        # libtiff streams the frame until the strip is full
+        known = zstd.content_size(raw)
+        return zstd.decompress(raw, known if need <= known <= 4 * need
+                               else need)
+    if compression == "lzma":
+        import lzma  # the .xz stream libtiff writes per strip or tile
+        return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(
+            raw, max_length=need)
+    if compression in ("tiff_adobe_deflate", "tiff_deflate"):
+        return zlib.decompressobj().decompress(raw, need)
+    raise ValueError(f"no {compression} decoder")
+
+
+_TWO_BIT = (0, 1, 0, -1)
+_THREE_BIT = (0, 1, 2, 3, 0, -3, -2, -1)
+
+
+def _thunder(raw: bytes, width: int, rows: int, rowb: int, bps, buf
+             ) -> bytes:
+    """libtiff's ThunderDecode, row by row: 4-bit pixels from runs of the
+    last one, 2-bit or 3-bit deltas, or raw values. A run that fills the
+    row to its end writes nothing, as libtiff's does not, so those bytes
+    keep what the buffer held."""
+    if bps[0] != 4:
+        raise ValueError("ThunderScan takes 4-bit samples")
+    out = bytearray(buf[:rows * rowb].tobytes())
+    pos = 0
+    for r in range(rows):
+        op = r * rowb
+        last = npix = 0
+
+        def put(v):
+            nonlocal last, npix, op
+            last = v & 0xF
+            if npix < width:
+                if npix & 1:
+                    out[op] |= last
+                    op += 1
+                else:
+                    out[op] = last << 4
+                npix += 1
+        while pos < len(raw) and npix < width:
+            n = raw[pos]
+            pos += 1
+            code = n & 0xC0
+            if code == 0x00:
+                if npix & 1:
+                    out[op] |= last
+                    last = out[op]
+                    op += 1
+                    npix += 1
+                    n -= 1
+                else:
+                    last |= last << 4
+                npix += n
+                if npix < width:
+                    while n > 0:
+                        out[op] = last
+                        op += 1
+                        n -= 2
+                if n == -1:
+                    op -= 1
+                    out[op] &= 0xF0
+                last &= 0xF
+            elif code == 0x40:
+                for d in ((n >> 4) & 3, (n >> 2) & 3, n & 3):
+                    if d != 2:
+                        put(last + _TWO_BIT[d])
+            elif code == 0x80:
+                for d in ((n >> 3) & 7, n & 7):
+                    if d != 4:
+                        put(last + _THREE_BIT[d])
+            else:
+                put(n)
+        if npix != width:
+            raise ValueError("ThunderScan row of the wrong length")
+    return bytes(out)
 
 
 def _predict(buf: bytes, predictor: int, bps, w: int, rows: int, e: str

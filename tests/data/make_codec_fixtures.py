@@ -549,64 +549,14 @@ def plain_pnm(magic: bytes, a: np.ndarray, maxval: int = 255) -> bytes:
 
 
 def tiff(a: np.ndarray, photometric: int, order: str = "<",
-         extra=None, sample_format: int = 1, tile=None,
-         orientation=None) -> bytes:
+         extra=None, tile=None, orientation=None) -> bytes:
     """A baseline uncompressed TIFF of ``a`` (H, W, B), one strip or
     tiles, with the tags PIL reads to pick its mode."""
-    a = np.ascontiguousarray(a)
-    h, w, spp = a.shape
-    bps = a.dtype.itemsize * 8
-    data_blocks = []
-    if tile:
-        th, tw = tile
-        for y in range(0, h, th):
-            for x in range(0, w, tw):
-                blk = np.zeros((th, tw, spp), a.dtype)
-                part = a[y:y + th, x:x + tw]
-                blk[:part.shape[0], :part.shape[1]] = part
-                data_blocks.append(blk.astype(a.dtype.newbyteorder(
-                    order)).tobytes())
-    else:
-        data_blocks.append(a.astype(a.dtype.newbyteorder(order)).tobytes())
-    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bps] * spp),
-               (259, 3, [1]), (262, 3, [photometric]), (277, 3, [spp]),
-               (284, 3, [1]), (339, 3, [sample_format] * spp)]
+    tags = [] if extra is None else [(338, 3, list(extra))]
     if orientation:
-        entries.append((274, 3, [orientation]))
-    if extra is not None:
-        entries.append((338, 3, list(extra)))
-    head = (b"II*\0" if order == "<" else b"MM\0*")
-    pos = 8
-    blobs = b""
-    offsets = []
-    for blk in data_blocks:
-        offsets.append(pos + len(blobs))
-        blobs += blk
-    counts = [len(b) for b in data_blocks]
-    if tile:
-        entries += [(322, 4, [tile[1]]), (323, 4, [tile[0]]),
-                    (324, 4, offsets), (325, 4, counts)]
-    else:
-        entries += [(273, 4, offsets), (278, 4, [h]), (279, 4, counts)]
-    entries.sort()
-    ifd_at = 8 + len(blobs)
-    extra_at = ifd_at + 2 + 12 * len(entries) + 4
-    ifd = struct.pack(order + "H", len(entries))
-    tail = b""
-    for tag, typ, vals in entries:
-        size = 2 if typ == 3 else 4
-        raw = struct.pack(order + ("H" if typ == 3 else "I") * len(vals),
-                          *vals)
-        if len(raw) <= 4:
-            ifd += struct.pack(order + "HHI", tag, typ, len(vals)) + \
-                raw.ljust(4, b"\0")
-        else:
-            ifd += struct.pack(order + "HHII", tag, typ, len(vals),
-                               extra_at + len(tail))
-            tail += raw
-        del size
-    ifd += b"\0\0\0\0"
-    return head + struct.pack(order + "I", ifd_at) + blobs + ifd + tail
+        tags.append((274, 3, [orientation]))
+    return tiff_coded(a, photometric, 1, lambda b: b.tobytes(), order,
+                      tile=tile, tags=tags)
 
 
 def dds_bc4(h: int, w: int, rng) -> bytes:
@@ -619,6 +569,245 @@ def dds_bc4(h: int, w: int, rng) -> bytes:
     blocks = ((h + 3) // 4) * ((w + 3) // 4)
     return bytes(head) + rng.randint(0, 256, blocks * 8).astype(
         np.uint8).tobytes()
+
+
+def tiff_file(blocks, entries, order: str = "<") -> bytes:
+    """A TIFF of the coded ``blocks`` (strips or tiles, in file order) and
+    the IFD ``entries`` (tag, type, values), which name the blocks'
+    offsets and byte counts by the placeholders ``"offsets"`` and
+    ``"counts"``. Type 3 is SHORT, 4 LONG; longer values go after the
+    IFD."""
+    pos, offsets, body = 8, [], b""
+    for blk in blocks:
+        offsets.append(pos + len(body))
+        body += blk
+    fill = {"offsets": offsets, "counts": [len(b) for b in blocks]}
+    entries = sorted((t, typ, fill.get(v, v) if isinstance(v, str) else v)
+                     for t, typ, v in entries)
+    ifd_at = 8 + len(body)
+    extra_at = ifd_at + 2 + 12 * len(entries) + 4
+    ifd, tail = struct.pack(order + "H", len(entries)), b""
+    for tag, typ, vals in entries:
+        raw = struct.pack(order + ("H" if typ == 3 else "I") * len(vals),
+                          *vals)
+        if len(raw) <= 4:
+            ifd += struct.pack(order + "HHI", tag, typ, len(vals)) + \
+                raw.ljust(4, b"\0")
+        else:
+            ifd += struct.pack(order + "HHII", tag, typ, len(vals),
+                               extra_at + len(tail))
+            tail += raw
+    ifd += b"\0\0\0\0"
+    head = b"II*\0" if order == "<" else b"MM\0*"
+    return head + struct.pack(order + "I", ifd_at) + body + ifd + tail
+
+
+def tiff_coded(a: np.ndarray, photometric: int, compression: int, code,
+               order: str = "<", planar: int = 1, rows=None, tile=None,
+               bits=None, tags=()) -> bytes:
+    """A TIFF of ``a`` (H, W, B) whose strips of ``rows`` rows (or tiles,
+    padded to (height, width) ``tile``), of every plane in turn when
+    ``planar`` is 2, are ``code(block)``: ``block`` is that part of the
+    array in the file's byte order. ``bits`` overrides the samples' size
+    (for codes that pack them); ``tags`` adds IFD entries."""
+    a = np.ascontiguousarray(a)
+    h, w, spp = a.shape
+    a = a.astype(a.dtype.newbyteorder(order))
+    parts = [a[:, :, k:k + 1] for k in range(spp)] if planar == 2 else [a]
+    blocks = []
+    for p in parts:
+        if tile:
+            th, tw = tile
+            for y in range(0, h, th):
+                for x in range(0, w, tw):
+                    blk = np.zeros((th, tw, p.shape[2]), p.dtype)
+                    part = p[y:y + th, x:x + tw]
+                    blk[:part.shape[0], :part.shape[1]] = part
+                    blocks.append(code(blk))
+        else:
+            for y in range(0, h, rows or h):
+                blocks.append(code(p[y:y + (rows or h)]))
+    bits = bits or a.dtype.itemsize * 8
+    fmt = 3 if a.dtype.kind == "f" else 2 if a.dtype.kind == "i" else 1
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * spp),
+               (259, 3, [compression]), (262, 3, [photometric]),
+               (277, 3, [spp]), (284, 3, [planar]), (339, 3, [fmt] * spp)]
+    if tile:
+        entries += [(322, 4, [tile[1]]), (323, 4, [tile[0]]),
+                    (324, 4, "offsets"), (325, 4, "counts")]
+    else:
+        entries += [(273, 4, "offsets"), (278, 4, [rows or h]),
+                    (279, 4, "counts")]
+    return tiff_file(blocks, entries + list(tags), order)
+
+
+def pil_planes(a: np.ndarray, photometric: int, compression: str,
+               rows: int, predictor: int = 1, extra=None) -> bytes:
+    """A separate-planes TIFF of ``a`` (H, W, B; uint8 or uint16) whose
+    strips are libtiff's own: each band is written by PIL as a grey TIFF
+    with ``compression``, ``rows`` rows a strip and ``predictor``, and
+    its strips are lifted into one file."""
+    from PIL import Image
+    from PIL.TiffImagePlugin import COMPRESSION_INFO
+    blocks = []
+    for k in range(a.shape[2]):
+        buf = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(a[:, :, k])).save(
+            buf, "TIFF", compression=compression,
+            tiffinfo={278: rows, 317: predictor})
+        im = Image.open(io.BytesIO(buf.getvalue()))
+        data = buf.getvalue()
+        for off, n in zip(im.tag_v2[273], im.tag_v2[279]):
+            blocks.append(data[off:off + n])
+    code = {v: k for k, v in COMPRESSION_INFO.items()}[compression]
+    h, w, spp = a.shape
+    entries = [(256, 4, [w]), (257, 4, [h]),
+               (258, 3, [a.dtype.itemsize * 8] * spp), (259, 3, [code]),
+               (262, 3, [photometric]), (273, 4, "offsets"),
+               (277, 3, [spp]), (278, 4, [rows]), (279, 4, "counts"),
+               (284, 3, [2])]
+    if predictor != 1:
+        entries.append((317, 3, [predictor]))
+    if extra:
+        entries.append((338, 3, list(extra)))
+    return tiff_file(blocks, entries)
+
+
+def pack12(block: np.ndarray) -> bytes:
+    """12-bit samples, most significant bits first, each row padded to a
+    byte (TIFF BitsPerSample 12)."""
+    out = b""
+    for row in block.reshape(block.shape[0], -1).astype(np.uint16):
+        bits = np.unpackbits(row.astype(">u2").view(np.uint8).reshape(
+            -1, 2), axis=1)[:, 4:].reshape(-1)
+        out += np.packbits(bits).tobytes()
+    return out
+
+
+def ycbcr_blocks(block: np.ndarray, hs: int, vs: int) -> bytes:
+    """Contiguous YCbCr subsampled hs across by vs down: blocks of hs x vs
+    luma samples, then the Cb and Cr of the block's first pixel (the
+    block's edge padded with zeros)."""
+    r, c = block.shape[:2]
+    bx, by = -(-c // hs), -(-r // vs)
+    p = np.zeros((by * vs, bx * hs, 3), np.uint8)
+    p[:r, :c] = block
+    t = p.reshape(by, vs, bx, hs, 3).transpose(0, 2, 1, 3, 4)
+    y = t[..., 0].reshape(by, bx, hs * vs)
+    return np.concatenate([y, t[:, :, 0, 0, 1:]], -1).tobytes()
+
+
+def thunderscan(px: np.ndarray, rng) -> bytes:
+    """ThunderScan codes (TIFF compression 32809) of (rows, width) 4-bit
+    pixels, each row from a last pixel of 0: at each step one of the
+    codes that fits, picked at random (a raw value, a run of the last
+    pixel, three 2-bit or two 3-bit deltas, some skipped). No run ends a
+    row: libtiff's decoder writes nothing for a run that fills the row."""
+    two = {0: 0, 1: 1, -1: 3}
+    three = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+
+    def delta(last, t):
+        d = (int(t) - last) % 16
+        return d - 16 if d > 7 else d
+    out = bytearray()
+    for row in px:
+        last, i, n = 0, 0, len(row)
+        while i < n:
+            run = 0
+            while i + run < n and row[i + run] == last and run < 63:
+                run += 1
+            kinds = ["raw"] + (["run"] if 1 <= run and i + run < n else []) \
+                + (["two"] if delta(last, row[i]) in two else []) \
+                + (["three"] if delta(last, row[i]) in three else [])
+            kind = kinds[rng.randint(len(kinds))]
+            if kind == "raw":
+                out.append(0xC0 | int(row[i]))
+                last, i = int(row[i]), i + 1
+            elif kind == "run":
+                m = rng.randint(1, run + 1)
+                out.append(m)
+                i += m
+            else:
+                table, width, skip = (two, 3, 2) if kind == "two" else \
+                    (three, 2, 4)
+                codes = []
+                while len(codes) < width and i < n and \
+                        delta(last, row[i]) in table:
+                    codes.append(table[delta(last, row[i])])
+                    last, i = int(row[i]), i + 1
+                    if rng.rand() < 0.3:
+                        break
+                codes += [skip] * (width - len(codes))
+                out.append(0x40 | codes[0] << 4 | codes[1] << 2 | codes[2]
+                           if kind == "two" else
+                           0x80 | codes[0] << 3 | codes[1])
+    return bytes(out)
+
+
+def tiff_codec_fixtures():
+    """TIFFs of the codecs libtiff decodes for PIL beyond LZW, Deflate,
+    PackBits and JPEG (CCITT, zstd, LZMA, ThunderScan), separate planes,
+    12-bit grey, YCbCr through libtiff's RGBA reader, and the
+    compressions this libtiff refuses."""
+    import lzma
+    import zlib
+    from PIL import Image
+    rng = np.random.RandomState(20)
+    field = chip(40, 48, 61, 1)[:, :, 0]
+    bilevel = Image.fromarray(field > 128)
+    rgb = chip(41, 23, 19)
+    rgba = np.dstack([rgb, chip(42, 23, 19, 1)])
+    grey = Image.fromarray(rgb[:, :, 1])
+    for name, kw in (
+            ("g3-1d", dict(compression="group3")),
+            ("g3-2d", dict(compression="group3", tiffinfo={292: 1, 278: 16})),
+            ("g3-fillbits", dict(compression="group3",
+                                 tiffinfo={292: 5, 278: 20})),
+            ("g4", dict(compression="group4", tiffinfo={278: 20})),
+            ("g4-fillorder2-miniswhite", dict(
+                compression="group4", tiffinfo={266: 2, 262: 0})),
+            ("ccitt-rle", dict(compression="tiff_ccitt")),
+            ("ccitt-rlew", dict(compression="tiff_raw_16"))):
+        yield f"tiff-{name}.tif", _pil(Image, bilevel, "TIFF", **kw)
+    yield "tiff-zstd-pred2-rgb.tif", _pil(Image, Image.fromarray(rgb), "TIFF",
+                                          compression="zstd",
+                                          tiffinfo={317: 2})
+    yield "tiff-zstd-i16.tif", _pil(Image, Image.fromarray(
+        rgb[:, :, 0].astype(np.uint16) * 251 + 7), "TIFF", compression="zstd")
+    yield "tiff-zstd-float-pred3.tif", _pil(Image, Image.fromarray(
+        rgb[:, :, 2].astype(np.float32) / 3 - 20), "TIFF",
+        compression="zstd", tiffinfo={317: 3})
+    yield "tiff-lzma-grey.tif", _pil(Image, grey, "TIFF", compression="lzma")
+    yield "tiff-lzma-tiled-rgb-bigendian.tif", tiff_coded(
+        rgb.astype(np.uint16) * 257, 2, 34925,
+        lambda b: lzma.compress(b.tobytes(), format=lzma.FORMAT_XZ),
+        order=">", tile=(16, 16))
+    yield "tiff-planar-deflate-rgb.tif", pil_planes(rgb, 2,
+                                                    "tiff_adobe_deflate", 8)
+    yield "tiff-planar-lzw-rgba.tif", pil_planes(rgba, 2, "tiff_lzw", 10, 2,
+                                                 extra=(2,))
+    yield "tiff-planar-zstd-rgb.tif", pil_planes(rgb, 2, "zstd", 23, 2)
+    yield "tiff-planar-deflate-tiled-rgb16.tif", tiff_coded(
+        rgb.astype(np.uint16) * 257 + 3, 2, 8,
+        lambda b: zlib.compress(b.tobytes()), planar=2, tile=(16, 16))
+    i12 = (rgb[:, :, :1].astype(np.uint16) * 16 + rgb[:, :, 1:2] % 16)
+    yield "tiff-i12-raw.tif", tiff_coded(i12, 1, 1, pack12, rows=8, bits=12)
+    yield "tiff-i12-deflate.tif", tiff_coded(
+        i12, 1, 8, lambda b: zlib.compress(pack12(b)), rows=8, bits=12)
+    yield "tiff-thunderscan.tif", tiff_coded(
+        rgb[:, :, :1] // 16, 1, 32809, lambda b: thunderscan(b[:, :, 0], rng),
+        rows=8, bits=4)
+    yield "tiff-ycbcr-lzw.tif", _pil(Image, Image.fromarray(rgb).convert(
+        "YCbCr"), "TIFF", compression="tiff_lzw")
+    yield "tiff-ycbcr-sub42-tiled.tif", tiff_coded(
+        rgb, 6, 8, lambda b: zlib.compress(ycbcr_blocks(b, 4, 2)),
+        tile=(16, 16), tags=[(530, 3, [4, 2])])
+    yield "refuse-tiff-webp.tif", tiff_coded(
+        rgb, 2, 50001, lambda b: b"RIFF" + bytes(12) + b.tobytes()[:40])
+    yield "refuse-tiff-sgilog-grey.tif", tiff_coded(
+        rgb[:, :, :1].astype(np.uint16), 1, 34676, lambda b: b.tobytes())
+    yield "refuse-tiff-sgilog-logluv.tif", tiff_coded(
+        rgb, 32845, 34677, lambda b: b.tobytes())
 
 
 def pil_fixtures():
@@ -676,7 +865,7 @@ def pil_fixtures():
     yield "tiff-int32.tif", _pil(Image, Image.fromarray(
         grey.astype(np.int32) * 70000 - 5), "TIFF")
     yield "tiff-int16.tif", tiff((grey.astype(np.int16) * 100 - 9000)
-                                 [:, :, None], 1, sample_format=2)
+                                 [:, :, None], 1)
     yield "tiff-float32.tif", _pil(Image, Image.fromarray(
         grey.astype(np.float32) / 7), "TIFF")
     yield "tiff-la.tif", _pil(Image, Image.fromarray(rgba[:, :, ::2]), "TIFF")
@@ -691,6 +880,9 @@ def pil_fixtures():
     yield "refuse-tiff-4band-no-extrasamples.tif", tiff(rgba, 1)
     yield "refuse-tiff-13band.tif", encode_geotiff(
         (chip(22, 8, 8, 13).astype(np.uint16) * 9), tile_size=16)
+    # TIFF as libtiff decodes it: CCITT, zstd, LZMA, ThunderScan, separate
+    # planes, 12-bit grey, and the codecs this libtiff refuses
+    yield from tiff_codec_fixtures()
     # PPM family
     yield "ppm-rgb.ppm", _pil(Image, im, "PPM")
     yield "ppm-grey.pgm", _pil(Image, g, "PPM")
@@ -803,6 +995,7 @@ def pil_fixtures():
                                        compression="tiff_lzw")
     yield "chip128-tiff-jpeg.tif", _pil(Image, big, "TIFF",
                                         compression="jpeg", quality=90)
+    yield "chip128-tiff-zstd-planar.tif", pil_planes(c128, 2, "zstd", 32, 2)
     yield "chip128-ppm.ppm", _pil(Image, big, "PPM")
     yield "chip128-tga-rle.tga", _pil(Image, big, "TGA",
                                       compression="tga_rle")

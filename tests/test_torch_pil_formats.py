@@ -181,8 +181,17 @@ def _pil_written(fmt, mode):
     return _save(im, fmt)
 
 
+def _old_style_jpeg_tiff():
+    """A PIL-written RGB TIFF relabelled compression 6 (old-style JPEG),
+    which PIL opens as YCbCr-coded RGB."""
+    entry = struct.pack("<HHI", 259, 3, 1)
+    data = _pil_written("TIFF", "RGB")
+    return data.replace(entry + b"\1\0\0\0", entry + b"\6\0\0\0")
+
+
 @pytest.mark.parametrize("what,data", [
     ("DDS BC7", _dds_dx10(98)), ("DDS BC6H", _dds_dx10(95)),
+    ("TIFF old-style JPEG", _old_style_jpeg_tiff()),
     ("BLP", _pil_written("BLP", "P")), ("MSP", _pil_written("MSP", "1")),
     ("SPIDER", _pil_written("SPIDER", "F")),
     ("IM RGB3", b"Image type: RGB3 image\r\nImage size (x*y): 2*2\r\n"
