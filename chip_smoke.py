@@ -306,8 +306,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    steps (finite, falling loss); (c) decode MP/s on one host thread of
    each 128 px chip, and of the Group 4 and zstd fixtures, through
    ``decode_jpeg`` beside the baseline JPEG of the same pixels (the
-   port's quality-90 encode; a bilevel image as grey 0/255). K1-K3
-   launch 0 times.
+   port's quality-90 encode; a bilevel image as grey 0/255); (d) the
+   seeded corrupt TIFF corpus (``tests/data/make_codec_fixtures.py``'s
+   ``corrupt_tiffs``, regenerated here from its seed with numpy) through
+   ``decode_jpeg`` on the card's host: each counted file gives the JAX
+   package's outcome of ``tests/data/tiff_corrupt_outcomes.json`` (the
+   SHA-256, dtype and shape of the array, or the class and message
+   prefix; dtype and shape alone where PIL's array holds memory libtiff
+   never wrote). K1-K3 launch 0 times.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script
@@ -2939,10 +2945,53 @@ def pil_formats_phase(smi, tmp):
         "the same pixels): " + "; ".join(
             f"{k} {v['mp_per_s']:.2f} vs {v['baseline_jpeg_q90_mp_per_s']:.2f}"
             f" ({v['ratio']:.2f}x)" for k, v in rates.items()) + f"; {smi}")
+    # (d) the seeded corrupt TIFF corpus against the JAX outcome table
+    t0 = time.perf_counter()
+    out["corrupt"] = corrupt_tiff_check(decode_jpeg)
+    secs["corrupt_tiffs"] = time.perf_counter() - t0
+    log(f"  corrupt TIFF corpus: {out['corrupt']} files give the JAX "
+        f"package's outcome through decode_jpeg "
+        f"({secs['corrupt_tiffs']:.2f} s on the card's host)")
     out["launches"] = {c.name: c.count for c in kernels.COUNTERS}
     if any(out["launches"].values()):
         raise AssertionError(f"phase 16 launched a kernel: {out['launches']}")
     return out
+
+
+def corrupt_tiff_check(decode):
+    """Phase 16 (d): each counted file of the seeded corrupt TIFF corpus
+    through ``decode`` against ``tests/data/tiff_corrupt_outcomes.json``;
+    returns {"array": n, "error": n, "shape": n} of the outcomes held."""
+    import hashlib
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_codec_fixtures", os.path.join(os.path.dirname(PIL_DATA),
+                                            "make_codec_fixtures.py"))
+    fixtures = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixtures)  # numpy and the stdlib only
+    with open(fixtures.CORRUPT_TABLE) as f:
+        table = json.load(f)["outcomes"]
+    held = {"array": 0, "error": 0, "shape": 0}
+    for name, i, data, _at in fixtures.corrupt_tiffs(PIL_DATA):
+        want = table[name][i]
+        if want is None:
+            continue
+        try:
+            a = decode(data)
+            got = ["array", a.dtype.str, list(a.shape),
+                   hashlib.sha256(a.tobytes()).hexdigest()]
+        except Exception as e:  # noqa: BLE001 -- compared below
+            cls = type(e).__name__
+            got = ["error", cls, "" if cls == "AssertionError" else
+                   _msg_prefix(str(e))]
+        if (got[1:3] if want[0] == "shape" and got[0] == "array"
+                else got) != (want[1:] if want[0] == "shape" else want):
+            raise AssertionError(f"corrupt {name} #{i}: {got[:3]} != the "
+                                 f"JAX outcome {want[:3]}")
+        held[want[0]] += 1
+    if sum(held.values()) != 2102:
+        raise AssertionError(f"{held} outcomes held, not 2102")
+    return held
 
 
 # A 64 x 48 RGB codestream PIL wrote with the 9/7 wavelet, the ICT and

@@ -9,7 +9,11 @@
 // streams) / treeless literals, predefined / RLE / FSE / repeat sequence
 // tables, the three repeat offsets. Refuses frames that name a
 // dictionary. Every read and write is bounds-checked; corrupt input
-// returns an error, never reads or writes outside the buffers.
+// returns an error, never reads or writes outside the buffers. Where a
+// corrupt Huffman table or stream leaves libzstd 1.5.7 a choice, this
+// decoder makes libzstd's: the checks of HUF_readStats, and its fast
+// 4-stream loop, which reads a stream on into the bytes before it and
+// does not check where the stream's bits end (huf4_fast).
 
 #include <cstdint>
 #include <cstring>
@@ -211,6 +215,12 @@ void fse_rle(FSETable& t, uint8_t symbol) {
 struct HufTable {
   int max_bits = 0;
   std::vector<uint8_t> sym, nbits;
+  // libzstd's double-symbol table (HUF_readDTableX2), when its decoder
+  // chose it: each `log`-bit index gives one symbol, or two whose codes
+  // both fit (HUF_DEltX2: sequence, bits, length)
+  bool x2 = false;
+  int log = 0;
+  std::vector<uint8_t> s1, s2, bits2, len2;
 };
 
 // Huffman tree description (RFC 8878 4.2.1); returns bytes used.
@@ -248,28 +258,34 @@ uint64_t huf_read(HufTable& h, const uint8_t* src, uint64_t n) {
     }
   }
   if (nw > 255) corrupt("too many Huffman weights");
+  // HUF_readStats: weights and codes up to 12 (HUF_TABLELOG_MAX), and an
+  // even count, at least 2, of the longest codes
   uint64_t sum = 0;
   for (int i = 0; i < nw; ++i) {
-    if (w[i] > 11) corrupt("Huffman weight above 11");
+    if (w[i] > 12) corrupt("Huffman weight above 12");
     if (w[i]) sum += 1ULL << (w[i] - 1);
   }
   if (sum == 0) corrupt("Huffman weights are all zero");
   int max_bits = highbit(sum) + 1;
+  if (max_bits > 12) corrupt("Huffman code longer than 12 bits");
   uint64_t left = (1ULL << max_bits) - sum;
   if (left & (left - 1)) corrupt("Huffman weights do not sum to a power of two");
-  if (max_bits > 11) corrupt("Huffman code longer than 11 bits");
   w[nw++] = uint8_t(highbit(left) + 1);
+  int longest = 0;
+  for (int i = 0; i < nw; ++i) longest += w[i] == 1;
+  if (longest < 2 || (longest & 1)) corrupt("Huffman tree has an odd leaf");
   uint8_t bits[256];
-  uint32_t count[13] = {0};
+  uint32_t count[14] = {0};
   for (int i = 0; i < nw; ++i) {
     bits[i] = w[i] ? uint8_t(max_bits + 1 - w[i]) : 0;
     count[bits[i]]++;
   }
   const uint32_t size = 1u << max_bits;
   h.max_bits = max_bits;
+  h.x2 = false;
   h.sym.assign(size, 0);
   h.nbits.assign(size, 0);
-  uint32_t start[13];
+  uint32_t start[14];
   start[max_bits] = 0;
   for (int b = max_bits; b >= 1; --b) {
     start[b - 1] = start[b] + count[b] * (1u << (max_bits - b));
@@ -298,6 +314,314 @@ void huf_stream(const HufTable& h, const uint8_t* src, uint64_t n,
   }
   if (br.pos != -int64_t(h.max_bits))
     corrupt("Huffman stream size does not match its literals");
+}
+
+// libzstd's BIT_DStream_t over [start, ...): a 64-bit container read from
+// `ptr`, `used` bits of it consumed from the top. Past `start` the
+// container is not reloaded and a look wraps round it (BIT_lookBitsFast).
+struct ZBits {
+  const uint8_t* start;
+  const uint8_t* ptr;
+  uint64_t c;
+  uint32_t used;
+  enum { kUnfinished, kEndOfBuffer, kCompleted, kOverflow };
+  int reload() {  // BIT_reloadDStream
+    if (used > 64) return kOverflow;
+    if (ptr >= start + 8) {
+      ptr -= used >> 3;
+      used &= 7;
+      c = rd64(ptr);
+      return kUnfinished;
+    }
+    if (ptr == start) return used < 64 ? kEndOfBuffer : kCompleted;
+    uint32_t n = used >> 3;
+    int r = kUnfinished;
+    if (n > uint32_t(ptr - start)) {
+      n = uint32_t(ptr - start);
+      r = kEndOfBuffer;
+    }
+    ptr -= n;
+    used -= n * 8;
+    c = rd64(ptr);
+    return r;
+  }
+  uint8_t symbol(const HufTable& h) {  // HUF_decodeSymbolX1 at dtLog 11
+    uint32_t v = uint32_t((c << (used & 63)) >> 53) >> (11 - h.max_bits);
+    used += h.nbits[v];
+    return h.sym[v];
+  }
+};
+
+// HUF_decodeStreamX1: fills [p, end) whatever the stream holds.
+void zstream_x1(ZBits& b, const HufTable& h, uint8_t* p, uint8_t* end) {
+  if (end - p > 3) {
+    while ((b.reload() == ZBits::kUnfinished) & (p < end - 3))
+      for (int i = 0; i < 4; ++i) *p++ = b.symbol(h);
+  } else {
+    b.reload();
+  }
+  while (p < end) *p++ = b.symbol(h);
+}
+
+// HUF_initFastDStream: the container at ip with a 1 below its last bit; a
+// zero last byte is taken as it is.
+uint64_t fast_bits(const uint8_t* ip) {
+  uint8_t last = ip[7];
+  int used = last ? 8 - highbit(last) : 0;
+  return (rd64(ip) | 1) << used;
+}
+
+// libzstd's 4-stream single-symbol decoder when its fast loop applies
+// (HUF_decompress4X1_usingDTable_internal_fast and its C loop): each
+// stream at least 8 bytes, codes of at most 11 bits, a fourth segment that
+// is not empty. Returns false where libzstd falls back to the checked
+// decoder. The fast loop decodes 5 symbols a stream between reloads while
+// the input and output bounds allow; each stream is then finished with
+// HUF_decodeStreamX1 over everything from the jump table on, and fails
+// only if its reads went more than 8 bytes past the stream's start.
+bool huf4_fast(const HufTable& h, const uint8_t* src, uint64_t n,
+               uint8_t* out, uint64_t dst) {
+  if (h.max_bits > 11 || dst == 0) return false;
+  if (n < 10) corrupt("4-stream literals too short");
+  uint64_t l1 = rd16(src), l2 = rd16(src + 2), l3 = rd16(src + 4);
+  uint64_t l4 = n - (l1 + l2 + l3 + 6);  // wraps as libzstd's size_t does
+  if (l1 < 8 || l2 < 8 || l3 < 8 || l4 < 8) return false;
+  if (l4 > n) corrupt("bad literals jump table");
+  const int64_t iend[4] = {6, int64_t(6 + l1), int64_t(6 + l1 + l2),
+                           int64_t(6 + l1 + l2 + l3)};
+  int64_t ip[4] = {iend[1] - 8, iend[2] - 8, iend[3] - 8, int64_t(n) - 8};
+  const uint64_t seg = (dst + 3) / 4;
+  uint64_t op[4] = {0, seg, 2 * seg, 3 * seg};
+  if (op[3] >= dst) return false;
+  uint64_t bits[4];
+  for (int s = 0; s < 4; ++s) bits[s] = fast_bits(src + ip[s]);
+  for (;;) {
+    uint64_t oiters = (dst - op[3]) / 5, iiters = uint64_t(ip[0]) / 7;
+    uint64_t olimit = op[3] + 5 * (oiters < iiters ? oiters : iiters);
+    if (op[3] == olimit) break;
+    if (ip[1] < ip[0] || ip[2] < ip[1] || ip[3] < ip[2]) break;
+    do {
+      for (int k = 0; k < 5; ++k)
+        for (int s = 0; s < 4; ++s) {
+          uint32_t v = uint32_t(bits[s] >> 53) >> (11 - h.max_bits);
+          bits[s] <<= h.nbits[v];
+          out[op[s] + k] = h.sym[v];
+        }
+      for (int s = 0; s < 4; ++s) {
+        int ctz = __builtin_ctzll(bits[s]);
+        op[s] += 5;
+        ip[s] -= ctz >> 3;
+        bits[s] = (rd64(src + ip[s]) | 1) << (ctz & 7);
+      }
+    } while (op[3] < olimit);
+  }
+  uint64_t seg_end = 0;
+  for (int s = 0; s < 4; ++s) {
+    seg_end = seg <= dst - seg_end ? seg_end + seg : dst;
+    if (op[s] > seg_end || ip[s] < iend[s] - 8)
+      corrupt("Huffman stream read past its start");
+    ZBits b{src, src + ip[s], rd64(src + ip[s]),
+            uint32_t(__builtin_ctzll(bits[s]))};
+    zstream_x1(b, h, out + op[s], out + seg_end);
+  }
+  return true;
+}
+
+// HUF_selectDecoder: libzstd's choice of its double-symbol decoder for 4
+// streams of `dst` literals coded in `src` bytes (its timing table).
+bool huf_select_x2(uint64_t dst, uint64_t src) {
+  static const uint16_t t[16][4] = {
+      {0, 0, 1, 1}, {0, 0, 1, 1}, {150, 216, 381, 119}, {170, 205, 514, 112},
+      {177, 199, 539, 110}, {197, 194, 644, 107}, {221, 192, 735, 107},
+      {256, 189, 881, 106}, {359, 188, 1167, 109}, {582, 187, 1570, 114},
+      {688, 187, 1712, 122}, {825, 186, 1965, 136}, {976, 185, 2131, 150},
+      {1180, 186, 2070, 175}, {1377, 185, 1731, 202}, {1412, 185, 1695, 202}};
+  const uint32_t q = src >= dst ? 15 : uint32_t(src * 16 / dst);
+  const uint32_t d256 = uint32_t(dst >> 8);
+  const uint32_t t0 = t[q][0] + t[q][1] * d256;
+  uint32_t t1 = t[q][2] + t[q][3] * d256;
+  t1 += t1 >> 5;
+  return t1 < t0;
+}
+
+// HUF_readDTableX2 over the single-symbol code: at each index of `log`
+// bits (11, or 12 for a 12-bit code) the first symbol, and the second
+// where some code is short enough to fit the bits left and its own does.
+void huf_build_x2(HufTable& h) {
+  const int log = h.max_bits <= 11 ? 11 : 12, size = 1 << log;
+  int shortest = h.max_bits;
+  for (uint32_t i = 0; i < h.nbits.size(); ++i)
+    if (h.nbits[i] && h.nbits[i] < shortest) shortest = h.nbits[i];
+  h.x2 = true;
+  h.log = log;
+  h.s1.assign(size, 0); h.s2.assign(size, 0);
+  h.bits2.assign(size, 0); h.len2.assign(size, 1);
+  const int shift = log - h.max_bits;
+  for (int i = 0; i < size; ++i) {
+    const uint32_t a = uint32_t(i) >> shift;
+    const int n1 = h.nbits[a], left = log - n1;
+    h.s1[i] = h.sym[a];
+    h.bits2[i] = uint8_t(n1);
+    if (left < shortest) continue;
+    const uint32_t b = (uint32_t(i << n1) & uint32_t(size - 1)) >> shift;
+    if (h.nbits[b] <= left) {
+      h.s2[i] = h.sym[b];
+      h.bits2[i] = uint8_t(n1 + h.nbits[b]);
+      h.len2[i] = 2;
+    }
+  }
+}
+
+// BIT_initDStream: a stream of n >= 1 bytes ending in its end mark.
+ZBits zbits_init(const uint8_t* src, uint64_t n) {
+  if (n == 0) corrupt("empty bitstream");
+  const uint8_t last = src[n - 1];
+  if (last == 0) corrupt("bitstream without its end mark");
+  ZBits b{src, src, 0, uint32_t(8 - highbit(last))};
+  if (n >= 8) {
+    b.ptr = src + n - 8;
+    b.c = rd64(b.ptr);
+  } else {
+    for (uint64_t i = 0; i < n; ++i) b.c |= uint64_t(src[i]) << (8 * i);
+    b.used += uint32_t(8 - n) * 8;
+  }
+  return b;
+}
+
+// HUF_decodeSymbolX2: one index's symbols at p (two bytes written);
+// returns how many count.
+inline int x2_symbol(ZBits& b, const HufTable& h, uint8_t* p) {
+  const uint32_t v = uint32_t((b.c << (b.used & 63)) >> ((64 - h.log) & 63));
+  p[0] = h.s1[v];
+  p[1] = h.s2[v];
+  b.used += h.bits2[v];
+  return h.len2[v];
+}
+
+// HUF_decodeStreamX2: fills [p, end); its last index gives one symbol,
+// and skips all its bits up to the stream's end.
+void zstream_x2(ZBits& b, const HufTable& h, uint8_t* p, uint8_t* end) {
+  if (end - p >= 8) {
+    const int margin = h.log <= 11 ? 9 : 7, run = h.log <= 11 ? 5 : 4;
+    while ((b.reload() == ZBits::kUnfinished) & (p < end - margin))
+      for (int k = 0; k < run; ++k) p += x2_symbol(b, h, p);
+  } else {
+    b.reload();
+  }
+  if (end - p >= 2) {
+    while ((b.reload() == ZBits::kUnfinished) & (p <= end - 2))
+      p += x2_symbol(b, h, p);
+    while (p <= end - 2) p += x2_symbol(b, h, p);
+  }
+  if (p < end) {  // HUF_decodeLastSymbolX2
+    const uint32_t v =
+        uint32_t((b.c << (b.used & 63)) >> ((64 - h.log) & 63));
+    *p = h.s1[v];
+    if (h.len2[v] == 1) {
+      b.used += h.bits2[v];
+    } else if (b.used < 64) {
+      b.used += h.bits2[v];
+      if (b.used > 64) b.used = 64;
+    }
+  }
+}
+
+bool zbits_end(const ZBits& b) { return b.ptr == b.start && b.used == 64; }
+
+// One stream decoded with the double-symbol table
+// (HUF_decompress1X2_usingDTable_internal).
+void huf1_x2(const HufTable& h, const uint8_t* src, uint64_t n,
+             uint8_t* out, uint64_t count) {
+  ZBits b = zbits_init(src, n);
+  std::vector<uint8_t> tmp(count + 2);
+  zstream_x2(b, h, tmp.data(), tmp.data() + count);
+  memcpy(out, tmp.data(), count);
+  if (!zbits_end(b)) corrupt("Huffman stream size does not match its literals");
+}
+
+// libzstd's 4-stream double-symbol decoder: its fast loop where it
+// applies (HUF_decompress4X2_usingDTable_internal_fast and its C loop:
+// 5 lookups a stream between reloads, each writing two bytes and
+// counting one or two), else the checked body.
+void huf4_x2(const HufTable& h, const uint8_t* src, uint64_t n,
+             uint8_t* out0, uint64_t dst) {
+  std::vector<uint8_t> buf(dst + 2);  // a two-byte write may end at dst
+  uint8_t* out = buf.data();
+  if (n < 10) corrupt("4-stream literals too short");
+  uint64_t l1 = rd16(src), l2 = rd16(src + 2), l3 = rd16(src + 4);
+  uint64_t l4 = n - (l1 + l2 + l3 + 6);
+  const uint64_t seg = (dst + 3) / 4;
+  const bool fast = h.log == 11 && l1 >= 8 && l2 >= 8 && l3 >= 8 && l4 >= 8;
+  if (fast && l4 > n) corrupt("bad literals jump table");
+  if (fast && 3 * seg < dst) {
+    const int64_t iend[4] = {6, int64_t(6 + l1), int64_t(6 + l1 + l2),
+                             int64_t(6 + l1 + l2 + l3)};
+    int64_t ip[4] = {iend[1] - 8, iend[2] - 8, iend[3] - 8, int64_t(n) - 8};
+    uint64_t op[4] = {0, seg, 2 * seg, 3 * seg};
+    const uint64_t oend[4] = {seg, 2 * seg, 3 * seg, dst};
+    uint64_t bits[4];
+    for (int s = 0; s < 4; ++s) bits[s] = fast_bits(src + ip[s]);
+    for (;;) {
+      uint64_t iters = uint64_t(ip[0]) / 7;
+      for (int s = 0; s < 4; ++s) {
+        uint64_t o = (oend[s] - op[s]) / 10;
+        if (o < iters) iters = o;
+      }
+      const uint64_t olimit = op[3] + 5 * iters;
+      if (op[3] == olimit) break;
+      if (ip[1] < ip[0] || ip[2] < ip[1] || ip[3] < ip[2]) break;
+      do {
+        for (int s = 0; s < 4; ++s) {
+          for (int k = 0; k < 5; ++k) {
+            const uint32_t v = uint32_t(bits[s] >> 53);
+            out[op[s]] = h.s1[v];
+            out[op[s] + 1] = h.s2[v];
+            bits[s] <<= h.bits2[v];
+            op[s] += h.len2[v];
+          }
+          const int ctz = __builtin_ctzll(bits[s]);
+          ip[s] -= ctz >> 3;
+          bits[s] = (rd64(src + ip[s]) | 1) << (ctz & 7);
+        }
+      } while (op[3] < olimit);
+    }
+    uint64_t seg_end = 0;
+    for (int s = 0; s < 4; ++s) {
+      seg_end = seg <= dst - seg_end ? seg_end + seg : dst;
+      if (op[s] > seg_end || ip[s] < iend[s] - 8)
+        corrupt("Huffman stream read past its start");
+      ZBits b{src, src + ip[s], rd64(src + ip[s]),
+              uint32_t(__builtin_ctzll(bits[s]))};
+      zstream_x2(b, h, out + op[s], out + seg_end);
+    }
+    memcpy(out0, out, dst);
+    return;
+  }
+  // HUF_decompress4X2_usingDTable_internal_body
+  if (l4 > n || 3 * seg > dst) corrupt("bad literals jump table");
+  const uint8_t* q = src + 6;
+  ZBits b[4] = {zbits_init(q, l1), zbits_init(q + l1, l2),
+                zbits_init(q + l1 + l2, l3),
+                zbits_init(q + l1 + l2 + l3, l4)};
+  uint64_t op[4] = {0, seg, 2 * seg, 3 * seg};
+  const uint64_t oend[4] = {seg, 2 * seg, 3 * seg, dst};
+  if (dst - op[3] >= 8) {
+    bool go = true;
+    while (go & (op[3] < dst - 7)) {
+      for (int s = 0; s < 4; ++s)
+        for (int k = 0; k < 4; ++k) op[s] += x2_symbol(b[s], h, out + op[s]);
+      for (int s = 0; s < 4; ++s)  // BIT_reloadDStreamFast
+        go &= b[s].ptr >= b[s].start + 8 && b[s].reload() ==
+              ZBits::kUnfinished;
+    }
+  }
+  for (int s = 0; s < 3; ++s)
+    if (op[s] > oend[s]) corrupt("Huffman stream overran its segment");
+  for (int s = 0; s < 4; ++s) zstream_x2(b[s], h, out + op[s], out + oend[s]);
+  for (int s = 0; s < 4; ++s)
+    if (!zbits_end(b[s]))
+      corrupt("Huffman stream size does not match its literals");
+  memcpy(out0, out, dst);
 }
 
 // ---- sequences ------------------------------------------------------------
@@ -415,19 +739,33 @@ uint64_t literals(Frame& f, const uint8_t* b, uint64_t n, uint64_t block_max,
   if (comp > n - hdr) corrupt("compressed literals run past their block");
   const uint8_t* s = b + hdr;
   uint64_t sn = comp;
+  // ZSTD_decodeLiteralsBlock: 4 streams carry at least 6 literals
+  if (streams == 4 && regen < 6) corrupt("4-stream literals too few");
   if (type == 2) {
     uint64_t used = huf_read(f.huf, s, sn);
     f.have_huf = true;
     s += used;
     sn -= used;
+    // one stream takes the single-symbol table, four what
+    // HUF_selectDecoder picks; a treeless block reuses the table
+    if (streams == 4 && regen && huf_select_x2(regen, comp))
+      huf_build_x2(f.huf);
   } else if (!f.have_huf) {
     corrupt("treeless literals without an earlier Huffman table");
   }
   f.lits.resize(regen);
   uint8_t* out = f.lits.data();
-  if (streams == 1) {
+  if (f.huf.x2) {
+    if (streams == 1) huf1_x2(f.huf, s, sn, out, regen);
+    else huf4_x2(f.huf, s, sn, out, regen);
+  } else if (streams == 1) {
     huf_stream(f.huf, s, sn, out, regen);
   } else {
+    if (huf4_fast(f.huf, s, sn, out, regen)) {
+      *lit = out;
+      *nlit = regen;
+      return hdr + comp;
+    }
     if (sn < 10) corrupt("4-stream literals too short");
     uint64_t sz[4] = {rd16(s), rd16(s + 2), rd16(s + 4), 0};
     uint64_t rest = sn - 6;
@@ -669,6 +1007,97 @@ uint64_t frame_extent(const uint8_t* b, uint64_t n, int64_t* content) {
   return p;
 }
 
+// ZSTD_findFrameCompressedSize: the frame's extent in the input, or false
+// where a block is reserved or the frame runs past the input.
+bool frame_found(const uint8_t* b, uint64_t n, const Header& h,
+                 uint64_t* extent) {
+  uint64_t p = h.size;
+  for (;;) {
+    if (n - p < 3) return false;
+    uint32_t bh = rd24(b + p);
+    int type = (bh >> 1) & 3;
+    if (type == 3) return false;
+    uint64_t size = type == 1 ? 1 : bh >> 3;
+    if (n - p - 3 < size) return false;
+    p += 3 + size;
+    if (bh & 1) break;
+  }
+  if (h.checksum) {
+    if (n - p < 4) return false;
+    p += 4;
+  }
+  *extent = p;
+  return true;
+}
+
+// What libtiff's ZSTDDecode (tif_zstd.c) gets from ZSTD_decompressStream
+// into a `cap`-byte buffer, called until the buffer is full, the frame ends
+// or the input runs out: a frame whose content size fits the buffer and
+// which lies whole in the input is decoded in one pass (libzstd's
+// single-pass shortcut, every check made); any other is decoded block by
+// block, and decoding stops at the first block that does not fit what is
+// left of the buffer, so that later blocks, the content size and the
+// checksum are never checked. Returns the bytes written.
+uint64_t frame_stream(const uint8_t* b, uint64_t n, uint8_t* dst,
+                      uint64_t cap) {
+  Header h = frame_header(b, n);
+  uint64_t extent;
+  if (h.has_fcs && h.fcs <= cap && frame_found(b, n, h, &extent)) {
+    Out out{dst, cap, 0};
+    frame(b, extent, out);
+    return out.pos;
+  }
+  const uint64_t window = h.window < 1024 ? 1024 : h.window;
+  if (window > (1ULL << 27) + 1) corrupt("window larger than 128 MiB");
+  const uint64_t block_max = h.window < kBlockMax ? h.window : kBlockMax;
+  std::vector<uint8_t> buf;
+  Frame f;
+  uint64_t p = h.size, written = 0;
+  Out out{nullptr, 0, 0};
+  for (;;) {
+    if (n - p < 3) return written;
+    uint32_t bh = rd24(b + p);
+    int last = bh & 1, type = (bh >> 1) & 3;
+    uint64_t size = bh >> 3;
+    if (type == 3) corrupt("reserved block type");
+    if (size > block_max) corrupt("block larger than its maximum");
+    p += 3;
+    uint64_t start = out.pos;
+    buf.resize(out.pos + block_max);
+    out.p = buf.data();
+    out.cap = buf.size();
+    bool whole = true;
+    if (type == 0) {  // libzstd copies a raw block as its input comes
+      uint64_t got = n - p < size ? n - p : size;
+      memcpy(out.p + out.pos, b + p, got);
+      out.pos += got;
+      p += got;
+      whole = got == size;
+    } else if (type == 1) {
+      if (n - p < 1) return written;
+      memset(out.p + out.pos, b[p], size);
+      out.pos += size;
+      p += 1;
+    } else {
+      if (n - p < size) return written;
+      compressed_block(f, b + p, size, block_max, out, 0);
+      p += size;
+    }
+    if (whole && last && h.has_fcs && out.pos != h.fcs)
+      corrupt("frame content size does not match");
+    uint64_t made = out.pos - start, room = cap - written;
+    memcpy(dst + written, out.p + start, made < room ? made : room);
+    written += made < room ? made : room;
+    if (made > room || !whole) return written;
+    if (last) {
+      if (h.checksum && n - p >= 4 &&
+          uint32_t(xxh64(out.p, out.pos, 0)) != rd32(b + p))
+        corrupt("frame checksum mismatch");
+      return written;
+    }
+  }
+}
+
 bool skippable(const uint8_t* b, uint64_t n, uint64_t* size) {
   uint32_t m = rd32(b);
   if ((m & 0xFFFFFFF0u) != 0x184D2A50u) return false;
@@ -704,6 +1133,26 @@ int64_t zs_decompress(const uint8_t* src, uint64_t n, uint8_t* dst,
       p += frame(src + p, n - p, out);
     }
     return int64_t(out.pos);
+  } catch (const Error& e) {
+    report(e, err, errcap);
+    return e.code;
+  } catch (const std::bad_alloc&) {
+    report(Error{-1, "out of memory"}, err, errcap);
+    return -1;
+  }
+}
+
+// libtiff's reading of one zstd strip into dst (frame_stream): returns the
+// bytes written, which fill dst only where libtiff's read succeeds, or -1
+// (corrupt input) with the reason in err.
+int64_t zs_decompress_stream(const uint8_t* src, uint64_t n, uint8_t* dst,
+                             uint64_t cap, char* err, uint64_t errcap) {
+  try {
+    if (n < 4) return 0;
+    uint64_t skip;
+    if (skippable(src, n, &skip)) return 0;  // its end ends libtiff's read
+    if (rd32(src) != kMagic) corrupt("not a zstd frame");
+    return int64_t(frame_stream(src, n, dst, cap));
   } catch (const Error& e) {
     report(e, err, errcap);
     return e.code;

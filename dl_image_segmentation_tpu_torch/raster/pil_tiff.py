@@ -2,41 +2,44 @@
 codecs: the first page, in PIL's modes.
 
 The header and the first IFD are read as ``ImageFileDirectory_v2``
-reads them, through ``geotiff.py``'s entry reader (a tag of an unknown
-type is skipped, a tag whose data lies past the end stops the directory
-there), then ``_setup`` picks the mode
-from PIL's ``OPEN_INFO`` table: (byte order, photometric, sample
-format, fill order, bits per sample, extra samples) -> (mode, raw
-mode). What the table lacks is PIL's ``SyntaxError`` "unknown pixel
-mode", which sends the bytes on to the next opener. So 1-bit images
-decode to bool, MinIsWhite is inverted, palette images expand to RGB,
-16-bit grey keeps its byte order (``<u2``, or ``>u2`` for a big-endian
-file), signed 16-bit and 32-bit grey are int32, float is float32, LA
-has 2 bands and CMYK 4; 16-bit RGB is PIL's 8-bit RGB (the high
-bytes).
+reads them (a tag of an unknown type or of no data is skipped, a tag
+whose data lies past the end stops the directory there, the last of
+duplicated tags counts; BYTE and UNDEFINED values are bytes, ASCII a
+str, rationals numbers), then ``_setup`` picks the mode from PIL's
+``OPEN_INFO`` table: (byte order, photometric, sample format, fill
+order, bits per sample, extra samples) -> (mode, raw mode). What the
+table lacks is PIL's ``SyntaxError`` "unknown pixel mode", which sends
+the bytes on to the next opener. So 1-bit images decode to bool,
+MinIsWhite is inverted, palette images expand to RGB, 16-bit grey keeps
+its byte order (``<u2``, or ``>u2`` for a big-endian file), signed
+16-bit and 32-bit grey are int32, float is float32, LA has 2 bands and
+CMYK 4; 16-bit RGB is PIL's 8-bit RGB (the high bytes).
 
 Uncompressed files are read as PIL's raw decoder reads them, strip by
 strip (``OSError`` "image file is truncated" when the data ends
 first; separate planes through the one-letter band unpackers PIL picks).
 Compressed ones go through libtiff 4.7 in PIL, as its ``TiffDecode.c``
-reads them: strips or tiles in its order into one buffer it keeps,
-LZW, Deflate and PackBits (``geotiff.py``'s), zstd (``storage/zstd.py``,
-the port's own decoder), LZMA (the stdlib's ``lzma``: libtiff writes an
-.xz stream a strip), ThunderScan, CCITT Modified Huffman, Group 3 and
-Group 4 (``csrc/host/ccitt.cc``, libtiff's ``tif_fax3.c`` step for step),
-and JPEG (compression 7) through the port's ``jpeg.cc``, each strip or
-tile with the file's ``JPEGTables``, converted from YCbCr to RGB by the
-JPEG decoder as PIL asks libtiff to (``JPEGCOLORMODE_RGB``). Predictors
-are undone for the codecs libtiff gives them to; FillOrder 2 reverses
-the raw bits; 12-bit grey unpacks to PIL's I;16. Separate planes go
-plane by plane into the bytes of PIL's pixel (an RGBa image is
-unpremultiplied after). YCbCr in any other form goes through libtiff's
-RGBA reader (subsampled blocks, its fixed-point conversion). Where
-libtiff fails, PIL's ``OSError`` "decoder error -2"; so for WebP (PIL
-12.1's libtiff is built without it) and SGILog (no mode of PIL's).
-Old-style JPEG (compression 6) raises :class:`UnsupportedFormat` naming
-ROADMAP queue 1 item 16. The EXIF orientation is applied as
-``ImageOps.exif_transpose`` does.
+reads them, on the directory as libtiff reads it again
+(``libtiff_dir.py``: tag by tag, what it ignores, pads, estimates and
+refuses): strips or tiles in its order into one buffer it keeps, LZW,
+Deflate and PackBits (``geotiff.py``'s), zstd (``storage/zstd.py``, the
+port's own decoder, as libtiff streams a strip), LZMA (the stdlib's
+``lzma``, keeping what liblzma wrote before an error as libtiff does),
+ThunderScan, CCITT Modified Huffman, Group 3 and Group 4
+(``csrc/host/ccitt.cc``, libtiff's ``tif_fax3.c`` step for step), and
+JPEG (compression 7) through the port's ``jpeg.cc``, each strip or tile
+with the file's ``JPEGTables``, converted from YCbCr to RGB by the JPEG
+decoder as PIL asks libtiff to (``JPEGCOLORMODE_RGB``). Predictors are
+undone for the codecs libtiff gives them to; FillOrder 2 reverses the
+raw bits; 12-bit grey unpacks to PIL's I;16. Separate planes go plane by
+plane into the bytes of PIL's pixel (an RGBa image is unpremultiplied
+after). YCbCr in any other form goes through libtiff's RGBA reader
+(subsampled blocks, its fixed-point conversion). Where libtiff fails,
+PIL's ``OSError`` "decoder error -2"; so for WebP (PIL 12.1's libtiff is
+built without it) and SGILog (no mode of PIL's). Old-style JPEG
+(compression 6) raises :class:`UnsupportedFormat` naming ROADMAP queue 1
+item 16. The EXIF orientation is applied as ``ImageOps.exif_transpose``
+does.
 """
 
 from __future__ import annotations
@@ -45,13 +48,14 @@ import ctypes
 import os
 import struct
 import zlib
+from fractions import Fraction
 
 import numpy as np
 
 from .. import _build
 from ..storage import zstd
-from .geotiff import (_ifd_entries, _ifd_value_bytes, _packbits_decode,
-                      _undo_fpredictor, _undo_hpredictor)
+from . import libtiff_dir
+from .geotiff import _packbits_decode, _undo_fpredictor, _undo_hpredictor
 from .jpeg import JPEGUnsupported, decode_jpeg_array, jpeg_frame
 from .lzw import lzw_decode_native
 from .pil_formats import (Opened, apply_palette, check_bomb, item16,
@@ -131,56 +135,107 @@ _COMPRESSION = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4",
                 34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd",
                 50001: "webp"}
 # type -> (struct code, size): the types PIL's directory reads
-_TYPES = {1: ("B", 1), 2: ("s", 1), 3: ("H", 2), 4: ("L", 4), 5: ("LL", 8),
-          6: ("b", 1), 7: ("s", 1), 8: ("h", 2), 9: ("l", 4), 10: ("ll", 8),
+_TYPES = {1: ("B", 1), 2: ("s", 1), 3: ("H", 2), 4: ("L", 4), 5: ("L", 8),
+          6: ("b", 1), 7: ("s", 1), 8: ("h", 2), 9: ("l", 4), 10: ("l", 8),
           11: ("f", 4), 12: ("d", 8), 13: ("L", 4), 16: ("Q", 8)}
-# tags TiffTags declares with one value
-_SINGLE = {256, 257, 259, 262, 266, 274, 277, 278, 284, 317, 322, 323}
-_MAX_SAMPLES = 256
+# TiffTags.TAGS_V2's value counts: the tags of one value, and those of
+# another fixed or variable count; a tag it does not list has none
+_PIL_ONE = {
+    254, 255, 256, 257, 259, 262, 263, 264, 265, 266, 269, 270, 271, 272,
+    274, 277, 278, 282, 283, 284, 285, 286, 287, 288, 289, 290, 292, 293,
+    296, 305, 306, 315, 316, 317, 322, 323, 332, 333, 334, 337, 347, 512,
+    513, 514, 515, 531, 32995, 32997, 32998, 33432, 33723, 34665, 34675,
+    34853, 36864, 37724, 40960, 40965, 41730, 45056, 45057, 45058, 45060,
+    45313, 45569, 45570, 45571, 45572, 45573, 45574, 45575, 45576, 45577,
+    45578, 45579, 45580, 45581, 50741, 50780, 50839}
+_PIL_MANY = {
+    258, 273, 279, 280, 281, 291, 301, 320, 324, 325, 330, 336, 338, 339,
+    340, 341, 517, 518, 519, 520, 521, 700, 32996, 34377, 45059, 50838, 297,
+    318, 321, 530, 319, 342, 532, 529}
+_MAX_SAMPLES = 6  # TiffImagePlugin.MAX_SAMPLESPERPIXEL
 
 
-def _load_ifd(data: bytes, offset: int, e: str, big: bool) -> dict:
-    """ImageFileDirectory_v2.load: {tag: value}. A short read of the
-    entries or of a tag's data stops the directory (PIL warns and keeps
-    what it read), and marks it cut short."""
-    tags = {}
-    try:
-        for tag, typ, n, field in _ifd_entries(data, e, big, offset):
-            if len(field) < (8 if big else 4):
-                raise struct.error("IFD entry cut short")
-            if typ not in _TYPES:
-                continue
+class IFDRational(Fraction):
+    """A RATIONAL value as ``tag_v2`` gives it (PIL's class of the same
+    name): not an int, its arithmetic a ``Fraction``'s."""
+
+
+class _NaNRational(float):
+    """PIL's IFDRational over a zero denominator: a NaN, its arithmetic a
+    float's."""
+
+
+_NaNRational.__name__ = "IFDRational"
+
+
+class _Tags:
+    """``ImageFileDirectory_v2`` after ``load``: each tag's type and bytes,
+    and its value as ``tag_v2`` gives it. BYTE and UNDEFINED data are
+    bytes, ASCII a str, rationals numbers; a tag of one value (or of BYTE
+    type, or an unlisted tag with one value) is that value, any other a
+    tuple."""
+
+    def __init__(self, raw: dict, e: str):
+        self.raw, self.e = raw, e
+
+    def __contains__(self, tag) -> bool:
+        return tag in self.raw
+
+    def __getitem__(self, tag):
+        typ, body = self.raw[tag]
+        if typ in (1, 7):
+            value = body
+        elif typ == 2:
+            value = (body[:-1] if body.endswith(b"\0") else body).decode(
+                "latin-1", "replace")
+        elif typ in (5, 10):
+            v = struct.unpack(self.e + _TYPES[typ][0] * (len(body) // 4),
+                              body)
+            value = tuple(IFDRational(v[k], v[k + 1]) if v[k + 1] else
+                          _NaNRational("nan") for k in range(0, len(v), 2))
+        else:
             code, unit = _TYPES[typ]
-            body = _ifd_value_bytes(data, e, n * unit, field, big)
-            if len(body) < n * unit:
-                raise struct.error("IFD values cut short")
-            if not body:
-                continue
-            if typ in (2, 7):
-                vals = (body,)
-            elif typ in (5, 10):
-                pairs = struct.unpack(e + code[0] * (2 * n), body)
-                vals = tuple(pairs[2 * i] / pairs[2 * i + 1]
-                             if pairs[2 * i + 1] else float("nan")
-                             for i in range(n))
-            else:
-                vals = struct.unpack(e + code * n, body)
-            if tag in _SINGLE or typ == 1 or (tag not in _MULTI
-                                              and len(vals) == 1):
-                vals = vals[0]
-            tags[tag] = vals
-    except struct.error:
-        # libtiff, which decodes compressed files, reads the whole
-        # directory again and fails where PIL's reader stopped
-        tags[_PARTIAL] = True
-    return tags
+            value = struct.unpack(self.e + code * (len(body) // unit), body)
+        values = (value,) if isinstance(value, (bytes, str)) else value
+        if tag in _PIL_ONE or typ == 1 or (tag not in _PIL_MANY
+                                           and len(values) == 1):
+            return values[0]  # PIL warns of the rest and keeps the first
+        return tuple(values)
+
+    def get(self, tag, default=None):
+        return self[tag] if tag in self.raw else default
 
 
-_PARTIAL = -1
-
-
-# tags TiffTags declares with a variable count (kept as tuples)
-_MULTI = {258, 273, 279, 320, 324, 325, 338, 339, 347}
+def _load_ifd(data: bytes, offset: int, e: str, big: bool) -> _Tags:
+    """ImageFileDirectory_v2.load: the entries of an unknown type are
+    skipped, and so are those of no data; a short read of the entries or
+    of a tag's data stops the directory (PIL warns and keeps what it
+    read). Of duplicated tags the last counts."""
+    raw = {}
+    head, size, cnt = ("HHQ8s", 20, "Q") if big else ("HHL4s", 12, "H")
+    inline = 8 if big else 4
+    p = offset + struct.calcsize(cnt)
+    if p > len(data):
+        return _Tags(raw, e)
+    (n,) = struct.unpack(e + cnt, data[offset:p])
+    for _ in range(n):
+        if p + size > len(data):
+            break
+        tag, typ, count, fld = struct.unpack(e + head, data[p:p + size])
+        p += size
+        if typ not in _TYPES:
+            continue
+        need = count * _TYPES[typ][1]
+        if need > inline:
+            (at,) = struct.unpack(e + ("Q" if big else "L"), fld)
+            body = data[at:at + need]
+            if len(body) < need:
+                break  # ImageFile._safe_read's OSError
+        else:
+            body = fld[:need]
+        if body:
+            raw[tag] = (typ, body)
+    return _Tags(raw, e)
 
 
 def open_tiff(data: bytes) -> Opened:
@@ -200,10 +255,13 @@ def open_tiff(data: bytes) -> Opened:
     if first >= 2 ** 63:
         raise ValueError("Unable to seek to frame")
     tags = _load_ifd(data, first, e, big)
-    return _setup(data, tags, order, e)
+    return _setup(data, tags, order, (first, e, big))
 
 
-def _setup(data: bytes, tags: dict, order: bytes, e: str) -> Opened:
+def _setup(data: bytes, tags: _Tags, order: bytes, ifd) -> Opened:
+    """TiffImageFile._setup: the mode and raw mode from PIL's own reading
+    of the directory; libtiff reads it again to decode a compressed
+    file."""
     if 0xBC01 in tags:
         raise OSError("Windows Media Photo files not yet supported")
     compression = _COMPRESSION[tags.get(259, 1)]
@@ -220,8 +278,6 @@ def _setup(data: bytes, tags: dict, order: bytes, e: str) -> Opened:
         raise ValueError("Invalid dimensions")
     orientation = tags.get(274)
     size = (ysize, xsize) if orientation in (5, 6, 7, 8) else (xsize, ysize)
-    # a BYTE-typed tag holds one number, not a tuple: PIL's len() and
-    # slicing of it raise TypeError, which sends the bytes on
     fmt = tags.get(339, (1,))
     if len(fmt) > 1 and max(fmt) == min(fmt) == 1:
         fmt = (1,)
@@ -244,6 +300,12 @@ def _setup(data: bytes, tags: dict, order: bytes, e: str) -> Opened:
         mode, rawmode = _OPEN_INFO[key]
     except KeyError as err:
         raise SyntaxError("unknown pixel mode") from err
+    # PIL's dpi from a resolution in centimetres: a TypeError for a text
+    # or byte value
+    xres, yres = tags.get(282, 1), tags.get(283, 1)
+    if xres and yres and tags.get(296) == 3 and (
+            isinstance(xres, (bytes, str)) or isinstance(yres, (bytes, str))):
+        raise TypeError("can't multiply sequence by non-int of type 'float'")
     libtiff = compression != "raw"
     if libtiff:
         if fill == 2:
@@ -257,18 +319,18 @@ def _setup(data: bytes, tags: dict, order: bytes, e: str) -> Opened:
     elif 273 not in tags and 324 not in tags:
         raise SyntaxError("unknown data organization")
     else:
-        raw_tiles = _raw_tiles(tags, rawmode, xsize, ysize, planar, bps)
+        raw_tiles = _raw_tiles(tags, rawmode, xsize, ysize, planar, bps,
+                               bps_count)
     palette = None
     if mode in ("P", "PA"):
-        cmap = tags[320]
-        palette = bytes(b // 256 for b in cmap)  # "RGB;L": three planes
+        palette = bytes(b // 256 & 255 for b in tags[320])  # "RGB;L"
     w, h = xsize, ysize
 
     def load():
         check_bomb((w, h))
         if libtiff:
-            arr = _load_libtiff(data, tags, compression, mode, rawmode,
-                                (w, h), planar, bps, e)
+            arr = _load_libtiff(data, ifd, compression, mode, rawmode,
+                                (w, h))
         else:
             arr = _load_raw(data, raw_tiles, mode, (w, h), planar, bps)
         if mode in ("P",):
@@ -325,7 +387,7 @@ def _unpack_mode(rawmode, buf, w, rows, stride, mode):
     return arr
 
 
-def _raw_tiles(tags, rawmode, w, h, planar, bps):
+def _raw_tiles(tags, rawmode, w, h, planar, bps, bps_count):
     """_setup's raw tiles, made at open as PIL makes them: (offset, x0,
     y0, x1, y1, raw mode, stride, layer)."""
     if 273 in tags:
@@ -346,7 +408,7 @@ def _raw_tiles(tags, rawmode, w, h, planar, bps):
         rm = rawmode
         if planar == 2:
             rm = rawmode[layer]
-            stride /= len(bps)
+            stride /= bps_count
         tiles.append((off, x, y, min(x + tw, w), min(y + th, h), rm,
                       int(stride), layer))
         x += tw
@@ -369,10 +431,15 @@ def _load_raw(data, tiles, mode, size, planar, bps):
     from its offset on; tiles in file order."""
     w, h = size
     out = _mode_array(mode, w, h)
-    tiles = list(tiles)
-    tiles.sort(key=lambda t: t[0])
+    tiles = sorted(tiles, key=lambda t: t[0])
+    # of consecutive tiles that differ in their offset alone, the last
+    tiles = [t for k, t in enumerate(tiles)
+             if k + 1 == len(tiles) or tiles[k + 1][1:7] != t[1:7]]
     for off, x0, y0, x1, y1, rm, stride, layer in tiles:
-        tw_, rows = x1 - x0, y1 - y0
+        _c_int(off, 63)  # BytesIO.seek's refusals
+        if off < 0:
+            raise ValueError(f"negative seek value {off}")
+        _c_int(stride)  # the raw decoder's arguments
         if planar == 2:
             # PIL's raw decoder with one letter of the raw mode: the
             # unpacker of that band, whatever the samples' size
@@ -383,6 +450,15 @@ def _load_raw(data, tiles, mode, size, planar, bps):
                 rm = _RAW_SINGLE.get(rm) if rm == mode else None
             if rm is None:
                 raise ValueError("unknown raw mode for given image mode")
+        for v in (x0, y0, x1, y1):  # the decoder's setimage
+            _c_int(v)
+        if x0 == 0 and x1 == 0:
+            x1, y0, y1 = w, 0, h
+        if x0 < 0 or x1 <= x0 or x1 > w or y0 < 0 or y1 <= y0 or y1 > h:
+            raise ValueError("tile cannot extend outside image")
+        tw_, rows = x1 - x0, y1 - y0
+        if planar == 2:
+            _check_buffer(tw_, rm)
             rb = row_bytes(rm, tw_)
             st = stride or rb
             arr = unpack(rm, read_rows(data, off, st, rows, rb), tw_, rows, st)
@@ -391,11 +467,32 @@ def _load_raw(data, tiles, mode, size, planar, bps):
             else:
                 out[y0:y1, x0:x1] = arr
             continue
+        _check_buffer(tw_, rm)
         rb = row_bytes(_plain(rm), tw_)
         st = stride or rb
         buf = read_rows(data, off, st, rows, rb)
         out[y0:y1, x0:x1] = _unpack_mode(rm, buf, tw_, rows, st, mode)
     return out
+
+
+def _c_int(v, bits: int = 31) -> None:
+    """An argument Python hands to C as an int (``bits`` 63: a
+    Py_ssize_t)."""
+    if not isinstance(v, int):
+        raise TypeError(f"'{type(v).__name__}' object cannot be "
+                        "interpreted as an integer")
+    if not -2 ** bits <= v < 2 ** bits:
+        raise OverflowError(
+            "Python int too large to convert to C ssize_t" if bits == 63
+            else "signed integer is " + (
+                "greater than maximum" if v > 0 else "less than minimum"))
+
+
+def _check_buffer(width: int, rawmode: str) -> None:
+    """The decoder's ``setimage``: a row buffer of more than INT_MAX
+    bits is PIL's MemoryError."""
+    if width > _INT_MAX // _bits(rawmode) - 7:
+        raise MemoryError()
 
 
 def _plain(rawmode: str) -> str:
@@ -405,18 +502,19 @@ def _plain(rawmode: str) -> str:
     return {"I;16N": "I;16"}.get(r, r)
 
 
-# TIFF compression -> the scheme ccitt.cc decodes
-_CCITT = {"tiff_ccitt": 2, "tiff_raw_16": 32771, "group3": 3, "group4": 4}
+# the CCITT compressions ccitt.cc decodes
+_CCITT = (2, 3, 4, 32771)
 # the codecs libtiff gives its predictor (TIFFPredictorInit); the others
 # ignore the tag
-_PREDICTED = ("tiff_lzw", "tiff_adobe_deflate", "tiff_deflate", "lzma",
-              "zstd")
+_PREDICTED = (5, 8, 32946, 34925, 50000)
 # where each band of a PIL mode sits in its 4-byte pixel: PIL unpacks
 # libtiff's separate planes into bytes 0, 1, 2, 3 in turn (its "R", "G",
 # "B", "A" band unpackers), so the second plane of LA or PA lands in a
 # byte no band shows
 _BAND_BYTES = {"LA": (0, 3), "PA": (0, 3), "RGB": (0, 1, 2),
                "LAB": (0, 1, 2), "RGBA": (0, 1, 2, 3), "CMYK": (0, 1, 2, 3)}
+_INT_MAX = 0x7FFFFFFF
+_BROKEN = "decoder error -2"  # TiffDecode.c's IMAGING_CODEC_BROKEN
 
 _CC_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "host", "ccitt.cc")
@@ -429,113 +527,171 @@ _CC_SIGNATURES = {
 }
 
 
-def _load_libtiff(data, tags, compression, mode, rawmode, size, planar, bps,
-                  e):
-    """PIL's libtiff decoder (``TiffDecode.c`` over libtiff 4.7): the
-    strips or tiles read in its order (row of blocks, plane, column) into
-    one buffer it keeps from block to block, each decompressed, its
-    predictor undone and unpacked into the image with the native-order
-    raw mode, or, for separate planes, plane by plane into the bytes of
-    PIL's pixel."""
-    if compression == "tiff_jpeg":
-        raise item16("TIFF old-style JPEG (compression 6)")
+def _load_libtiff(data, ifd, compression, mode, rawmode, size):
+    """PIL's libtiff decoder (``TiffDecode.c`` over libtiff 4.7), on the
+    directory as libtiff reads it (``libtiff_dir``): the image's size
+    must be PIL's; the strips or tiles are read in its order (row of
+    blocks, plane, column) into one buffer it keeps from block to block,
+    each decompressed, its predictor undone and unpacked into the image
+    with the native-order raw mode, or, for separate planes, plane by
+    plane into the bytes of PIL's pixel."""
     if rawmode == "RGB" and mode != "RGB":
         # _setup's raw mode for YCbCr JPEG, which PIL's decoder refuses
         # for a one-band mode before libtiff runs
         raise ValueError("unknown raw mode for given image mode")
-    if tags.get(262, 0) == 6 and not (compression == "jpeg" and planar == 1):
-        return _load_ycbcr(data, tags, compression, size, planar, bps, e)
-    w, h = size
-    bands = len(_BAND_BYTES.get(mode, (0,)))
-    planes = bands if planar == 2 and bands > 1 else 1
+    _check_buffer(size[0], rawmode)
+    first, e, big = ifd
     try:
-        if _PARTIAL in tags:
-            raise ValueError("directory cut short")
-        if compression in ("webp", "tiff_sgilog", "tiff_sgilog24"):
-            # PIL 12.1's libtiff is built without WebP ("WEBP compression
-            # support is not configured"), and its SGILog codec takes the
-            # LogLuv and LogL photometrics only, which PIL's mode table
-            # lacks
-            raise ValueError(f"no {compression} decoder in PIL's libtiff")
-        if planes > 1 and bps[0] not in (8, 16):
-            raise ValueError("separate planes of neither 8 nor 16 bits")
-        tiled, bw, bh, offs, cnts = _blocks(tags, w, h)
-        # the scanline libtiff decodes (one sample wide for separate
-        # planes); PIL checks a strip's against what its unpacker reads
-        rowb = (bw * bps[0] * (1 if planar == 2 else len(bps)) + 7) // 8
-        if not tiled and rowb < (bw * _bits(rawmode) // planes + 7) // 8:
-            raise ValueError("scanline shorter than the unpacker's")
-    except (TypeError, IndexError, KeyError, ValueError) as err:
-        raise OSError("decoder error -2") from err
+        d = libtiff_dir.read_directory(data, first, e, big)
+    except libtiff_dir.Refused as err:
+        raise OSError(_BROKEN) from err
+    w, h = size
+    if (d.width, d.length) != (w, h):
+        raise OSError(_BROKEN)  # TiffDecode.c's "Inconsistent Image Error"
+    if d.compression == 6:
+        raise item16("TIFF old-style JPEG (compression 6)")
+    # JPEG YCbCr in one plane comes out as RGB (JPEGCOLORMODE_RGB); any
+    # other YCbCr goes through libtiff's RGBA reader
+    upsampled = d.photometric == 6 and d.compression == 7 and d.planar == 1
+    if d.photometric == 6 and not upsampled:
+        return _load_ycbcr(data, d, size, e)
+    bands = len(_BAND_BYTES.get(mode, (0,)))
+    planes = 1
+    if d.planar == 2 and bands > 1:
+        if d.bps not in (8, 16):
+            raise OSError(_BROKEN)  # no band unpackers of other sizes
+        planes = bands
+    if d.tiled:
+        bw, bh = d.tilewidth, d.tilelength
+        if bw > _INT_MAX or bh > _INT_MAX:
+            raise OSError("decoder error -9")
+        block = libtiff_dir.tile_size(d, upsampled)
+        rowb = libtiff_dir.tile_row_size(d)
+        if not block or not rowb or rowb > block:
+            raise OSError(_BROKEN)
+        if block > _INT_MAX - 1:
+            raise OSError("decoder error -9")
+        # libtiff's tile may not hold more than PIL's unpacker reads
+        if block > (bw * _bits(rawmode) // planes + 7) // 8 * bh:
+            raise OSError(_BROKEN)
+    else:
+        bw = w
+        bh = d.rowsperstrip if d.rowsperstrip_set and \
+            d.rowsperstrip != 0xFFFFFFFF else h
+        rowb = libtiff_dir.scanline_size(d, upsampled)
+        block = libtiff_dir.strip_size(d, min(d.rowsperstrip, d.length),
+                                       upsampled)  # TIFFStripSize
+        # libtiff's scanline may not be shorter than PIL's unpacker's row,
+        # nor its strip longer than PIL's rows of them
+        unpacked = (w * _bits(rawmode) // planes + 7) // 8
+        if not rowb or rowb < unpacked or block > unpacked * bh:
+            raise OSError(_BROKEN)
     out = _mode_array(mode, w, h)
-    across = -(-w // bw) if tiled else 1
-    down = -(-h // bh)
-    buf = np.zeros(bh * rowb, np.uint8)  # PIL's buffer, kept from block
-    # to block
+    buf = np.zeros(block, np.uint8)  # PIL's buffer, kept block to block
     noeol = ctypes.c_int(0)  # libtiff's Group 3 codec state, per image
-    for by in range(down):
-        y0 = by * bh
-        rows = bh if tiled else min(bh, h - y0)
+    y0 = 0
+    while y0 < h:
         for plane in range(planes):
-            for bx in range(across):
-                x0 = bx * bw
-                index = by * across + bx + (
-                    plane * across * down if planar == 2 else 0)
+            for x0 in range(0, w, bw):
                 try:
-                    _decode_block(data, tags, compression, offs, cnts, index,
-                                  (bw, rows, rowb), bps, planar, e,
-                                  buf[:rows * rowb], noeol,
-                                  not tiled and y0 + rows >= h)
+                    if d.tiled:
+                        index, rows, need = _tile(d, x0, y0, plane), bh, block
+                    else:
+                        index = _strip(d, y0 & 0xFFFFFFFF, plane)
+                        rows = libtiff_dir.strip_rows(d, index)
+                        need = min(block, libtiff_dir.strip_size(
+                            d, rows, upsampled))
+                    _decode_block(data, d, index, (bw, rows, rowb), e,
+                                  buf[:need], noeol,
+                                  not d.tiled and y0 + rows >= h, upsampled)
                 except JPEGUnsupported as err:
                     raise item16("TIFF JPEG variant") from err
                 except Exception as err:  # noqa: BLE001 -- libtiff's failure
-                    raise OSError("decoder error -2") from err
-                ys, xs = min(rows, h - y0), min(bw, w - x0)
-                body = buf[:rows * rowb].tobytes()
+                    raise OSError(_BROKEN) from err
+                # PIL's rows of the block (its row count an INT32)
+                ys = min(_int32(bh), h - y0)
+                if ys <= 0:
+                    continue
+                xs = min(bw, w - x0)
+                body = buf[:ys * rowb].tobytes()
                 if planes == 1:
-                    arr = _unpack_mode(rawmode, body, bw, rows, rowb, mode)
+                    arr = _unpack_mode(rawmode, body, bw, ys, rowb, mode)
                     out[y0:y0 + ys, x0:x0 + xs] = arr[:ys, :xs]
                 elif plane in _BAND_BYTES[mode]:
-                    band = np.frombuffer(body, np.uint8).reshape(rows, rowb)
-                    if bps[0] == 16:
+                    band = np.frombuffer(body, np.uint8).reshape(ys, rowb)
+                    if d.bps == 16:
                         band = band[:, 1::2]  # the high byte ("R;16N")
                     out[y0:y0 + ys, x0:x0 + xs,
-                        _BAND_BYTES[mode].index(plane)] = band[:ys, :xs]
-    if planes > 3 and mode == "RGBA" and tags.get(338, (None,))[0] in (0, 1):
+                        _BAND_BYTES[mode].index(plane)] = band[:, :xs]
+        y0 = _int32(y0 + bh)  # PIL's INT32 row wraps past 2**31
+    if planes > 3 and mode == "RGBA" and d.extrasamples[:1] in ((0,), (1,)):
         out = unpremultiply(out)
     return out
 
 
-def _load_ycbcr(data, tags, compression, size, planar, bps, e):
+def _int32(v: int) -> int:
+    return (v + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def _strip(d, y: int, plane: int) -> int:
+    """TIFFComputeStrip (a plane past the samples reads strip 0);
+    _Unfilled where TIFFReadEncodedStrip refuses the strip."""
+    strip = y // d.rowsperstrip
+    if d.planar == 2:
+        strip = strip + plane * d.stripsperimage if plane < d.spp else 0
+    if strip >= d.nstrips:
+        raise _Unfilled("strip out of range")
+    return strip
+
+
+def _tile(d, x: int, y: int, plane: int) -> int:
+    """TIFFCheckTile and TIFFComputeTile (z = 0)."""
+    if x >= d.width or y >= d.length or d.depth == 0 or (
+            d.planar == 2 and plane >= d.spp):
+        raise _Unfilled("tile out of range")
+    across = -(-d.width // d.tilewidth)
+    tile = across * (y // d.tilelength) + x // d.tilewidth
+    if d.planar == 2:
+        tile += across * -(-d.length // d.tilelength) * -(
+            -d.depth // d.tiledepth) * plane
+    if tile >= d.nstrips:
+        raise _Unfilled("tile out of range")
+    return tile
+
+
+def _load_ycbcr(data, d, size, e):
     """PIL's _decodeAsRGBA: YCbCr read through libtiff's TIFFRGBAImage,
     one strip or row of tiles at a time. Its subsampled blocks (contiguous
     planes, 1, 2 or 4 across by 1, 2 or 4 down) or separate planes (no
     subsampling) are converted by libtiff's fixed-point tables (PIL asks
     for them top-left, as stored). This reader does not stop at errors: a
-    strip or tile that fails reads as zeros, and only the first block of
-    a row missing from the file fails the image."""
+    strip or tile that fails reads as zeros, and only a failure before
+    the reader's buffer exists (its first block of a row: a strip or tile
+    out of range, of no bytes, or past the file's end) fails the image."""
     w, h = size
+    planar = d.planar
     try:
-        sub = tags.get(530, (2, 2))
-        hs, vs = (sub, sub) if isinstance(sub, int) else sub[:2]
-        if bps != (8, 8, 8) or not vs or (
+        hs, vs = d.subsampling
+        if d.bps != 8 or d.spp != 3 or d.sampleformat == 3 or not vs or (
                 (hs, vs) != (1, 1) if planar == 2 else
                 (hs, vs) not in ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1),
                                  (4, 2), (4, 4))):
             raise ValueError("Can not handle format")
-        if _PARTIAL in tags:
-            raise ValueError("directory cut short")
-        tables = _ycbcr_tables(tags.get(529), tags.get(532))
-        tiled, bw, bh, offs, cnts = _blocks(tags, w, h)
+        if d.compression not in _CODECS:
+            raise ValueError("compression method is not configured")
+        tables = _ycbcr_tables(d.coefficients, d.refbw)
     except (TypeError, IndexError, KeyError, ValueError) as err:
-        raise OSError("decoder error -2") from err
+        raise OSError(_BROKEN) from err
+    tiled = d.tiled
+    bw = d.tilewidth if tiled else w
+    bh = d.tilelength if tiled else (
+        d.rowsperstrip if d.rowsperstrip != 0xFFFFFFFF else h)
+    if _INT_MAX // 4 < w or _INT_MAX // (w * 4) < bh:
+        raise OSError("decoder error -9")  # PIL's RGBA block buffer
     n = hs * vs + 2
     row_blocks = -(-bw // hs)
-    across = -(-w // bw) if tiled else 1
-    down = -(-h // bh)
     out = np.zeros((h, w, 3), np.uint8)
-    for by in range(down):
-        y0 = by * bh
+    for y0 in range(0, h, bh):
         rows = min(bh, h - y0)
         coded = bh if tiled else rows
         size = bw * coded if planar == 2 else -(-coded // vs) * row_blocks * n
@@ -544,24 +700,28 @@ def _load_ycbcr(data, tags, compression, size, planar, bps, e):
         limit = size if tiled or planar == 2 else min(
             size, -(-coded // vs) * vs * (row_blocks * n // vs))
         got = None  # libtiff's buffer: zeroed at the block row's first read
-        for bx in range(across):
-            x0 = bx * bw
+        for x0 in range(0, w, bw):
             for plane in range(3 if planar == 2 else 1):
-                index = by * across + bx + plane * across * down
                 first = got is None
                 if first:
                     got = [np.zeros(size, np.uint8)
                            for _ in range(3 if planar == 2 else 1)]
                 try:
-                    _decode_block(data, tags, compression, offs, cnts, index,
-                                  (bw, coded, 0), bps, planar, e,
-                                  got[plane][:limit], None,
-                                  not tiled and y0 + rows >= h)
+                    if tiled:
+                        index, brows = _tile(d, x0, y0, plane), bh
+                    else:
+                        index = _strip(d, y0, plane)
+                        brows = libtiff_dir.strip_rows(d, index)
+                    need = min(limit, libtiff_dir.tile_size(d) if tiled
+                               else libtiff_dir.strip_size(d, brows))
+                    _decode_block(data, d, index, (bw, coded, 0), e,
+                                  got[plane][:need], None,
+                                  not tiled and y0 + rows >= h, False)
                 except JPEGUnsupported as err:
                     raise item16("TIFF JPEG variant") from err
-                except _Missing as err:
+                except _Unfilled as err:
                     if first:  # no buffer yet: TIFFRGBAImageGet fails
-                        raise OSError("decoder error -2") from err
+                        raise OSError(_BROKEN) from err
                     got[plane][:] = 0
                 except Exception:  # noqa: BLE001 -- libtiff reads on
                     got[plane][:] = 0
@@ -651,77 +811,87 @@ def _bits(rawmode: str) -> int:
     return row_bytes(r[:-1] + "L" if r.endswith("16N") else r, 8)
 
 
-def _blocks(tags, w, h):
-    """(tiled, block width, block height, offsets, byte counts) of the
-    strips or tiles; ValueError where their size is not a positive
-    integer."""
-    tiled = 324 in tags
-    if tiled:
-        bw, bh = tags.get(322), tags.get(323)
-        offs, cnts = tags[324], tags.get(325)
-    else:
-        bw, bh = w, tags.get(278, h)
-        offs, cnts = tags[273], tags.get(279)
-    if not isinstance(bw, int) or not isinstance(bh, int) or \
-            bw <= 0 or bh <= 0:
-        raise ValueError("block size")
-    offs = offs if isinstance(offs, tuple) else (offs,)
-    cnts = cnts if isinstance(cnts, tuple) else (
-        () if cnts is None else (cnts,))
-    return tiled, bw, bh, offs, cnts
+class _Unfilled(ValueError):
+    """libtiff's TIFFReadEncodedStrip / Tile failed before it decoded:
+    the strip or tile is out of range, has no bytes or lies past the
+    file's end."""
 
 
-class _Missing(ValueError):
-    """libtiff's TIFFFillStrip / Tile failed: the strip or tile is not
-    named, is empty or lies past the file's end."""
+# libtiff's compression -> the port's codec (PIL's names)
+_CODECS = {k: v for k, v in _COMPRESSION.items()
+           if v not in ("tiff_jpeg", "webp", "tiff_sgilog", "tiff_sgilog24")}
 
 
-def _decode_block(data, tags, compression, offs, cnts, index, shape, bps,
-                  planar, e, out, noeol, last):
+def _decode_block(data, d, index, shape, e, out, noeol, last, upsampled):
     """libtiff's TIFFReadEncodedStrip / Tile of block ``index`` into
     ``out`` (a uint8 array of as many bytes as libtiff reads; ``shape``
     is the block's width, rows and scanline bytes); raises where it
     fails."""
     bw, rows, rowb = shape
-    try:
-        off, cnt = offs[index], cnts[index]
-    except IndexError as err:
-        raise _Missing("no such strip or tile") from err
-    if not cnt or off + cnt > len(data):
-        raise _Missing("strip or tile past the end of the file")
+    off, cnt = d.offsets[index], d.counts[index]
+    if not cnt:
+        raise _Unfilled("Invalid strip byte count 0")
+    if cnt > 1 << 20:  # TIFFFillStrip's cap on a large byte count
+        full = libtiff_dir.tile_size(d, upsampled) if d.tiled else \
+            libtiff_dir.strip_size(d, min(d.rowsperstrip, d.length),
+                                   upsampled)
+        if full and (cnt - 4096) // 10 > full:
+            cnt = full * 10 + 4096
+    if cnt > len(data) or off > len(data) - cnt:
+        raise _Unfilled("Read error on strip")
     raw = data[off:off + cnt]
-    spp = 1 if planar == 2 else len(bps)
+    # TIFFStartStrip: the codec's setup (once it succeeds) and its per-strip
+    # start; a failure there is TIFFFillStrip's
+    codec = _CODECS.get(d.compression)
+    if codec is None:
+        # PIL 12.1's libtiff is built without WebP ("WEBP compression
+        # support is not configured"), and its SGILog codec takes the
+        # LogLuv and LogL photometrics only, which PIL's mode table lacks
+        raise _Unfilled(f"no decoder for compression {d.compression}")
+    if d.compression in _CCITT and d.bps != 1:
+        raise _Unfilled("Bits/sample must be 1 for Group 3/4")
+    if codec == "tiff_thunderscan" and d.bps != 4:
+        raise _Unfilled("ThunderScan takes 4-bit samples")
+    predictor = d.predictor if d.compression in _PREDICTED else 1
+    if predictor not in (1, 2, 3) or (predictor == 2 and d.bps not in (
+            8, 16, 32, 64)) or (predictor == 3 and (d.sampleformat != 3 or (
+                d.bps not in (16, 24, 32, 64)))):
+        raise _Unfilled(f"Predictor {predictor} not supported")
+    spp = 1 if d.planar == 2 else d.spp
     need = len(out)
-    if compression in _CCITT:
-        if bps[0] != 1 or spp != 1:
-            raise ValueError("CCITT takes one 1-bit sample")
-        opts = tags.get(292 if compression == "group3" else 293, 0)
-        opts = opts[0] if isinstance(opts, tuple) else opts
+    if d.compression in _CCITT:
+        opts = d.g3opts if d.compression == 3 else \
+            d.g4opts if d.compression == 4 else 0
         if _cc_lib().cc_decode(
-                raw, len(raw), _CCITT[compression], int(opts) & 0xFFFFFFFF,
-                int(tags.get(266, 1) != 2), bw, rowb, rows, off,
+                raw, len(raw), d.compression, opts,
+                int(d.fillorder != 2), bw, rowb, rows, off,
                 out.ctypes.data, ctypes.byref(noeol)) < 0:
             raise ValueError("CCITT data broken")
         return
-    if tags.get(266, 1) == 2:
+    if d.fillorder == 2:
         # FillOrder 2: libtiff reverses the bits of the raw bytes first
         raw = _REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
-    if compression == "jpeg":
-        px = _jpeg_strip(raw, tags.get(347), tags.get(262, 0), bw, rows,
-                         last, spp, bps[0])
-        px = np.ascontiguousarray(px).reshape(-1)
-        out[:len(px)] = px[:need]
+    if codec == "jpeg":
+        # JPEGDecode: the frame's rows (no more than the block's), each
+        # at the start of the block's scanline; the rest stays as it was
+        px = _jpeg_strip(raw, d.jpegtables, d.photometric, bw, rows, last,
+                         spp, d.bps)
+        stride = rowb or bw * spp
+        n = min(len(px), need // stride)
+        flat = px[:n].reshape(n, -1)
+        out[:n * stride].reshape(n, stride)[:, :flat.shape[1]] = flat
         return
-    if compression == "tiff_thunderscan":
-        px = _thunder(raw, bw, rows, rowb, bps, out)
+    if codec == "tiff_thunderscan":
+        px = _thunder(raw, bw, rows, rowb, out)
+    elif codec == "raw":
+        px = raw  # DumpModeDecode
     else:
-        px = _decompress(compression, raw, need)
+        px = _decompress(codec, raw, need)
     if len(px) < need:
         raise ValueError("short strip")
-    predictor = tags.get(317, 1) if compression in _PREDICTED else 1
-    if predictor != 1 and need != rows * ((bw * bps[0] * spp + 7) // 8):
+    if predictor != 1 and need != rows * ((bw * d.bps * spp + 7) // 8):
         raise ValueError("a predictor on subsampled YCbCr")
-    out[:] = np.frombuffer(_predict(px[:need], predictor, bps[:spp], bw,
+    out[:] = np.frombuffer(_predict(px[:need], predictor, d.bps, spp, bw,
                                     rows, e), np.uint8)
 
 
@@ -740,30 +910,125 @@ def _decompress(compression, raw, need):
         return _packbits_decode(raw)
     if compression == "zstd":
         # libtiff streams the frame until the strip is full
-        known = zstd.content_size(raw)
-        return zstd.decompress(raw, known if need <= known <= 4 * need
-                               else need)
+        return zstd.decompress_stream(raw, need)
     if compression == "lzma":
-        import lzma  # the .xz stream libtiff writes per strip or tile
-        return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(
-            raw, max_length=need)
+        return _xz(raw, need)
     if compression in ("tiff_adobe_deflate", "tiff_deflate"):
         return zlib.decompressobj().decompress(raw, need)
     raise ValueError(f"no {compression} decoder")
+
+
+def _xz(raw: bytes, need: int) -> bytes:
+    """libtiff's LZMADecode: liblzma decodes the strip's .xz stream into a
+    ``need``-byte buffer in one run, and what it wrote before an error
+    counts: the strip is whole if the buffer filled. The stdlib drops a
+    call's output at an error, so a stream that fails is decoded again:
+    its headers alone (their checks come before any byte), then the
+    block's LZMA2 data without the checks that liblzma makes only after
+    the buffer is full (the chunk's range coder and sizes, the block's
+    check, the index)."""
+    import lzma  # the .xz stream libtiff writes per strip or tile
+    try:
+        return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(
+            raw, max_length=need)
+    except lzma.LZMAError:
+        pass
+    try:
+        lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(
+            raw[:12 + (raw[12] + 1) * 4])
+        filters, chunks = _xz_block(raw, need)
+        return lzma.LZMADecompressor(lzma.FORMAT_RAW, filters=filters
+                                     ).decompress(chunks, max_length=need)
+    except (lzma.LZMAError, ValueError, IndexError):
+        return b""
+
+
+def _xz_block(raw: bytes, need: int):
+    """The filter chain of the first block of an .xz stream, and its LZMA2
+    data with the chunk that reaches byte ``need`` made to reach past it
+    (its unpacked size a byte larger if it ends there, and an LZMA chunk's
+    packed size the most there is: liblzma's LZMA decoder reads on past
+    its chunk, and the chunk's size is checked only after it returns)."""
+    import lzma
+    p = 12 + (raw[12] + 1) * 4  # past the stream and block headers
+    flags = raw[13]
+    q = 14
+    for present in (flags & 0x40, flags & 0x80):  # the sizes, if present
+        if present:
+            q += _vli_len(raw, q)
+    filters = []
+    for _ in range((flags & 3) + 1):
+        fid = _vli(raw, q)
+        q += _vli_len(raw, q)
+        plen = _vli(raw, q)
+        q += _vli_len(raw, q)
+        props = raw[q:q + plen]
+        q += plen
+        if fid == lzma.FILTER_LZMA2:
+            d = props[0]
+            filters.append({"id": fid, "dict_size": 0xFFFFFFFF if d == 40
+                            else (2 | (d & 1)) << (d // 2 + 11)})
+        elif fid == lzma.FILTER_DELTA:
+            filters.append({"id": fid, "dist": props[0] + 1})
+        else:
+            raise ValueError("a filter libtiff does not write")
+    data = bytearray(raw[p:])
+    pos = made = 0
+    while True:
+        c = data[pos]
+        if c >= 0x80:
+            size = ((c & 0x1F) << 16 | data[pos + 1] << 8 | data[pos + 2]) + 1
+            head = 6 if c >= 0xC0 else 5
+            packed = (data[pos + 3] << 8 | data[pos + 4]) + 1
+        elif c in (1, 2):
+            size = (data[pos + 1] << 8 | data[pos + 2]) + 1
+            head, packed = 3, size
+        else:
+            raise ValueError("the LZMA2 data ends before the strip")
+        if made + size < need:
+            made += size
+            pos += head + packed
+            continue
+        size += made + size == need
+        if c >= 0x80:
+            if size > 1 << 21:
+                raise ValueError("a full chunk")
+            data[pos] = c & 0xE0 | (size - 1) >> 16
+            data[pos + 1:pos + 5] = ((size - 1) & 0xFFFF).to_bytes(
+                2, "big") + b"\xff\xff"
+        else:
+            if size > 1 << 16:
+                raise ValueError("a full chunk")
+            data[pos + 1:pos + 3] = (size - 1).to_bytes(2, "big")
+        return filters, bytes(data)
+
+
+def _vli(buf: bytes, pos: int) -> int:
+    n = shift = 0
+    while True:
+        b = buf[pos]
+        n |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return n
+        pos += 1
+        shift += 7
+
+
+def _vli_len(buf: bytes, pos: int) -> int:
+    k = 1
+    while buf[pos + k - 1] & 0x80:
+        k += 1
+    return k
 
 
 _TWO_BIT = (0, 1, 0, -1)
 _THREE_BIT = (0, 1, 2, 3, 0, -3, -2, -1)
 
 
-def _thunder(raw: bytes, width: int, rows: int, rowb: int, bps, buf
-             ) -> bytes:
+def _thunder(raw: bytes, width: int, rows: int, rowb: int, buf) -> bytes:
     """libtiff's ThunderDecode, row by row: 4-bit pixels from runs of the
-    last one, 2-bit or 3-bit deltas, or raw values. A run that fills the
-    row to its end writes nothing, as libtiff's does not, so those bytes
-    keep what the buffer held."""
-    if bps[0] != 4:
-        raise ValueError("ThunderScan takes 4-bit samples")
+    last one, 2-bit or 3-bit deltas, or raw values. A run that would run
+    past the row's end writes nothing (one that ends at it does)."""
     out = bytearray(buf[:rows * rowb].tobytes())
     pos = 0
     for r in range(rows):
@@ -794,7 +1059,7 @@ def _thunder(raw: bytes, width: int, rows: int, rowb: int, bps, buf
                 else:
                     last |= last << 4
                 npix += n
-                if npix < width:
+                if npix <= width:
                     while n > 0:
                         out[op] = last
                         op += 1
@@ -818,55 +1083,89 @@ def _thunder(raw: bytes, width: int, rows: int, rowb: int, bps, buf
     return bytes(out)
 
 
-def _predict(buf: bytes, predictor: int, bps, w: int, rows: int, e: str
-             ) -> bytes:
+def _predict(buf: bytes, predictor: int, bps: int, spp: int, w: int,
+             rows: int, e: str) -> bytes:
     """libtiff's predictors, leaving native-order samples."""
-    k = bps[0] // 8
+    k = bps // 8
     if predictor == 1:
-        if bps[0] in (16, 32) and e == ">":
+        if bps in (16, 32) and e == ">":
             return np.frombuffer(buf, ">u%d" % k).astype("<u%d" % k).tobytes()
         return buf
-    if predictor == 2 and bps[0] in (8, 16, 32):
-        a = np.frombuffer(buf, e + "u%d" % k).reshape(rows, w, len(bps))
+    if predictor == 2 and bps in (8, 16, 32):
+        a = np.frombuffer(buf, e + "u%d" % k).reshape(rows, w, spp)
         return _undo_hpredictor(a).astype("<u%d" % k).tobytes()
-    if predictor == 3 and bps[0] in (32, 64):
-        return _undo_fpredictor(buf, rows, w, len(bps),
+    if predictor == 3 and bps in (32, 64):
+        return _undo_fpredictor(buf, rows, w, spp,
                                 np.dtype("<f%d" % k)).tobytes()
     raise ValueError(f"predictor {predictor}")
 
 
-def _jpeg_strip(raw: bytes, tables, photometric: int, width: int,
-                rows: int, last: bool, spp: int, bits: int) -> np.ndarray:
+# libtiff's JPEG source supplies a fake EOI each time the strip or the
+# tables run out (std_fill_input_buffer): as much of it as a marker segment
+# cut short can take
+_FAKE_EOI = b"\xff\xd9" * 32770
+
+
+def _jpeg_tables(tables: bytes) -> bytes:
+    """The marker segments libjpeg reads from JPEGTables, as libtiff feeds
+    them (JPEGSetupDecode): from the SOI to the EOI it reaches, the fake
+    EOIs past the tables' end included."""
+    s = tables + _FAKE_EOI
+    if s[:2] != b"\xff\xd8":
+        raise _Unfilled("Bogus JPEGTables field")
+    p = 2
+    while p < len(s):
+        while p < len(s) and s[p] != 0xFF:  # next_marker
+            p += 1
+        q = p
+        while q < len(s) and s[q] == 0xFF:
+            q += 1
+        if q + 2 >= len(s):
+            break
+        code = s[q]
+        if code == 0xD9:
+            return s[2:p]
+        if code == 0 or code == 1 or 0xD0 <= code <= 0xD8:
+            p = q + 1
+        else:
+            p = q + 1 + (s[q + 1] << 8 | s[q + 2])
+    return tables
+
+
+def _jpeg_strip(raw: bytes, tables, photometric, width: int, rows: int,
+                last: bool, spp: int, bits: int) -> np.ndarray:
     """One JPEG strip or tile: the file's tables, then the strip's
     frame, decoded by the port's libjpeg-turbo-equal decoder. libtiff
     asks libjpeg for RGB from a YCbCr file (a JFIF marker makes the
     decoder take the components as YCbCr) and for the components as they
-    are otherwise (an Adobe marker with transform 0)."""
-    body = raw[2:] if raw[:2] == b"\xff\xd8" else raw
+    are otherwise (an Adobe marker with transform 0). Tables or a strip
+    that does not start with an SOI, and a header libtiff's JPEGPreDecode
+    refuses, are a failure of TIFFFillStrip (_Unfilled)."""
+    segments = _jpeg_tables(tables) if tables else b""  # JPEGSetupDecode
+    if (raw + _FAKE_EOI)[:2] != b"\xff\xd8":
+        raise _Unfilled("Not a JPEG file")  # libjpeg's first_marker
     head = b"\xff\xd8"
     if photometric == 6:
         head += b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
     else:
         head += b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
-    if isinstance(tables, tuple):
-        tables = tables[0]
-    if tables:
-        t = bytes(tables)
-        t = t[2:] if t[:2] == b"\xff\xd8" else t
-        t = t[:-2] if t[-2:] == b"\xff\xd9" else t
-        head += t
-    stream = head + body
-    # libtiff's JPEGPreDecode checks (the decoder takes 8-bit samples
-    # only)
-    jh, jw, sampling = jpeg_frame(stream)
-    if jw == width and jh > rows and last:
-        pass  # a last strip coded at full height: libtiff cuts it
-    elif jw != width or jh != rows:
-        raise ValueError("JPEG strip/tile size differs from the TIFF's")
-    if len(sampling) != spp or bits != 8:
-        raise ValueError("improper JPEG component count or precision")
-    if photometric != 6 and any(s != (1, 1) for s in sampling):
-        # libtiff reads such a file raw, downsampled (a sampling that
-        # differs from the YCbCr tag is only its warning)
-        raise ValueError("downsampled JPEG without YCbCr")
-    return decode_jpeg_array(stream)[:rows]
+    stream = head + segments + raw[2:] + _FAKE_EOI
+    try:
+        # libtiff's JPEGPreDecode checks (the decoder takes 8-bit
+        # samples only)
+        jh, jw, sampling = jpeg_frame(stream)
+        if jw == width and jh > rows and last:
+            pass  # a last strip coded at full height: libtiff cuts it
+        elif jw > width or jh > rows:  # a smaller frame is its warning
+            raise ValueError("JPEG strip/tile size exceeds the TIFF's")
+        if len(sampling) != spp or bits != 8:
+            raise ValueError("improper JPEG component count or precision")
+        if photometric != 6 and any(s != (1, 1) for s in sampling):
+            # libtiff reads such a file raw, downsampled (a sampling that
+            # differs from the YCbCr tag is only its warning)
+            raise ValueError("downsampled JPEG without YCbCr")
+    except JPEGUnsupported:
+        raise
+    except Exception as err:  # noqa: BLE001 -- JPEGPreDecode's failure
+        raise _Unfilled(str(err)) from err
+    return np.ascontiguousarray(decode_jpeg_array(stream)[:rows])

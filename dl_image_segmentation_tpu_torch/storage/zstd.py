@@ -17,13 +17,16 @@ import os
 from .. import _build
 
 __all__ = ["ZstdError", "compress_raw", "content_size", "decompress",
-           "xxh64"]
+           "decompress_stream", "xxh64"]
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "host", "zstd.cc")
 _CMD = ("g++", "-O2", "-shared", "-fPIC")
 _SIGNATURES = {
     "zs_decompress": (ctypes.c_int64, [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_uint64,
+        ctypes.c_char_p, ctypes.c_uint64]),
+    "zs_decompress_stream": (ctypes.c_int64, [
         ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_uint64,
         ctypes.c_char_p, ctypes.c_uint64]),
     "zs_content_size": (ctypes.c_int64, [
@@ -90,6 +93,25 @@ def decompress(data: bytes, max_size: int) -> bytes:
                 f"zstd content exceeds the {max_size} bytes expected")
         kind = "unsupported" if n == -3 else "corrupt"
         raise ZstdError(f"{kind} zstd stream: {err.value.decode()}")
+
+
+def decompress_stream(data: bytes, size: int) -> bytes:
+    """What libtiff's zstd codec reads into a ``size``-byte strip: libzstd's
+    streaming decoder, called until the strip is full, the frame ends or
+    the input runs out. A frame that declares a content size of at most
+    ``size`` and lies whole in ``data`` is decoded and checked in one
+    pass; any other block by block, up to the first block that overfills
+    the strip, and nothing after it is read. Returns the bytes written
+    (fewer than ``size`` where libtiff's read falls short); raises
+    ZstdError where libzstd reports an error first."""
+    data = bytes(data)
+    buf = ctypes.create_string_buffer(max(size, 1))
+    err = ctypes.create_string_buffer(128)
+    n = _lib().zs_decompress_stream(data, len(data), buf, size, err, len(err))
+    if n < 0:
+        kind = "unsupported" if n == -3 else "corrupt"
+        raise ZstdError(f"{kind} zstd stream: {err.value.decode()}")
+    return buf.raw[:n]
 
 
 def compress_raw(data: bytes, checksum: bool = True) -> bytes:

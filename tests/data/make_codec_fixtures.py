@@ -17,6 +17,15 @@ does not write) and from byte edits (hierarchical, arithmetic lossless,
 DNL). RLE BMPs are encoded here. Subsampled and sYCC JPEG 2000 files,
 which PIL cannot write, go through ctypes into PIL's bundled OpenJPEG.
 
+``python tests/data/make_codec_fixtures.py pil-corrupt`` writes
+``tests/data/tiff_corrupt_outcomes.json``: the JAX package's
+``decode_jpeg`` outcome of each file of the seeded corrupt TIFF corpus
+(``corrupt_tiffs``) that the port is held to (``corrupt_scope``): the
+dtype, shape and SHA-256 of the array, or the class and message prefix.
+The card's host, which has no PIL, checks the port against it.
+``... pil-corrupt-probe`` prints how many files of that corpus the
+port's ``decode_jpeg`` decodes otherwise than the JAX package's, by part.
+
 ``python tests/data/make_codec_fixtures.py pil`` writes ``tests/data/pil``
 instead: a small file of each format and mode PIL opens that the port's
 ``decode_png`` / ``decode_jpeg`` decode (WebP, TIFF, PPM, TGA, SGI, PCX,
@@ -1029,6 +1038,253 @@ def jax_pil_outcome(data: bytes) -> dict:
     return {"array": arr}
 
 
+# ------------------------------------------------------------- corrupt TIFF
+
+CORRUPT_SEED = 7
+CORRUPT_FILES = 60
+CORRUPT_TABLE = os.path.join(HERE, "tiff_corrupt_outcomes.json")
+# compressions and the photometric whose strip data the corpus leaves out
+# (CCITT, JPEG and YCbCr): in those files only flips outside the strip or
+# tile bytes and the JPEGTables value count
+_STRIP_DATA_LEFT = {2, 3, 4, 32771, 6, 7}
+
+
+def corrupt_fixtures(pil_dir: str = os.path.join(HERE, "pil")) -> list:
+    """The committed TIFF fixtures the corpus flips, in name order."""
+    return sorted(os.path.basename(p) for p in glob.glob(
+        os.path.join(pil_dir, "*.tif"))
+        if not os.path.basename(p).startswith("refuse-"))
+
+
+def corrupt_tiffs(pil_dir: str = os.path.join(HERE, "pil")):
+    """The seeded corrupt TIFF corpus: one numpy ``default_rng(7)`` over
+    the fixtures in name order, ``CORRUPT_FILES`` files each, every file
+    with 1 to 3 bits flipped past byte 8. Yields (fixture, index, bytes,
+    flipped byte offsets)."""
+    rng = np.random.default_rng(CORRUPT_SEED)
+    for name in corrupt_fixtures(pil_dir):
+        with open(os.path.join(pil_dir, name), "rb") as f:
+            clean = f.read()
+        for i in range(CORRUPT_FILES):
+            b = bytearray(clean)
+            at = []
+            for _ in range(int(rng.integers(1, 4))):
+                pos = int(rng.integers(8, len(b)))
+                b[pos] ^= 1 << int(rng.integers(8))
+                at.append(pos)
+            yield name, i, bytes(b), at
+
+
+def corrupt_scope(clean: bytes):
+    """Of a clean fixture: None when every flip counts, else the byte
+    spans a counted flip must miss (its strips or tiles and its
+    JPEGTables value, for CCITT, JPEG and YCbCr files)."""
+    e = "<" if clean[:2] == b"II" else ">"
+    (ifd,) = struct.unpack(e + "L", clean[4:8])
+    (n,) = struct.unpack(e + "H", clean[ifd:ifd + 2])
+    size = {1: 1, 2: 1, 3: 2, 4: 4, 7: 1}
+    vals, where = {}, {}
+    for k in range(n):
+        p = ifd + 2 + 12 * k
+        tag, typ, cnt = struct.unpack(e + "HHL", clean[p:p + 8])
+        nbytes = size.get(typ, 1) * cnt
+        at = p + 8 if nbytes <= 4 else struct.unpack(
+            e + "L", clean[p + 8:p + 12])[0]
+        where[tag] = (at, at + nbytes)
+        if typ in (3, 4):
+            vals[tag] = struct.unpack(e + "HL"[typ == 4] * cnt,
+                                      clean[at:at + nbytes])
+    if vals.get(259, (1,))[0] not in _STRIP_DATA_LEFT and \
+            vals.get(262, (0,))[0] != 6:
+        return None
+    spans = [where[347]] if 347 in where else []
+    for offs, cnts in ((273, 279), (324, 325)):
+        spans += [(o, o + c) for o, c in zip(vals.get(offs, ()),
+                                             vals.get(cnts, ()))]
+    return spans
+
+
+def corrupt_counted(clean_scope, at) -> bool:
+    """Whether a file of flips ``at`` is held to the JAX outcome."""
+    return clean_scope is None or not any(
+        lo <= p < hi for p in at for lo, hi in clean_scope)
+
+
+def libtiff_leaves_unwritten(data: bytes, tmp: str) -> bool:
+    """Whether PIL's libtiff, reading the file's strips or tiles, leaves
+    bits of a block it reports read, that PIL unpacks, unwritten: a CCITT
+    strip that ends early decodes its first rows only, and PIL's strip
+    buffer is not cleared, so PIL's image holds whatever that memory held
+    before. Each block is read twice, over buffers of 0x00 and of 0xFF,
+    and the bits of each row's pixels compared."""
+    from PIL import Image
+    Image.core  # noqa: B018 -- loads PIL's libtiff
+    lib = ctypes.CDLL(pillow_lib("libtiff-*.so*"))
+    lib.TIFFOpen.restype = ctypes.c_void_p
+    lib.TIFFOpen.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lib.TIFFClose.argtypes = [ctypes.c_void_p]
+    quiet = ctypes.CFUNCTYPE(None, ctypes.c_char_p, ctypes.c_char_p,
+                             ctypes.c_void_p)(lambda *a: None)
+    for fn in (lib.TIFFSetErrorHandler, lib.TIFFSetWarningHandler):
+        fn.restype = ctypes.c_void_p
+        fn.argtypes = [ctypes.c_void_p]
+    old = (lib.TIFFSetErrorHandler(ctypes.cast(quiet, ctypes.c_void_p)),
+           lib.TIFFSetWarningHandler(ctypes.cast(quiet, ctypes.c_void_p)))
+    path = os.path.join(tmp, "unwritten.tif")
+    with open(path, "wb") as f:
+        f.write(data)
+    tif = lib.TIFFOpen(path.encode(), b"rC")
+    try:
+        if not tif:
+            return False
+        tiled = lib.TIFFIsTiled(ctypes.c_void_p(tif))
+        count, size, read = (
+            (lib.TIFFNumberOfTiles, lib.TIFFTileSize, lib.TIFFReadEncodedTile)
+            if tiled else (lib.TIFFNumberOfStrips, lib.TIFFStripSize,
+                           lib.TIFFReadEncodedStrip))
+        for fn in (count, size):
+            fn.argtypes = [ctypes.c_void_p]
+        count.restype, size.restype = ctypes.c_uint32, ctypes.c_ssize_t
+        read.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p,
+                         ctypes.c_ssize_t]
+        read.restype = ctypes.c_ssize_t
+        field = lib.TIFFGetFieldDefaulted
+        field.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p]
+        v16 = {t: ctypes.c_uint16(0) for t in (258, 277, 284)}
+        width = ctypes.c_uint32(0)
+        for t, v in v16.items():
+            field(tif, t, ctypes.byref(v))
+        field(tif, 322 if tiled else 256, ctypes.byref(width))
+        bits = width.value * v16[258].value * (
+            v16[277].value if v16[284].value == 1 else 1)
+        n = size(tif)
+        for k in range(min(count(tif), 4096)):
+            got = []
+            for fill in (b"\x00", b"\xff"):
+                buf = ctypes.create_string_buffer(fill * n, n)
+                m = read(tif, k, buf, -1)
+                got.append(np.unpackbits(np.frombuffer(buf.raw[:max(m, 0)],
+                                                       np.uint8)))
+            row = 8 * ((bits + 7) // 8)
+            rows = len(got[0]) // row if row else 0
+            a, b = (g[:rows * row].reshape(rows, row) for g in got)
+            if (a[:, :bits] != b[:, :bits]).any():
+                return True
+        return False
+    finally:
+        if tif:
+            lib.TIFFClose(tif)
+        lib.TIFFSetErrorHandler(old[0])
+        lib.TIFFSetWarningHandler(old[1])
+
+
+def corrupt_outcome(data: bytes, tmp: str):
+    """The JAX package's ``decode_jpeg`` outcome as the table holds it:
+    ["array", dtype, shape, sha256], ["shape", dtype, shape] where PIL's
+    array holds memory libtiff never wrote, or ["error", class, message
+    prefix]."""
+    import hashlib
+    import re
+    from dl_image_segmentation_tpu.raster import image as jimage
+    try:
+        arr = jimage.decode_jpeg(data)
+    except Exception as e:  # noqa: BLE001 -- the outcome is the table
+        name = type(e).__name__
+        return ["error", name, "" if name == "AssertionError"
+                else re.split(r"[(<]", str(e))[0].strip()]
+    if libtiff_leaves_unwritten(data, tmp):
+        return ["shape", arr.dtype.str, list(arr.shape)]
+    return ["array", arr.dtype.str, list(arr.shape),
+            hashlib.sha256(arr.tobytes()).hexdigest()]
+
+
+def write_corrupt_table():
+    """``tiff_corrupt_outcomes.json``: each counted file's outcome, None
+    for the files not counted."""
+    import json
+    import warnings
+    warnings.simplefilter("ignore")
+    table, scopes = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, i, data, at in corrupt_tiffs():
+            if name not in scopes:
+                with open(os.path.join(HERE, "pil", name), "rb") as f:
+                    scopes[name] = corrupt_scope(f.read())
+            table.setdefault(name, []).append(
+                corrupt_outcome(data, tmp)
+                if corrupt_counted(scopes[name], at) else None)
+    with open(CORRUPT_TABLE, "w") as f:
+        json.dump({"seed": CORRUPT_SEED, "files": CORRUPT_FILES,
+                   "outcomes": table}, f, separators=(",", ":"))
+        f.write("\n")
+    print(CORRUPT_TABLE, sum(v is not None for o in table.values()
+                             for v in o), "outcomes")
+
+
+def corrupt_part(clean: bytes) -> str:
+    """The part of the port a fixture's strip data exercises: "CCITT",
+    "JPEG", "YCbCr" (libtiff's RGBA reader) or "other"."""
+    e = "<" if clean[:2] == b"II" else ">"
+    (ifd,) = struct.unpack(e + "L", clean[4:8])
+    (n,) = struct.unpack(e + "H", clean[ifd:ifd + 2])
+    tags = {}
+    for k in range(n):
+        p = ifd + 2 + 12 * k
+        tag, typ = struct.unpack(e + "HH", clean[p:p + 4])
+        if tag in (259, 262) and typ == 3:
+            tags[tag] = struct.unpack(e + "H", clean[p + 8:p + 10])[0]
+    comp, photo = tags.get(259, 1), tags.get(262, 0)
+    if comp in (2, 3, 4, 32771):
+        return "CCITT"
+    if comp in (6, 7):
+        return "JPEG"
+    return "YCbCr" if photo == 6 else "other"
+
+
+def corrupt_probe():
+    """Prints how many files of the corpus the port's ``decode_jpeg``
+    decodes otherwise than the JAX package's (bits, dtype and shape, or
+    class and message prefix): in the fixtures whose every flip counts,
+    in the others' counted files, and in their strip data by part."""
+    import collections
+    import re
+    import warnings
+    warnings.simplefilter("ignore")
+    from dl_image_segmentation_tpu.raster import image as jimage
+    from dl_image_segmentation_tpu_torch.raster import image as timage
+
+    def outcome(fn, data):
+        try:
+            a = fn(data)
+            return a.dtype.str, a.shape, a.tobytes()
+        except Exception as e:  # noqa: BLE001 -- the outcome is compared
+            name = type(e).__name__
+            return name, "" if name == "AssertionError" else re.split(
+                r"[(<]", str(e))[0].strip()
+
+    count, parts, unwritten = collections.Counter(), collections.Counter(), 0
+    total = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, _i, data, at in corrupt_tiffs():
+            with open(os.path.join(HERE, "pil", name), "rb") as f:
+                clean = f.read()
+            scope = corrupt_scope(clean)
+            total += 1
+            if outcome(jimage.decode_jpeg, data) == outcome(
+                    timage.decode_jpeg, data):
+                continue
+            if scope is None:
+                count["every flip counts"] += 1
+            elif corrupt_counted(scope, at):
+                count["counted, outside strip data"] += 1
+                unwritten += libtiff_leaves_unwritten(data, tmp)
+            else:
+                parts[corrupt_part(clean)] += 1
+    print(f"{sum(count.values()) + sum(parts.values())} of {total} differ:",
+          dict(count), f"({unwritten} where libtiff leaves pixels "
+          "unwritten);", "strip data:", dict(parts))
+
+
 # ------------------------------------------------------------- all
 
 
@@ -1060,6 +1316,12 @@ def main():
     sys.path.insert(0, ROOT)
     if sys.argv[1:] == ["pil"]:
         write_pil_fixtures()
+        return
+    if sys.argv[1:] == ["pil-corrupt"]:
+        write_corrupt_table()
+        return
+    if sys.argv[1:] == ["pil-corrupt-probe"]:
+        corrupt_probe()
         return
     with tempfile.TemporaryDirectory() as tmp:
         for sub, ext, gen in (("jpeg", "jpg", jpeg_fixtures(tmp)),
